@@ -7,17 +7,28 @@ Needs one CUDA card (exits non-zero without one, and outside a checkout of
 the repository).  Phases, one line of output each:
 
   1. card     the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build    nvcc builds both hand-written kernels from the checkout
+  2. build    nvcc builds the three hand-written kernels from the checkout
   3. K2       gather kernel == its plain PyTorch version on the card (exact),
               at 2048x148, 4096x148 and 4096x206 with windows past the end
   4. K1       SW score kernel == its plain version on the card (exact) at
               the main path's shapes and the long-read bands, with GCUPS
-  5. main     the port's CLI maps 3 x 4096 simulated 100 bp reads (2% SNPs)
+  5. K3       the dynamic-gather probe's kernel == its plain version (exact)
+              at the probe's default 256 x 1024, REP 32, along dim 0 and 1;
+              then the probe's entry point, which launches it
+  6. single   the port's CLI maps 3 x 4096 simulated 100 bp reads (2% SNPs)
               against a 4.6 Mbp genome with planted repeats (E. coli K-12
-              scale) on the card; >= 99% mapped, >= 95% truth-correct, both
-              kernels launched by that run, and K1 scored real candidates
-  6. cuda=cpu one 4096-read batch mapped on the card and on the CPU from the
-              same state: all 17 MapResult fields equal
+              scale) on the card; >= 99% mapped, >= 95% truth-correct, K1
+              and K2 launched by that run, and K1 scored real candidates
+  7. paired   the CLI's -1/-2 maps 2 x 4096 reads (2048 FR pairs a batch,
+              insert 350 +- 40) on the same genome; >= 99% mapped, >= 95%
+              truth-correct per mate, >= 90% of pairs proper, K1 and K2
+              launched, real slots scored
+  8. top-n    the CLI's -n 2 maps 2 x 4096 reads; one primary record per
+              read, >= 99% mapped and >= 95% truth-correct primaries,
+              secondaries present, K1 and K2 launched
+  9. cuda=cpu one 4096-read batch of each path (single, paired, top-n)
+              mapped on the card and on the CPU from the same state: all 17
+              MapResult fields equal, every rank of top-n
 
 Any failure raises and ends the run without the final line.  The line
 before the last is a JSON summary of the kernels; the last line is
@@ -37,7 +48,8 @@ import numpy as np
 
 READ_LEN = 100
 BATCH = 4096
-N_BATCHES = 3
+N_BATCHES = 3          # single-end path
+N_BATCHES_NEW = 2      # paired and top-n paths
 GENOME_SIZE = 4_600_000
 SEED = 2026
 
@@ -200,6 +212,44 @@ def phase_sw(rng, cfg):
     return err, main
 
 
+def phase_row_gather():
+    import torch
+
+    from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+    from nextgenmap_tpu_torch.tools import probe_dyngather
+
+    R, W, REP = 256, 1024, 32           # the probe's defaults
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 1 << 20, (R, W), dtype=np.int32)).cuda()
+    err, timing, probes = 0, {}, []
+    for dim in (0, 1):
+        idx = torch.from_numpy(rng.integers(0, (R, W)[dim], (R, W),
+                                            dtype=np.int32)).cuda()
+        k = lambda: row_gather(x, idx, REP, dim)  # noqa: E731
+        p = lambda: row_gather_plain(x, idx, REP, dim)  # noqa: E731
+        got, ref = k(), p()
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"K3 differs from plain along dim {dim}")
+        err = max(err, max_abs_err([got], [ref]))
+        timing[dim] = (median_ms(k, 50), median_ms(p, 10))
+    # the probe's own entry point is the path that launches K3
+    row_gather.launches = 0
+    for dim in (0, 1):
+        res = probe_dyngather.probe(dim, W, R, REP)
+        check(res["ok"] and res["correct"], f"the K3 probe failed: {res}")
+        probes.append(res)
+    launches = row_gather.launches
+    check(launches > 0, "the probe never launched K3")
+    line = "; ".join(
+        f"dim {d}: kernel {a:.4f} ms / plain {b:.4f} ms, probe "
+        f"{probes[d]['ns_per_elem']:.5f} ns/elem = "
+        f"{probes[d]['gelem_per_s']:.1f} Gelem/s"
+        for d, (a, b) in timing.items())
+    print(f"[5 K3 row_gather] exact at {R}x{W} REP {REP}; {line}; probe "
+          f"launches {launches}")
+    return err, timing[1], launches
+
+
 def map_argv(workdir, device="cuda"):
     """The main path's command line: default settings (k=13, B=4096)."""
     return ["map", "-r", os.path.join(workdir, "ref.fa"),
@@ -208,74 +258,159 @@ def map_argv(workdir, device="cuda"):
             "--device", device, "--no-progress"]
 
 
-def phase_main_path(genome, workdir, device="cuda"):
-    from nextgenmap_tpu_torch import cli, synthetic
+def run_cli(path, argv):
+    """The port's CLI on argv; (stats, {kernel: launches in this run}, wall s).
+    The launch counts are set to 0 just before the run and read after."""
+    from nextgenmap_tpu_torch import cli
     from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
     from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
-
-    fa = os.path.join(workdir, "ref.fa")
-    fq = os.path.join(workdir, "reads.fq")
-    sam = os.path.join(workdir, "out.sam")
-    synthetic.write_fasta(fa, "chr", genome)
-    n = N_BATCHES * BATCH
-    codes, pos, strand = synthetic.simulate_reads(genome, n, READ_LEN, 0.02,
-                                                  seed=SEED + 1)
-    synthetic.write_fastq(fq, codes, pos, strand)
 
     sw_score.launches = 0
     gather_genome_windows.launches = 0
     t0 = time.perf_counter()
-    stats = cli.run(map_argv(workdir, device))
+    stats = cli.run(argv)
     wall = time.perf_counter() - t0
-    reads_per_s = stats.reads_per_sec()
     launches = {"sw_score": sw_score.launches,
                 "gather_windows": gather_genome_windows.launches}
+    check(launches["sw_score"] > 0, f"the {path} path never launched K1")
+    check(launches["gather_windows"] > 0,
+          f"the {path} path never launched K2")
+    check(stats.slots_scored > 0, f"K1 scored no real candidate ({path})")
+    return stats, launches, wall
 
-    records, mapped, correct = synthetic.truth_correct(sam)
+
+def summary(stats, n_batches, launches, wall):
+    phases = {k: round(v, 3) for k, v in sorted(stats.timing.items())}
+    return (f"{stats.reads_per_sec():.0f} reads/s after the index build; map "
+            f"{1e3 * stats.timing.get('map', 0.0) / n_batches:.1f} ms per "
+            f"batch; launches {launches}; real slots scored "
+            f"{stats.slots_scored}; phase s {phases}; wall {wall:.2f} s")
+
+
+def phase_main_path(genome, workdir, device="cuda"):
+    from nextgenmap_tpu_torch import synthetic
+
+    n = N_BATCHES * BATCH
+    codes, pos, strand = synthetic.simulate_reads(genome, n, READ_LEN, 0.02,
+                                                  seed=SEED + 1)
+    synthetic.write_fastq(os.path.join(workdir, "reads.fq"), codes, pos, strand)
+    stats, launches, wall = run_cli("single", map_argv(workdir, device))
+
+    records, mapped, correct = synthetic.truth_correct(
+        os.path.join(workdir, "out.sam"))
     check(records == n, f"SAM holds {records} records, expected {n}")
     check(mapped >= 0.99 * n, f"only {mapped}/{n} reads mapped")
     check(correct >= 0.95 * n, f"only {correct}/{n} reads truth-correct")
-    check(launches["sw_score"] > 0, "the main path never launched K1")
-    check(launches["gather_windows"] > 0, "the main path never launched K2")
-    check(stats.slots_scored > 0, "K1 scored no real candidate on the main path")
-    phases = {k: round(v, 3) for k, v in sorted(stats.timing.items())}
-    print(f"[5 main path] {n} reads x {READ_LEN} bp, {GENOME_SIZE} bp genome: "
+    print(f"[6 single] {n} reads x {READ_LEN} bp, {len(genome)} bp genome: "
           f"mapped {mapped} ({100 * mapped / n:.2f}%), truth-correct {correct} "
-          f"({100 * correct / n:.2f}%); {reads_per_s:.0f} reads/s after the "
-          f"index build; launches {launches}; real slots scored "
-          f"{stats.slots_scored}; phase s {phases}; wall {wall:.2f} s")
+          f"({100 * correct / n:.2f}%); "
+          + summary(stats, N_BATCHES, launches, wall))
+    return codes, launches
+
+
+def phase_paired_path(genome, workdir, device="cuda"):
+    from nextgenmap_tpu_torch import synthetic
+
+    n = N_BATCHES_NEW * BATCH
+    codes, pos, strand = synthetic.simulate_pairs(
+        genome, n // 2, READ_LEN, 0.02, insert_mean=350, insert_sd=40,
+        seed=SEED + 2)
+    fq1, fq2, sam = (os.path.join(workdir, f) for f in ("r1.fq", "r2.fq",
+                                                          "pe.sam"))
+    for path, m in ((fq1, 0), (fq2, 1)):
+        synthetic.write_fastq(path, codes[m::2], pos[m::2], strand[m::2],
+                              prefix="simpair")
+    stats, launches, wall = run_cli("paired", [
+        "map", "-r", os.path.join(workdir, "ref.fa"), "-1", fq1, "-2", fq2,
+        "-o", sam, "--device", device, "--no-progress"])
+
+    c = synthetic.sam_counts(sam)
+    check(c["records"] == n, f"SAM holds {c['records']} records, expected {n}")
+    check(c["mapped"] >= 0.99 * n, f"only {c['mapped']}/{n} mates mapped")
+    per_mate = []
+    for bit in (0x40, 0x80):
+        m = synthetic.sam_counts(sam, require=bit)
+        check(m["records"] == n // 2, f"{m['records']} records of mate {bit}")
+        check(m["correct"] >= 0.95 * n // 2,
+              f"only {m['correct']}/{n // 2} of mate {bit} truth-correct")
+        per_mate.append(m["correct"])
+    pairs_proper = c["proper"] // 2
+    check(pairs_proper >= 0.90 * n // 2,
+          f"only {pairs_proper}/{n // 2} pairs proper")
+    print(f"[7 paired] {n // 2} pairs x 2 x {READ_LEN} bp: mapped "
+          f"{c['mapped']} ({100 * c['mapped'] / n:.2f}%), truth-correct mate 1 "
+          f"{per_mate[0]}, mate 2 {per_mate[1]} "
+          f"({100 * sum(per_mate) / n:.2f}%), proper pairs {pairs_proper} "
+          f"({200 * pairs_proper / n:.2f}%; counted {stats.pairs_proper}, "
+          f"broken {stats.pairs_broken}); "
+          + summary(stats, N_BATCHES_NEW, launches, wall))
+    return codes, launches
+
+
+def phase_topn_path(genome, workdir, device="cuda"):
+    from nextgenmap_tpu_torch import synthetic
+
+    n = N_BATCHES_NEW * BATCH
+    codes, pos, strand = synthetic.simulate_reads(genome, n, READ_LEN, 0.02,
+                                                  seed=SEED + 3)
+    fq, sam = (os.path.join(workdir, f) for f in ("top.fq", "top.sam"))
+    synthetic.write_fastq(fq, codes, pos, strand)
+    stats, launches, wall = run_cli("top-n", [
+        "map", "-r", os.path.join(workdir, "ref.fa"), "-q", fq, "-o", sam,
+        "-n", "2", "--device", device, "--no-progress"])
+
+    c = synthetic.sam_counts(sam)
+    check(c["primary"] == n and c["names_multi_primary"] == 0,
+          f"{c['primary']} primary records for {n} reads "
+          f"({c['names_multi_primary']} repeated)")
+    check(c["mapped"] >= 0.99 * n, f"only {c['mapped']}/{n} reads mapped")
+    check(c["correct"] >= 0.95 * n, f"only {c['correct']}/{n} truth-correct")
+    check(c["secondary"] > 0, "no secondary record on a repeat genome")
+    print(f"[8 top-n] -n 2, {n} reads: primaries {c['primary']}, mapped "
+          f"{c['mapped']} ({100 * c['mapped'] / n:.2f}%), truth-correct "
+          f"{c['correct']} ({100 * c['correct'] / n:.2f}%), secondaries "
+          f"{c['secondary']}; " + summary(stats, N_BATCHES_NEW, launches, wall))
     return codes, launches
 
 
 def phase_cuda_equals_cpu(genome, codes, cfg, device="cuda"):
+    """codes: {path: [>= BATCH, L] reads}, mapped one batch per path."""
     import torch
 
-    from nextgenmap_tpu_torch.models.mapper import Mapper
+    from nextgenmap_tpu_torch.models.mapper import MapResult, Mapper
 
     class Codes:
         pass
 
     g = Codes()
     g.codes = genome
+    cfg = cfg.replace(topn=2)
     lens = np.full(BATCH, READ_LEN, np.int32)
-    batch = codes[:BATCH]
     gpu = Mapper(cfg, g, READ_LEN, device=device)
     index = (gpu.state.offsets.cpu().numpy(), gpu.state.positions.cpu().numpy())
     cpu = Mapper(cfg, g, READ_LEN, index, device="cpu")
-    t0 = time.perf_counter()
-    a = gpu.map_batch(batch, lens)
-    if gpu.device.type == "cuda":
-        torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    b = cpu.map_batch(batch, lens)
-    t2 = time.perf_counter()
-    for f in a._fields:
-        check(torch.equal(getattr(a, f).cpu(), getattr(b, f)),
-              f"cuda and cpu MapResult differ in {f}")
-    n_multi = int((b.n_candidates >= 2).sum())
-    print(f"[6 cuda=cpu] all {len(a._fields)} MapResult fields equal on "
-          f"{BATCH} reads ({n_multi} with >= 2 candidates); one batch "
-          f"{t1 - t0:.3f} s on cuda, {t2 - t1:.3f} s on cpu")
+    rows = []
+    for path, step in (("single", "map_batch"), ("paired", "map_batch_paired"),
+                       ("topn", "map_batch_topn")):
+        batch = codes[path][:BATCH]
+        t0 = time.perf_counter()
+        a = getattr(gpu, step)(batch, lens)
+        if gpu.device.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = getattr(cpu, step)(batch, lens)
+        t2 = time.perf_counter()
+        ranks = (a, b) if path == "topn" else ((a,), (b,))
+        for j, (ra, rb) in enumerate(zip(*ranks)):
+            for f in ra._fields:
+                check(torch.equal(getattr(ra, f).cpu(), getattr(rb, f)),
+                      f"{path}: cuda and cpu differ in rank {j} field {f}")
+        n_multi = int((ranks[1][0].n_candidates >= 2).sum())
+        rows.append(f"{path} ({len(ranks[0])} rank(s), {n_multi} reads with "
+                    f">= 2 candidates) {t1 - t0:.3f} s cuda / {t2 - t1:.3f} s "
+                    f"cpu")
+    print(f"[9 cuda=cpu] all {len(MapResult._fields)} MapResult fields "
+          f"equal on one {BATCH}-read batch of each path: " + "; ".join(rows))
 
 
 def main():
@@ -297,22 +432,39 @@ def main():
                                      max_len=2000, seed=SEED)
     k2_err, k2_ms = phase_gather(torch.from_numpy(genome).cuda(), rng)
     k1_err, k1_ms = phase_sw(rng, cfg)
+    k3_err, k3_ms, k3_launches = phase_row_gather()
+    codes, launches = {}, {}
     with tempfile.TemporaryDirectory() as workdir:
-        codes, launches = phase_main_path(genome, workdir)
+        synthetic.write_fasta(os.path.join(workdir, "ref.fa"), "chr", genome)
+        for path, phase in (("single", phase_main_path),
+                            ("paired", phase_paired_path),
+                            ("topn", phase_topn_path)):
+            codes[path], launches[path] = phase(genome, workdir)
     phase_cuda_equals_cpu(genome, codes, cfg)
     check("jax" not in sys.modules, "the port imported jax")
+
+    def by_path(name):
+        return {path: n[name] for path, n in launches.items()}
 
     kernels = [
         {"name": "sw_score", "route": "cuda",
          "source": "nextgenmap_tpu_torch/csrc/sw_score.cu",
          "replaces": "nextgenmap_tpu/ops/sw_pallas.py:150",
-         "launches": launches["sw_score"], "max_abs_err": k1_err,
+         "launches": sum(by_path("sw_score").values()),
+         "launches_by_path": by_path("sw_score"), "max_abs_err": k1_err,
          "ms": k1_ms[0], "plain_ms": k1_ms[1]},
         {"name": "gather_windows", "route": "cuda",
          "source": "nextgenmap_tpu_torch/csrc/gather_windows.cu",
          "replaces": "nextgenmap_tpu/ops/gather_pallas.py:124",
-         "launches": launches["gather_windows"], "max_abs_err": k2_err,
+         "launches": sum(by_path("gather_windows").values()),
+         "launches_by_path": by_path("gather_windows"), "max_abs_err": k2_err,
          "ms": k2_ms[0], "plain_ms": k2_ms[1]},
+        {"name": "row_gather", "route": "cuda",
+         "source": "nextgenmap_tpu_torch/csrc/row_gather.cu",
+         "replaces": "tools/probe_dyngather.py:51",
+         "launches": k3_launches,
+         "launches_by_path": {"probe_dyngather": k3_launches},
+         "max_abs_err": k3_err, "ms": k3_ms[0], "plain_ms": k3_ms[1]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

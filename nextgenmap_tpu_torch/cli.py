@@ -3,10 +3,12 @@
 Uses the reference's parser and config mapping
 (``nextgenmap_tpu.cli.build_parser`` / ``config_from_args``) and adds
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).  Flags
-outside the ported single-end slice raise NotImplementedError naming the
-ROADMAP item that will bring them.
+outside the ported slice raise NotImplementedError naming the ROADMAP item
+that will bring them.
 
     python -m nextgenmap_tpu_torch.cli map -r ref.fa -q reads.fq -o out.sam
+    python -m nextgenmap_tpu_torch.cli map -r ref.fa -1 r1.fq -2 r2.fq -o pe.sam
+    python -m nextgenmap_tpu_torch.cli map -r ref.fa -q reads.fq -n 2 -o top2.sam
 """
 
 from __future__ import annotations
@@ -19,10 +21,6 @@ from nextgenmap_tpu_torch.models.mapper import check_slice
 
 # (argument attribute, is set?, what) for flags the slice does not run yet
 _UNPORTED = (
-    ("paired", lambda v: v, "-p (paired-end) waits for ROADMAP A9"),
-    ("qry1", lambda v: v is not None, "-1/-2 (paired-end) waits for ROADMAP A9"),
-    ("qry2", lambda v: v is not None, "-1/-2 (paired-end) waits for ROADMAP A9"),
-    ("strata", lambda v: v, "--strata waits for ROADMAP A10"),
     ("bam", lambda v: v, "--bam output waits for ROADMAP A12"),
     ("resume", lambda v: v, "--resume waits for ROADMAP A12"),
     ("profile", lambda v: v, "--profile (a jax.profiler trace) has no port yet"),
@@ -57,8 +55,12 @@ def parse(argv: list[str]):
     for attr, is_set, what in _UNPORTED:
         if is_set(getattr(a, attr)):
             raise NotImplementedError(f"not in the PyTorch port yet: {what}")
-    if not a.qry:
-        parser.error("need -q query reads")
+    if not (a.qry or a.qry1):
+        parser.error("need -q or -1/-2 query reads")
+    if a.paired and a.qry1:
+        parser.error("-p (interleaved) conflicts with -1/-2")
+    if bool(a.qry1) != bool(a.qry2):
+        parser.error("-1 and -2 must be given together")
     cfg = config_from_args(a)
     check_slice(cfg)
     return argv, a, cfg
@@ -71,7 +73,8 @@ def run(argv: list[str]):
 
     return run_mapping(
         cfg, a.reference, a.qry, a.output,
-        cmdline=shlex.join(["ngm-torch"] + argv), device=a.device,
+        cmdline=shlex.join(["ngm-torch"] + argv), qry1=a.qry1, qry2=a.qry2,
+        paired_interleaved=a.paired, device=a.device,
     )
 
 

@@ -1,9 +1,9 @@
 """SAM output.
 
 Port of ``nextgenmap_tpu/io/sam.py`` (SamWriter, cigar_string, md_and_nm,
-open_output) taking its op codes from the port's ``ops/sw_ref.py``.  Records
-are byte-identical to the reference's apart from the ``@PG`` line, which
-names the port.
+open_output) and of the reference runner's ``aligned_rows``, taking its op
+codes from the port's ``ops/sw_ref.py``.  Records are byte-identical to the
+reference's apart from the ``@PG`` line, which names the port.
 """
 
 from __future__ import annotations
@@ -22,8 +22,15 @@ from nextgenmap_tpu_torch.ops.sw_ref import OP_D, OP_I, OP_M
 
 PROGRAM = "ngm-torch"
 
+FLAG_PAIRED = 0x1
+FLAG_PROPER = 0x2
 FLAG_UNMAPPED = 0x4
+FLAG_MATE_UNMAPPED = 0x8
 FLAG_REVERSE = 0x10
+FLAG_MATE_REVERSE = 0x20
+FLAG_FIRST = 0x40
+FLAG_SECOND = 0x80
+FLAG_SECONDARY = 0x100
 
 _OP_SYM = {OP_M: "M", OP_I: "I", OP_D: "D"}
 
@@ -127,15 +134,33 @@ class SamWriter:
     def tags_suffix(self) -> str:
         return f"\tRG:Z:{self.cfg.rg_id}" if self.cfg.rg_id else ""
 
+    def clip_mode(self) -> int:
+        """The native formatter's clip mode: 0 soft, 1 hard, 2 silent."""
+        return 1 if self.cfg.hard_clip else (2 if self.cfg.silent_clip else 0)
+
     def write_unmapped(self, name: str, codes: np.ndarray,
-                       qual: bytes | None) -> None:
+                       qual: bytes | None, flag_extra: int = 0) -> None:
         if self.cfg.no_unal:
             return
         seq = decode_seq(codes)
         q = qual.decode("ascii") if qual else "*"
         self.out.write(
-            f"{name}\t{FLAG_UNMAPPED}\t*\t0\t0\t*\t*\t0\t0\t{seq}\t{q}"
-            f"{self.tags_suffix()}\n"
+            f"{name}\t{FLAG_UNMAPPED | flag_extra}\t*\t0\t0\t*\t*\t0\t0"
+            f"\t{seq}\t{q}{self.tags_suffix()}\n"
+        )
+
+    def write_unmapped_at(self, name: str, codes: np.ndarray,
+                          qual: bytes | None, flag_extra: int, rname: str,
+                          pos1: int) -> None:
+        """An unmapped mate placed at its mapped partner's coordinates (the
+        SAM convention that keeps a pair collatable)."""
+        if self.cfg.no_unal:
+            return
+        seq = decode_seq(codes)
+        q = qual.decode("ascii") if qual else "*"
+        self.out.write(
+            f"{name}\t{FLAG_UNMAPPED | flag_extra}\t{rname}\t{pos1}\t0\t*"
+            f"\t=\t{pos1}\t0\t{seq}\t{q}{self.tags_suffix()}\n"
         )
 
     def write_mapped(
@@ -153,10 +178,14 @@ class SamWriter:
         q_start: int,
         q_end: int,
         identity: float,
+        flag_extra: int = 0,
+        rnext: str = "*",
+        pnext: int = 0,
+        tlen: int = 0,
     ) -> None:
         chrom_idx, chrom_pos = self.genome.abs_to_chrom(pos_abs)
         rname = self.genome.names[int(chrom_idx)]
-        flag = FLAG_REVERSE if strand else 0
+        flag = (FLAG_REVERSE if strand else 0) | flag_extra
         cigar = cigar_string(ops, n_ops, q_start, q_end, read_len,
                              self.cfg.hard_clip, self.cfg.silent_clip)
         ref_len = int(np.sum(ops[:n_ops] != OP_I))  # M + D columns
@@ -175,10 +204,28 @@ class SamWriter:
             qs = "*"
         self.out.write(
             f"{name}\t{flag}\t{rname}\t{int(chrom_pos) + 1}\t{mapq}\t{cigar}"
-            f"\t*\t0\t0\t{seq}\t{qs}"
+            f"\t{rnext}\t{pnext}\t{tlen}\t{seq}\t{qs}"
             f"\tAS:i:{score}\tNM:i:{nm}\tMD:Z:{md}\tXI:f:{identity:.4f}"
             f"{self.tags_suffix()}\n"
         )
+
+
+def aligned_rows(codes: np.ndarray, lens: np.ndarray, read_len: int,
+                 strand: np.ndarray) -> np.ndarray:
+    """[n, L] codes in ALIGNED orientation (reverse-complemented where
+    strand == 1, short reverse reads shifted back to column 0)."""
+    rc = np.where(codes < 4, 3 - codes.astype(np.int16), codes)[:, ::-1]
+    aligned = np.where((strand == 1)[:, None], rc, codes).astype(np.uint8)
+    short = np.nonzero((lens < read_len) & (strand == 1))[0]
+    if short.size:
+        sub = aligned[short]
+        Ls = lens[short][:, None]
+        j = np.arange(read_len)[None, :]
+        src = np.minimum(j + (read_len - Ls), read_len - 1)
+        shifted = np.take_along_axis(sub, src, axis=1)
+        shifted[j >= Ls] = 4
+        aligned[short] = shifted
+    return aligned
 
 
 def open_output(path: str | None) -> IO[str]:

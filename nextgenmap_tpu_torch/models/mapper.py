@@ -1,16 +1,26 @@
-"""The single-end mapping step in PyTorch, and the Mapper that owns its state.
+"""The mapping steps in PyTorch, and the Mapper that owns their state.
 
-Port of the main path of ``nextgenmap_tpu/models/mapper.py``:
+Port of ``nextgenmap_tpu/models/mapper.py``'s one-device steps.  All three
+share the front:
 
   revcomp -> canonical k-mers -> candidate search (both strands) ->
-  deterministic candidate order -> lazy scoring of reads with >= 2
-  candidates (slot compaction, corridor gather K2, SW score K1) ->
-  argmax selection -> winner corridor (K2) -> traceback -> filters + MAPQ
+  deterministic candidate order
 
-On a CUDA device both corridor fetches go through the hand-written gather
-kernel and the score pass through the hand-written SW kernel; on the CPU
+and differ in their tails:
+
+  map_step         lazy scoring of reads with >= 2 candidates (slot
+                   compaction, corridor gather K2, SW score K1) -> argmax ->
+                   winner corridor (K2) -> traceback -> filters + MAPQ
+  map_step_paired  lazy scoring of pairs where a mate has >= 2 candidates ->
+                   CxC insert-window pair resolution -> as above
+  map_step_topn    eager scoring of every candidate -> stable top-R ranks ->
+                   one compacted traceback of all ranks (K2 fetch)
+
+On a CUDA device every corridor fetch goes through the hand-written gather
+kernel and every score pass through the hand-written SW kernel; on the CPU
 their wrappers run the plain PyTorch versions.  Every output equals the
-reference's ``map_step`` exactly (tests/test_torch_mapper.py).
+reference's steps exactly (tests/test_torch_mapper.py,
+tests/test_torch_paired.py, tests/test_torch_topn.py).
 """
 
 from __future__ import annotations
@@ -176,8 +186,10 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
 
 def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
             lengths, matrices, gopen_q, gopen_r, gext, min_identity,
-            min_residues, n_cands, overflow, *, band, simple_matrix=False):
-    """Traceback the chosen candidate a1 [B] and apply filters + MAPQ."""
+            min_residues, n_cands, overflow, proper, *, band,
+            simple_matrix=False):
+    """Traceback the chosen candidate a1 [B] and apply filters + MAPQ;
+    `proper` [B] (the pair resolution's verdict) is gated by `mapped`."""
     B, C = sw.shape
     L = reads.shape[1]
     T = L + band
@@ -234,7 +246,7 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
         mismatches=ares.mismatches,
         indels=ares.indels,
         n_candidates=n_cands,
-        proper=torch.zeros_like(mapped),
+        proper=proper & mapped,
         fanout_overflow=overflow[0],
         cmr_overflow=cmr_overflow,
     )
@@ -254,10 +266,11 @@ def _single_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
     # first max = score DESC, fwd first, pos ASC; an all-zero (lazy) row
     # picks candidate 0, the read's only candidate after prefix ordering
     a1 = torch.argmax(sw, dim=1)
+    proper = torch.zeros(reads.shape[0], dtype=torch.bool, device=reads.device)
     return _finish(
         a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
         matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
-        n_cands, overflow, band=band, simple_matrix=simple_matrix,
+        n_cands, overflow, proper, band=band, simple_matrix=simple_matrix,
     )
 
 
@@ -265,6 +278,24 @@ def default_slot_cap(batch: int) -> int:
     """Score-pass slots: most reads have one candidate and need none;
     overflow is counted, so a repeat-dense genome is visible, not silent."""
     return max(512, batch // 2)
+
+
+def _f32(x, device) -> torch.Tensor:
+    """A float32 scalar tensor, like the reference's jnp.float32 arguments,
+    so that comparisons against it round as the reference's do."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _front(genome, offsets, positions, reads, lengths, sensitivity, max_freq,
+           **cand_statics):
+    """What every step shares: (int32 lengths, rc, (corr_start, strand,
+    cand_valid, n_cands, overflow)), the ordered candidates of both strands."""
+    lengths = lengths.to(I32)
+    corr_start, strand, cand_valid, n_cands, rc, overflow = _candidates(
+        genome, offsets, positions, reads, lengths,
+        _f32(sensitivity, reads.device), int(max_freq), **cand_statics,
+    )
+    return lengths, rc, (corr_start, strand, cand_valid, n_cands, overflow)
 
 
 def map_step(
@@ -278,23 +309,286 @@ def map_step(
     that holds `reads`.  sensitivity, min_identity and min_residues are
     taken as float32, like the reference's jnp.float32 arguments."""
     dev = reads.device
-    B = reads.shape[0]
-    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
-    gaps = (int(gopen_q), int(gopen_r), int(gext))
-    lengths = lengths.to(I32)
-    corr_start, strand, cand_valid, n_cands, rc, overflow = _candidates(
-        genome, offsets, positions, reads, lengths, f32(sensitivity),
-        int(max_freq), k=k, fanout_cap=fanout_cap, hit_cap=hit_cap,
-        max_cmrs=max_cmrs, diag_bin_log2=diag_bin_log2, band=band,
-        min_kmer_hits=min_kmer_hits, read_stride=read_stride,
-        packed_offsets=packed_offsets,
+    lengths, rc, cands = _front(
+        genome, offsets, positions, reads, lengths, sensitivity, max_freq,
+        k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
+        diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
+        read_stride=read_stride, packed_offsets=packed_offsets,
     )
     return _single_tail(
-        genome, reads, rc, lengths, matrices, *gaps,
-        f32(min_identity), f32(min_residues), corr_start, strand, cand_valid,
-        n_cands, overflow, band=band,
-        slot_cap=slot_cap or default_slot_cap(B),
+        genome, reads, rc, lengths, matrices,
+        int(gopen_q), int(gopen_r), int(gext),
+        _f32(min_identity, dev), _f32(min_residues, dev), *cands, band=band,
+        slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
         simple_matrix=simple_matrix,
+    )
+
+
+def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
+                 gext, min_identity, min_residues, min_insert, max_insert,
+                 pair_cutoff, corr_start, strand, cand_valid, n_cands,
+                 overflow, *, band, slot_cap, diag_bin_log2,
+                 simple_matrix=False):
+    """Lazy scoring of multi-candidate pairs, CxC insert-window pair
+    resolution, traceback + filters.  Rows 2i / 2i+1 are the mates of pair i."""
+    B, L = reads.shape
+    C = corr_start.shape[1]
+    P = B // 2
+    bin_w = 1 << diag_bin_log2
+
+    np_ = n_cands.reshape(P, 2)
+    pair_multi = (np_[:, 0] >= 2) | (np_[:, 1] >= 2)
+    sw, slot_ovf = _score_candidates(
+        genome, reads, rc, lengths, corr_start, strand, cand_valid,
+        pair_multi.repeat_interleave(2), matrices, gopen_q, gopen_r, gext,
+        band=band, slot_cap=slot_cap, simple_matrix=simple_matrix,
+    )
+    overflow = (overflow[0], overflow[1] + slot_ovf)
+
+    s = sw.reshape(P, 2, C)
+    # approximate alignment start = corridor start + slack (the diagonal)
+    slack = (band - 2 * bin_w) // 2
+    pos = (corr_start + slack).reshape(P, 2, C)
+    st = strand.reshape(P, 2, C)
+    exist = cand_valid.reshape(P, 2, C)
+    s1m, s2m = s[:, 0, :, None], s[:, 1, None, :]          # [P, C, 1], [P, 1, C]
+    p1, p2 = pos[:, 0, :, None], pos[:, 1, None, :]
+    st1, st2 = st[:, 0, :, None], st[:, 1, None, :]
+
+    # FR orientation: strands differ and the forward mate lies leftmost
+    margin = 2 * bin_w
+    fwd_left = torch.where(st1 == 0, p1 <= p2 + margin, p2 <= p1 + margin)
+    span = (p2 - p1).abs() + L                  # approximate outer distance
+    ok_ins = (span >= min_insert - margin) & (span <= max_insert + margin)
+    geo = ((st1 != st2) & fwd_left & ok_ins
+           & exist[:, 0, :, None] & exist[:, 1, None, :])
+    valid = geo & (s1m > 0) & (s2m > 0)
+    flat = torch.where(valid, s1m + s2m, -1).reshape(P, C * C)
+    pair_best = flat.max(dim=1).values
+    pair_arg = torch.argmax(flat, dim=1)        # first max: c1 ASC, then c2 ASC
+    c1s, c2s = pair_arg // C, pair_arg % C
+
+    best1 = s[:, 0].max(dim=1).values
+    best2 = s[:, 1].max(dim=1).values
+    f32 = torch.float32
+    proper_scored = (pair_best > 0) & (
+        pair_best.to(f32) >= pair_cutoff * (best1 + best2).to(f32)
+    )
+    # single x single: the only combination is (0, 0), and its propriety is
+    # pure geometry (the final `proper` is still gated by both mates mapping)
+    proper_single = geo[:, 0, 0] & (np_[:, 0] >= 1) & (np_[:, 1] >= 1)
+    proper_pair = torch.where(pair_multi, proper_scored, proper_single)
+
+    c1 = torch.where(pair_multi, c1s, 0)
+    c2 = torch.where(pair_multi, c2s, 0)
+
+    a_single = torch.argmax(sw, dim=1).reshape(P, 2)
+    sel1 = torch.where(proper_pair, c1, a_single[:, 0])
+    sel2 = torch.where(proper_pair, c2, a_single[:, 1])
+    a1 = torch.stack([sel1, sel2], dim=1).reshape(B)
+    return _finish(
+        a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
+        matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
+        n_cands, overflow, proper_pair.repeat_interleave(2), band=band,
+        simple_matrix=simple_matrix,
+    )
+
+
+def map_step_paired(
+    genome, offsets, positions, reads, lengths, matrices,
+    gopen_q, gopen_r, gext, sensitivity, max_freq, min_identity, min_residues,
+    min_insert, max_insert, pair_cutoff,
+    *, k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
+    min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
+    simple_matrix=False,
+) -> MapResult:
+    """Paired-end step: rows 2i / 2i+1 are mates (DESIGN.md rule 13).
+
+    Pairs resolve on candidate scores before the traceback: a CxC
+    combined-score argmax over an FR-orientation + insert-window mask,
+    falling back to the best singletons when no pair clears
+    pair_cutoff * (best1 + best2) (a broken pair).  A pair whose mates both
+    have one candidate is not scored.  min_insert / max_insert are taken as
+    int32 and pair_cutoff as float32, like the reference's arguments.
+    """
+    dev = reads.device
+    lengths, rc, cands = _front(
+        genome, offsets, positions, reads, lengths, sensitivity, max_freq,
+        k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
+        diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
+        read_stride=read_stride, packed_offsets=packed_offsets,
+    )
+    i32 = lambda x: torch.as_tensor(x, dtype=I32, device=dev)  # noqa: E731
+    return _paired_tail(
+        genome, reads, rc, lengths, matrices,
+        int(gopen_q), int(gopen_r), int(gext),
+        _f32(min_identity, dev), _f32(min_residues, dev),
+        i32(min_insert), i32(max_insert), _f32(pair_cutoff, dev), *cands,
+        band=band, slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
+        diag_bin_log2=diag_bin_log2, simple_matrix=simple_matrix,
+    )
+
+
+def top_ranks(sw: torch.Tensor, r: int) -> torch.Tensor:
+    """[B, r] column indices of each row's r largest scores, ties to the
+    lower index (rule 11 order): the order of jax.lax.top_k, which is
+    stable.  torch.topk promises no order of ties, so this is the head of a
+    stable descending sort."""
+    return torch.sort(sw, dim=1, descending=True, stable=True).indices[:, :r]
+
+
+def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
+               min_identity, min_residues, corr_start, strand, cand_valid,
+               n_cands, overflow, *, band, slot_cap, topn,
+               simple_matrix=False):
+    """Eager scoring, stable rank selection, ONE compacted traceback of all
+    ranks.  Returns `topn` MapResults, rank 0 first."""
+    B, L = reads.shape
+    dev = reads.device
+    T = L + band
+    G = genome.shape[0]
+    R = topn
+    sw, slot_ovf = _score_candidates(
+        genome, reads, rc, lengths, corr_start, strand, cand_valid,
+        torch.ones(B, dtype=torch.bool, device=dev), matrices, gopen_q,
+        gopen_r, gext, band=band, slot_cap=slot_cap,
+        simple_matrix=simple_matrix,
+    )
+    overflow = (overflow[0], overflow[1] + slot_ovf)
+    proper = torch.zeros(B, dtype=torch.bool, device=dev)
+    top_idx = top_ranks(sw, R)
+    # entries past a read's candidates land on zero-score cells: gate them
+    # so they cannot alias candidate 0.  Validity is a prefix along ranks
+    tv = torch.gather(cand_valid, 1, top_idx)                     # [B, R]
+    ts = torch.gather(sw, 1, top_idx)
+    jr = torch.arange(R, device=dev)[None, :]
+    rvalid = tv & ((jr == 0) | (ts > 0))
+    t_start = torch.gather(corr_start, 1, top_idx)
+    t_strand = torch.gather(strand, 1, top_idx)
+
+    # compact the valid (read, rank) pairs into slot_cap slots, owned as in
+    # _score_candidates: slot s belongs to the last read b with base[b] <= s
+    S2 = slot_cap
+    n_r = rvalid.sum(dim=1, dtype=I32)
+    base = torch.cumsum(n_r, dim=0, dtype=I32) - n_r
+    total = base[-1] + n_r[-1]
+    slot2_ovf = (total > S2).to(I32)
+    sar = torch.arange(S2, dtype=I32, device=dev)
+    b_of = torch.searchsorted(base, sar, right=True, out_int32=True) - 1
+    slot_valid = sar < total.clamp(max=S2)
+    j_of = sar - base[b_of.long()]              # the rank (prefix validity)
+    b_safe = torch.where(slot_valid, b_of, 0).long()
+    flat_bj = torch.where(slot_valid, b_of * R + j_of, 0).long()
+
+    start_s = t_start.reshape(-1)[flat_bj]
+    strand_s = t_strand.reshape(-1)[flat_bj]
+    starts = torch.where(slot_valid, start_s, 0).clamp(0, max(0, G - T))
+    # the ranks' corridors (kernel K2 on the card)
+    corr_s = gather_genome_windows(genome, starts.to(I32).contiguous(), T)
+    corr_s = torch.where(slot_valid[:, None], corr_s, 4).to(torch.uint8)
+    q_s = torch.where((strand_s == 1)[:, None], rc[b_safe], reads[b_safe])
+    ares = banded_sw_align(
+        q_s, lengths[b_safe], corr_s, matrices, gopen_q, gopen_r, gext,
+        strand_s, band=band, simple=simple_matrix,
+    )
+    overflow = (
+        overflow[0],
+        overflow[1] + slot2_ovf
+        + (slot_valid & ares.trunc).sum(dtype=I32),
+    )
+
+    # scatter every align field back to the [B, R] rank grid; every invalid
+    # slot writes the one discarded dump row
+    scat_idx = torch.where(slot_valid, flat_bj, B * R)
+
+    def scat(x):
+        flat = torch.zeros((B * R + 1,) + x.shape[1:], dtype=x.dtype,
+                           device=dev)
+        flat[scat_idx] = x
+        return flat[:B * R].reshape((B, R) + x.shape[1:])
+
+    g_score = scat(torch.where(slot_valid, ares.score, 0))
+    g_qs, g_qe, g_rs = scat(ares.q_start), scat(ares.q_end), scat(ares.r_start)
+    g_ops, g_nops = scat(ares.ops), scat(ares.n_ops)
+    g_match, g_mis = scat(ares.matches), scat(ares.mismatches)
+    g_ind, g_trunc = scat(ares.indels), scat(ares.trunc)
+
+    # second best at a DIFFERENT locus per rank (the rule of _finish)
+    far = (corr_start[:, None, :] - t_start[:, :, None]).abs() > L  # [B, R, C]
+    s2 = torch.where(far, sw[:, None, :], 0).max(dim=2).values      # [B, R]
+
+    f32 = torch.float32
+    results = []
+    for j in range(R):
+        s1 = g_score[:, j]
+        identity = (g_match[:, j].to(f32)
+                    / g_nops[:, j].clamp(min=1).to(f32))
+        residues = (g_qe[:, j] - g_qs[:, j] + 1).to(f32)
+        mapped = (
+            (s1 > 0) & (lengths > 0)
+            & (identity >= min_identity)
+            & (residues >= min_residues * lengths.to(f32))
+            & ~g_trunc[:, j]
+        )
+        s1f = s1.clamp(min=1).to(f32)
+        mapq = torch.round(60.0 * (s1 - s2[:, j]).to(f32) / s1f)
+        mapq = mapq.clamp(0, 60).to(I32)
+        results.append(MapResult(
+            mapped=mapped,
+            strand=t_strand[:, j],
+            pos=t_start[:, j] + g_rs[:, j],
+            mapq=torch.where(mapped, mapq, 0),
+            score=s1,
+            second=s2[:, j],
+            q_start=g_qs[:, j],
+            q_end=g_qe[:, j],
+            ops=g_ops[:, j],
+            n_ops=g_nops[:, j],
+            matches=g_match[:, j],
+            mismatches=g_mis[:, j],
+            indels=g_ind[:, j],
+            n_candidates=n_cands,
+            proper=proper,
+            fanout_overflow=overflow[0],
+            cmr_overflow=overflow[1],
+        ))
+    return tuple(results)
+
+
+def default_topn_slot_cap(batch: int) -> int:
+    """Top-n slots: scoring is eager, so every candidate takes one."""
+    return 2 * batch
+
+
+def map_step_topn(
+    genome, offsets, positions, reads, lengths, matrices,
+    gopen_q, gopen_r, gext, sensitivity, max_freq, min_identity, min_residues,
+    *, k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
+    min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
+    simple_matrix=False, topn=2,
+) -> tuple:
+    """Single-end mapping with up to `topn` alignments per read (-n).
+
+    Returns `topn` MapResults ordered score DESC (DESIGN.md rule 11 ties);
+    rank j is valid for a read where its score > 0.  The host emitter
+    applies --strata and near-duplicate suppression and marks ranks 1.. as
+    SAM secondaries.  Ranking needs every candidate's score, so scoring is
+    eager (slot_cap defaults to 2B), and the same slot_cap bounds the
+    compacted traceback of the valid ranks.
+    """
+    dev = reads.device
+    lengths, rc, cands = _front(
+        genome, offsets, positions, reads, lengths, sensitivity, max_freq,
+        k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
+        diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
+        read_stride=read_stride, packed_offsets=packed_offsets,
+    )
+    return _topn_tail(
+        genome, reads, rc, lengths, matrices,
+        int(gopen_q), int(gopen_r), int(gext),
+        _f32(min_identity, dev), _f32(min_residues, dev), *cands, band=band,
+        slot_cap=slot_cap or default_topn_slot_cap(reads.shape[0]),
+        topn=topn, simple_matrix=simple_matrix,
     )
 
 
@@ -310,7 +604,6 @@ def check_slice(cfg: NgmConfig) -> None:
     unported = [
         (cfg.bs_mapping, "--bs-mapping (bisulfite) waits for ROADMAP A11"),
         (cfg.end_to_end, "--end-to-end (glocal SW) waits for ROADMAP A11"),
-        (cfg.topn > 1, "-n/--topn > 1 waits for ROADMAP A10"),
         (cfg.megabatch > 1, "--megabatch waits for ROADMAP A12"),
         (cfg.index_shards > 1, "--index-shards > 1 waits for ROADMAP A13"),
         (cfg.devices != 1, "--devices/-g other than one device waits for "
@@ -382,15 +675,37 @@ class Mapper:
             simple_matrix=self.simple_matrix,
         )
 
-    def map_batch(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
-        """Map one [B, L] batch; the result stays on the mapper's device."""
+    def _common_args(self, codes: np.ndarray, lengths: np.ndarray) -> tuple:
+        """The positional arguments every step shares, for one [B, L] batch."""
         cfg = self.cfg
         st = self.state
         reads = torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(self.device)
         lens = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(self.device)
-        return map_step(
+        return (
             st.genome, self._offsets, st.positions, reads, lens, st.matrices,
             cfg.gap_read_penalty, cfg.gap_ref_penalty, cfg.gap_extend_penalty,
             cfg.sensitivity, cfg.max_kmer_freq, cfg.min_identity,
-            cfg.min_residues, **self.statics(),
+            cfg.min_residues,
         )
+
+    def map_batch(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
+        """Map one [B, L] batch; the result stays on the mapper's device."""
+        return map_step(*self._common_args(codes, lengths), **self.statics())
+
+    def map_batch_paired(self, codes: np.ndarray,
+                         lengths: np.ndarray) -> MapResult:
+        """Map one batch of pairs (rows 2i / 2i+1 are mates)."""
+        cfg = self.cfg
+        return map_step_paired(
+            *self._common_args(codes, lengths), cfg.min_insert_size,
+            cfg.max_insert_size, cfg.pair_score_cutoff, **self.statics(),
+        )
+
+    def topn(self) -> int:
+        """Ranks per read of map_batch_topn: -n, at most max_cmrs."""
+        return min(self.cfg.topn, self.cfg.max_cmrs)
+
+    def map_batch_topn(self, codes: np.ndarray, lengths: np.ndarray) -> tuple:
+        """Map one batch with up to topn() ranked alignments per read."""
+        return map_step_topn(*self._common_args(codes, lengths),
+                             topn=self.topn(), **self.statics())

@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 All of ``nextgenmap_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into ONE shared library with a plain C interface, which
-is loaded with ``ctypes``.  No PyTorch header is compiled, so a build takes
-seconds.  The build runs at first use, into ``nextgenmap_tpu_torch/_build/``
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+linked into ONE shared library with a plain C interface, which is loaded
+with ``ctypes``.  No PyTorch header is compiled, so a build takes seconds.  The build runs at first use, into ``nextgenmap_tpu_torch/_build/``
 (listed in .gitignore), keyed by a hash of the sources and the flags; a
 failed build raises with nvcc's stderr.
 
@@ -27,7 +27,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -37,6 +37,7 @@ SIGNATURES = {
     "ngm_gather_windows": (P, I64, P, I64, I32, P, P),
     "ngm_sw_score": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32,
                      P, P, P, P),
+    "ngm_row_gather": (P, P, I32, I32, I32, I32, P, P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -63,22 +64,35 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"ngm_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run(procs: list[subprocess.Popen], what: list[str]) -> None:
+    """Wait for every process; raise with the stderr of the first failure."""
+    outs = [p.communicate() for p in procs]
+    for p, (out, err), name in zip(procs, outs, what):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {name} ({p.returncode}):\n{err}{out}"
+            )
+
+
 def build() -> str:
     """Compile the kernels unless the keyed library exists; returns its path."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
+    srcs = sources()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        objs = [os.path.join(td, f"{i}.o") for i in range(len(srcs))]
+        _run([subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True)
+              for src, obj in zip(srcs, objs)],
+             [os.path.basename(src) for src in srcs])
         tmp = os.path.join(td, "lib.so")
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}{proc.stdout}"
-            )
+        _run([subprocess.Popen([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True)], ["the link"])
         os.replace(tmp, so)
     return so
 

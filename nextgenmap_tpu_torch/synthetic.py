@@ -5,7 +5,8 @@ A random genome gives every read exactly one candidate, so the score pass
 segments of the genome elsewhere, half of them exact and half mutated at
 ~1%, so reads from those regions have two or more candidates and reach the
 banded SW score.  Read names follow the repo's truth convention
-``<prefix>_<i>_<pos>_<strand>`` (0-based forward position, strand 0/1).
+``<prefix>_<i>_<pos>_<strand>`` (0-based forward position, strand 0/1); the
+two mates of a pair carry their own truth each.
 """
 
 from __future__ import annotations
@@ -56,6 +57,43 @@ def simulate_reads(genome: np.ndarray, n: int, read_len: int,
     return codes, pos, strand
 
 
+def simulate_pairs(genome: np.ndarray, n_pairs: int, read_len: int,
+                   snp_rate: float, *, insert_mean: int = 350,
+                   insert_sd: int = 40, seed: int = 0):
+    """FR pairs with SNPs: for each fragment of ~N(insert_mean, insert_sd)
+    bp, the left read forward and the right read reverse-complemented; which
+    of the two is mate 1 is drawn per pair, as in a real library.
+
+    Returns (codes [2n, read_len] uint8, pos [2n] int64, strand [2n] int8)
+    with the mates of pair i in rows 2i (mate 1) and 2i+1 (mate 2); pos is
+    each mate's own 0-based forward position.
+    """
+    rng = np.random.default_rng(seed)
+    G = genome.shape[0]
+    ins = np.rint(rng.normal(insert_mean, insert_sd, n_pairs)).astype(np.int64)
+    ins = np.maximum(ins, read_len + 10)
+    cols = np.arange(read_len)[None, :]
+    left = rng.integers(0, G - ins)
+    while True:                     # both reads of a fragment all ACGT
+        ends = np.concatenate([left, left + ins - read_len])
+        bad = (genome[ends[:, None] + cols] >= 4).any(axis=1)
+        bad = bad[:n_pairs] | bad[n_pairs:]
+        if not bad.any():
+            break
+        left[bad] = rng.integers(0, G - ins[bad])
+    right = left + ins - read_len
+    swap = rng.random(n_pairs) < 0.5              # mate 1 is the right read
+    pos = np.where(swap[:, None], np.stack([right, left], 1),
+                   np.stack([left, right], 1)).reshape(-1)
+    strand = np.where(swap[:, None], [1, 0], [0, 1]).reshape(-1).astype(np.int8)
+    win = genome[pos[:, None] + cols].astype(np.int64)
+    snp = rng.random(win.shape) < snp_rate
+    win = np.where(snp, (win + rng.integers(1, 4, win.shape)) % 4, win)
+    rc = (3 - win)[:, ::-1]
+    codes = np.where(strand[:, None] == 1, rc, win).astype(np.uint8)
+    return codes, pos, strand
+
+
 def write_fasta(path: str, name: str, codes: np.ndarray, width: int = 70) -> None:
     seq = _BASES[codes].tobytes()
     with open(path, "wb") as f:
@@ -73,21 +111,46 @@ def write_fastq(path: str, codes: np.ndarray, pos: np.ndarray,
                     + _BASES[row].tobytes() + b"\n+\n" + qual + b"\n")
 
 
-def truth_correct(sam_path: str, tol: int = 5) -> tuple[int, int, int]:
-    """(records, mapped, truth-correct) of a single-chromosome SAM whose read
-    names carry the truth: POS within `tol` bp and the strand right."""
-    n = mapped = correct = 0
+def sam_counts(sam_path: str, tol: int = 5, require: int = 0) -> dict:
+    """Counts over the records of a single-chromosome SAM whose read names
+    carry the truth, of the records whose FLAG has every bit of `require`
+    (0x40: mate 1 only).  A primary record is truth-correct when it is
+    mapped, its POS lies within `tol` bp of the truth and its strand is right.
+
+    Keys: records, primary, secondary, mapped and correct (of the primary
+    records), proper (primary records flagged 0x2), and names_multi_primary
+    (read names with more than one primary record).
+    """
+    c = dict(records=0, primary=0, secondary=0, mapped=0, correct=0,
+             proper=0, names_multi_primary=0)
+    seen: set[str] = set()
     with open(sam_path) as f:
         for line in f:
             if line.startswith("@"):
                 continue
             fields = line.split("\t", 4)
-            n += 1
             flag = int(fields[1])
+            if flag & require != require:
+                continue
+            c["records"] += 1
+            if flag & 0x100:
+                c["secondary"] += 1
+                continue
+            c["primary"] += 1
+            if fields[0] in seen:
+                c["names_multi_primary"] += 1
+            seen.add(fields[0])
+            c["proper"] += bool(flag & 0x2)
             if flag & 4:
                 continue
-            mapped += 1
+            c["mapped"] += 1
             _, _, p, s = fields[0].rsplit("_", 3)
             if ((flag >> 4) & 1) == int(s) and abs(int(fields[3]) - 1 - int(p)) <= tol:
-                correct += 1
-    return n, mapped, correct
+                c["correct"] += 1
+    return c
+
+
+def truth_correct(sam_path: str, tol: int = 5) -> tuple[int, int, int]:
+    """(primary records, mapped, truth-correct) of sam_counts."""
+    c = sam_counts(sam_path, tol)
+    return c["primary"], c["mapped"], c["correct"]

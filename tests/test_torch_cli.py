@@ -1,5 +1,7 @@
 """The port's CLI: SAM byte-identical to the JAX CLI's (apart from @PG),
-a jax-free import, and clear refusals outside the ported slice."""
+a jax-free import, and clear refusals outside the ported slice (the paired
+and top-n paths are held in tests/test_torch_paired.py and
+tests/test_torch_topn.py)."""
 
 import os
 import subprocess
@@ -78,6 +80,9 @@ def test_import_loads_no_jax():
         "import nextgenmap_tpu_torch.pipeline.runner\n"
         "import nextgenmap_tpu_torch.ops.sw_kernel\n"
         "import nextgenmap_tpu_torch.ops.gather_kernel\n"
+        "import nextgenmap_tpu_torch.ops.row_gather\n"
+        "import nextgenmap_tpu_torch.pair.resolve\n"
+        "import nextgenmap_tpu_torch.tools.probe_dyngather\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -95,7 +100,7 @@ def test_device_cuda_raises_without_card(workload, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-p"], ["--bs-mapping"], ["-n", "2"], ["--end-to-end"],
+    ["--resume"], ["--bs-mapping"], ["--dist-nprocs", "2"], ["--end-to-end"],
     ["--index-shards", "2"], ["--megabatch", "2"], ["--bam"],
 ])
 def test_out_of_slice_flags_raise(workload, flags):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the single-end, paired and top-n steps on the card against the CPU.
 
 Marked `cuda`: every test needs a CUDA card and skips without one (the
 kernels have no CPU mode).  Run on the card with
@@ -16,9 +17,12 @@ from nextgenmap_tpu.ops.scoring import score_matrix
 from nextgenmap_tpu_torch.models.mapper import Mapper
 from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
+from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
-from nextgenmap_tpu_torch.synthetic import repeat_genome, simulate_reads
+from nextgenmap_tpu_torch.synthetic import (
+    repeat_genome, simulate_pairs, simulate_reads,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +98,59 @@ def test_mapper_cuda_equals_cpu(dev):
     for f in a._fields:
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     assert int((b.n_candidates >= 2).sum()) > 0
+
+
+@pytest.mark.parametrize("dim,r,w,rep", [
+    (1, 256, 1024, 32), (0, 256, 1024, 32), (1, 3, 5, 9), (0, 5, 3, 11),
+    (1, 4, 20_000, 3), (0, 300, 77, 0),
+])
+def test_row_gather_kernel_equals_plain(dev, dim, r, w, rep):
+    rng = np.random.default_rng(r + w + dim)
+    x = torch.from_numpy(
+        rng.integers(-(1 << 30), 1 << 30, (r, w), dtype=np.int32)).to(dev)
+    idx = torch.from_numpy(
+        rng.integers(-3 * w, 3 * w, (r, w), dtype=np.int32)).to(dev)
+    before = row_gather.launches
+    got = row_gather(x, idx, rep, dim)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    assert torch.equal(got, row_gather_plain(x, idx, rep, dim))
+
+
+def _mappers(dev, cfg, g):
+    class _G:
+        codes = g
+
+    gpu = Mapper(cfg, _G(), 100, device=dev)
+    index = (gpu.state.offsets.cpu().numpy(), gpu.state.positions.cpu().numpy())
+    return gpu, Mapper(cfg, _G(), 100, index, device="cpu")
+
+
+def test_paired_and_topn_cuda_equal_cpu(dev):
+    """Both new paths launch K1 and K2 on the card and equal the CPU."""
+    g = repeat_genome(60_000, n_repeats=12, min_len=800, max_len=2000, seed=7)
+    lens = np.full(256, 100, np.int32)
+    gpu, cpu = _mappers(dev, NgmConfig(kmer=11, topn=2), g)
+
+    codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=8)
+    launches = (sw_score.launches, gather_genome_windows.launches)
+    a = gpu.map_batch_paired(codes, lens)
+    torch.cuda.synchronize()
+    assert sw_score.launches == launches[0] + 1
+    assert gather_genome_windows.launches == launches[1] + 2
+    b = cpu.map_batch_paired(codes, lens)
+    for f in a._fields:
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    assert int(b.proper.sum()) > 200
+
+    codes, _, _ = simulate_reads(g, 256, 100, 0.02, seed=9)
+    launches = (sw_score.launches, gather_genome_windows.launches)
+    a = gpu.map_batch_topn(codes, lens)
+    torch.cuda.synchronize()
+    assert sw_score.launches == launches[0] + 1
+    assert gather_genome_windows.launches == launches[1] + 2
+    b = cpu.map_batch_topn(codes, lens)
+    for j, (ra, rb) in enumerate(zip(a, b)):
+        for f in ra._fields:
+            assert torch.equal(getattr(ra, f).cpu(), getattr(rb, f)), (j, f)
+    assert int(b[1].mapped.sum()) > 0

@@ -123,7 +123,7 @@ def test_mapper_builds_same_state_and_results_as_jax(repeats):
 
 
 @pytest.mark.parametrize("change", [
-    dict(bs_mapping=True), dict(end_to_end=True), dict(topn=2),
+    dict(bs_mapping=True), dict(end_to_end=True), dict(bs_mapping=True, topn=2),
     dict(index_shards=2), dict(devices=2), dict(megabatch=2),
 ])
 def test_out_of_slice_config_raises(change):
