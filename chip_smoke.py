@@ -9,9 +9,11 @@ the repository).  Phases, one line of output each:
   1. card     the card's name and power limit (nvidia-smi), torch and CUDA
   2. build    nvcc builds the three hand-written kernels from the checkout
   3. K2       gather kernel == its plain PyTorch version on the card (exact),
-              at 2048x148, 4096x148 and 4096x206 with windows past the end
+              at 2048x148, 4096x148, 4096x206 and the long reads' 614x1184,
+              with windows past the end
   4. K1       SW score kernel == its plain version on the card (exact) at
-              the main path's shapes and the long-read bands, with GCUPS
+              the main path's shapes and the long-read bands, local and
+              glocal (--end-to-end), with GCUPS
   5. K3       the dynamic-gather probe's kernel == its plain version (exact)
               at the probe's default 256 x 1024, REP 32, along dim 0 and 1;
               then the probe's entry point, which launches it
@@ -26,7 +28,20 @@ the repository).  Phases, one line of output each:
   8. top-n    the CLI's -n 2 maps 2 x 4096 reads; one primary record per
               read, >= 99% mapped and >= 95% truth-correct primaries,
               secondaries present, K1 and K2 launched
-  9. cuda=cpu one 4096-read batch of each path (single, paired, top-n)
+  9. e2e      the CLI's --end-to-end maps 2 x 4096 reads (2% SNPs) on the
+              same genome; >= 99% mapped, >= 95% truth-correct, no S/H op in
+              any mapped CIGAR, K1 (glocal) and K2 launched
+ 10. bisulfite the CLI's --bs-mapping maps 2 x 4096 bisulfite reads (original
+              top and bottom strands, 80% of C read as T) on the same
+              genome; >= 90% truth-correct, K1 and K2 launched, real slots
+              scored
+ 11. long     the CLI maps 1000 bp reads (3% SNPs, 0.5% indels) in 2
+              batches of the size the runner picks for them (614); >= 90%
+              mapped, >= 90% of the mapped within 16 bp of the truth, every
+              CIGAR consumes SEQ and every NM equals the edits, K1 at W 184
+              and K2 at T 1184 launched
+ 12. cuda=cpu one batch of each path (single, paired, top-n, end-to-end,
+              bisulfite single and paired: 4096 reads; 1000 bp: 614 reads)
               mapped on the card and on the CPU from the same state: all 17
               MapResult fields equal, every rank of top-n
 
@@ -49,9 +64,11 @@ import numpy as np
 READ_LEN = 100
 BATCH = 4096
 N_BATCHES = 3          # single-end path
-N_BATCHES_NEW = 2      # paired and top-n paths
+N_BATCHES_NEW = 2      # every later path
 GENOME_SIZE = 4_600_000
 SEED = 2026
+LONG_LEN = 1000
+LONG_BATCH = 614       # the runner's batch for 1000 bp reads
 
 
 def check(ok, what):
@@ -120,7 +137,7 @@ def phase_gather(genome_dev, rng):
     G = genome_dev.shape[0]
     err = 0
     timing = {}
-    for n, T in ((2048, 148), (4096, 148), (4096, 206)):
+    for n, T in ((2048, 148), (4096, 148), (4096, 206), (LONG_BATCH, 1184)):
         s = rng.integers(0, G + 1, n).astype(np.int32)
         s[:6] = [0, G - T, G - T + 1, G - T // 2, G - 1, G]   # past the end too
         starts = torch.from_numpy(s).cuda()
@@ -176,14 +193,18 @@ def phase_sw(rng, cfg):
     from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
     from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
 
-    shapes = [  # (S, L, W, general matrices)
-        (2048, 100, 48, False), (2048, 150, 56, False), (1000, 100, 48, True),
-        (777, 100, 48, False), (64, 500, 120, False), (32, 1000, 184, False),
+    shapes = [  # (S, L, W, general matrices, mode)
+        (2048, 100, 48, False, "local"), (2048, 150, 56, False, "local"),
+        (1000, 100, 48, True, "local"), (777, 100, 48, False, "local"),
+        (64, 500, 120, False, "local"), (32, 1000, 184, False, "local"),
+        (512, 1000, 184, False, "local"),
+        (2048, 100, 48, False, "glocal"), (2048, 100, 48, True, "glocal"),
+        (32, 1000, 184, False, "glocal"),
     ]
     err = 0
     rows = []
     main = None
-    for S, L, W, general in shapes:
+    for S, L, W, general, mode in shapes:
         q, lens, r, msel = _sw_inputs(rng, S, L, W)
         mats = _general_matrices(rng) if general else score_matrices(cfg)
         args = [torch.from_numpy(a).cuda() for a in (q, lens, r, mats)]
@@ -191,19 +212,20 @@ def phase_sw(rng, cfg):
                                             cfg.gap_ref_penalty,
                                             cfg.gap_extend_penalty)
         ms = torch.from_numpy(msel).cuda()
-        k = lambda: sw_score(*args, *gaps, ms, band=W)  # noqa: E731
-        p = lambda: banded_sw_score(*args, *gaps, ms, band=W)  # noqa: E731
+        k = lambda: sw_score(*args, *gaps, ms, band=W, mode=mode)  # noqa: E731
+        p = lambda: banded_sw_score(*args, *gaps, ms, band=W, mode=mode)  # noqa: E731
         got, ref = k(), p()
         torch.cuda.synchronize()
+        shape = (f"{mode} [{S},{L}]xW{W}"
+                 f"{' 2 general mats' if general else ''}")
         for name, a, b in zip(("score", "end_i", "end_o"), got, ref):
-            check(torch.equal(a, b), f"K1 {name} differs from plain at "
-                                     f"[{S},{L}]xW{W}")
-        check(int(got.score.max()) > 0, f"K1 scored nothing at [{S},{L}]xW{W}")
+            check(torch.equal(a, b), f"K1 {name} differs from plain at {shape}")
+        check(int(got.score.max()) > 0, f"K1 scored nothing at {shape}")
         err = max(err, max_abs_err(got, ref))
         t_k = median_ms(k, 20)
         t_p = median_ms(p, 3, warmup=1)
         cells = S * L * W
-        rows.append(f"[{S},{L}]xW{W}{' 2 general mats' if general else ''}: "
+        rows.append(f"{shape}: "
                     f"kernel {t_k:.3f} ms ({cells / t_k / 1e6:.2f} GCUPS) / "
                     f"plain {t_p:.3f} ms ({cells / t_p / 1e6:.3f} GCUPS)")
         if main is None:
@@ -373,10 +395,92 @@ def phase_topn_path(genome, workdir, device="cuda"):
     return codes, launches
 
 
+def phase_e2e_path(genome, workdir, device="cuda"):
+    from nextgenmap_tpu_torch import synthetic
+
+    n = N_BATCHES_NEW * BATCH
+    codes, pos, strand = synthetic.simulate_reads(genome, n, READ_LEN, 0.02,
+                                                  seed=SEED + 4)
+    fq, sam = (os.path.join(workdir, f) for f in ("e2e.fq", "e2e.sam"))
+    synthetic.write_fastq(fq, codes, pos, strand)
+    stats, launches, wall = run_cli("end-to-end", [
+        "map", "-r", os.path.join(workdir, "ref.fa"), "-q", fq, "-o", sam,
+        "--end-to-end", "--device", device, "--no-progress"])
+
+    c = synthetic.alignment_counts(sam, genome)
+    check(c["records"] == n, f"SAM holds {c['records']} records, expected {n}")
+    check(c["mapped"] >= 0.99 * n, f"only {c['mapped']}/{n} reads mapped")
+    check(c["correct"] >= 0.95 * n, f"only {c['correct']}/{n} truth-correct")
+    check(c["clipped"] == 0, f"{c['clipped']} end-to-end CIGARs clip")
+    print(f"[9 e2e] --end-to-end, {n} reads: mapped {c['mapped']} "
+          f"({100 * c['mapped'] / n:.2f}%), truth-correct {c['correct']} "
+          f"({100 * c['correct'] / n:.2f}%), clipped CIGARs {c['clipped']}; "
+          + summary(stats, N_BATCHES_NEW, launches, wall))
+    return codes, launches
+
+
+def phase_bisulfite_path(genome, workdir, device="cuda"):
+    from nextgenmap_tpu_torch import synthetic
+
+    n = N_BATCHES_NEW * BATCH
+    codes, pos, strand = synthetic.simulate_bisulfite_reads(
+        genome, n, READ_LEN, rate=0.8, seed=SEED + 5)
+    fq, sam = (os.path.join(workdir, f) for f in ("bs.fq", "bs.sam"))
+    synthetic.write_fastq(fq, codes, pos, strand)
+    stats, launches, wall = run_cli("bisulfite", [
+        "map", "-r", os.path.join(workdir, "ref.fa"), "-q", fq, "-o", sam,
+        "--bs-mapping", "--device", device, "--no-progress"])
+
+    c = synthetic.sam_counts(sam)
+    check(c["records"] == n, f"SAM holds {c['records']} records, expected {n}")
+    check(c["correct"] >= 0.90 * n, f"only {c['correct']}/{n} truth-correct")
+    print(f"[10 bisulfite] --bs-mapping, {n} reads (OT/OB, 80% C->T): "
+          f"mapped {c['mapped']} ({100 * c['mapped'] / n:.2f}%), "
+          f"truth-correct {c['correct']} ({100 * c['correct'] / n:.2f}%); "
+          + summary(stats, N_BATCHES_NEW, launches, wall))
+    return codes, launches
+
+
+def phase_long_path(genome, workdir, device="cuda"):
+    from nextgenmap_tpu_torch import synthetic
+
+    n = N_BATCHES_NEW * LONG_BATCH
+    codes, pos, strand = synthetic.simulate_long_reads(
+        genome, n, LONG_LEN, 0.03, 0.005, seed=SEED + 6)
+    fq, sam = (os.path.join(workdir, f) for f in ("long.fq", "long.sam"))
+    synthetic.write_fastq(fq, codes, pos, strand)
+    stats, launches, wall = run_cli("long", [
+        "map", "-r", os.path.join(workdir, "ref.fa"), "-q", fq, "-o", sam,
+        "--device", device, "--no-progress"])
+
+    check(stats.first_batch_reads == LONG_BATCH,
+          f"first batch {stats.first_batch_reads} reads, expected {LONG_BATCH}")
+    # one score pass (K1) and two corridor fetches (K2) per batch
+    check(launches == {"sw_score": N_BATCHES_NEW,
+                       "gather_windows": 2 * N_BATCHES_NEW},
+          f"long-read launches {launches}")
+    c = synthetic.alignment_counts(sam, genome, tol=16)
+    check(c["records"] == n, f"SAM holds {c['records']} records, expected {n}")
+    check(c["mapped"] >= 0.90 * n, f"only {c['mapped']}/{n} reads mapped")
+    check(c["correct"] >= 0.90 * c["mapped"],
+          f"only {c['correct']}/{c['mapped']} mapped within 16 bp")
+    check(c["seq_mismatch"] == 0, f"{c['seq_mismatch']} CIGARs miss SEQ")
+    check(c["nm_mismatch"] == 0, f"{c['nm_mismatch']} NM tags are wrong")
+    print(f"[11 long] {n} reads x {LONG_LEN} bp (3% SNPs, 0.5% indels), batch "
+          f"{stats.first_batch_reads}, W 184: mapped {c['mapped']} "
+          f"({100 * c['mapped'] / n:.2f}%), within 16 bp {c['correct']} "
+          f"({100 * c['correct'] / c['mapped']:.2f}% of mapped), CIGARs "
+          f"consume SEQ and NM = edits on all; "
+          + summary(stats, N_BATCHES_NEW, launches, wall))
+    return codes, launches
+
+
 def phase_cuda_equals_cpu(genome, codes, cfg, device="cuda"):
-    """codes: {path: [>= BATCH, L] reads}, mapped one batch per path."""
+    """codes: {path: reads}; one batch of each path is mapped on the card
+    and on the CPU from the card's state."""
     import torch
 
+    from nextgenmap_tpu_torch import synthetic
     from nextgenmap_tpu_torch.models.mapper import MapResult, Mapper
 
     class Codes:
@@ -385,14 +489,32 @@ def phase_cuda_equals_cpu(genome, codes, cfg, device="cuda"):
     g = Codes()
     g.codes = genome
     cfg = cfg.replace(topn=2)
-    lens = np.full(BATCH, READ_LEN, np.int32)
-    gpu = Mapper(cfg, g, READ_LEN, device=device)
-    index = (gpu.state.offsets.cpu().numpy(), gpu.state.positions.cpu().numpy())
-    cpu = Mapper(cfg, g, READ_LEN, index, device="cpu")
+    bs_cfg = cfg.replace(bs_mapping=True)
+    rng = np.random.default_rng(SEED + 7)
+    bs_pairs = synthetic.bisulfite_convert(codes["paired"][:BATCH], 0.8, rng)
+    # (path, config, step, reads, read length)
+    cases = [
+        ("single", cfg, "map_batch", codes["single"][:BATCH], READ_LEN),
+        ("paired", cfg, "map_batch_paired", codes["paired"][:BATCH], READ_LEN),
+        ("topn", cfg, "map_batch_topn", codes["topn"][:BATCH], READ_LEN),
+        ("end-to-end", cfg.replace(end_to_end=True), "map_batch",
+         codes["end-to-end"][:BATCH], READ_LEN),
+        ("bisulfite", bs_cfg, "map_batch", codes["bisulfite"][:BATCH],
+         READ_LEN),
+        ("bisulfite paired", bs_cfg, "map_batch_paired", bs_pairs, READ_LEN),
+        ("long", cfg, "map_batch", codes["long"][:LONG_BATCH], LONG_LEN),
+    ]
+    mappers = {}
     rows = []
-    for path, step in (("single", "map_batch"), ("paired", "map_batch_paired"),
-                       ("topn", "map_batch_topn")):
-        batch = codes[path][:BATCH]
+    for path, c, step, batch, read_len in cases:
+        key = (c.bs_mapping, c.end_to_end, read_len)
+        if key not in mappers:
+            gpu = Mapper(c, g, read_len, device=device)
+            index = (gpu.state.offsets.cpu().numpy(),
+                     gpu.state.positions.cpu().numpy())
+            mappers[key] = (gpu, Mapper(c, g, read_len, index, device="cpu"))
+        gpu, cpu = mappers[key]
+        lens = np.full(batch.shape[0], read_len, np.int32)
         t0 = time.perf_counter()
         a = getattr(gpu, step)(batch, lens)
         if gpu.device.type == "cuda":
@@ -400,17 +522,17 @@ def phase_cuda_equals_cpu(genome, codes, cfg, device="cuda"):
         t1 = time.perf_counter()
         b = getattr(cpu, step)(batch, lens)
         t2 = time.perf_counter()
-        ranks = (a, b) if path == "topn" else ((a,), (b,))
+        ranks = (a, b) if step == "map_batch_topn" else ((a,), (b,))
         for j, (ra, rb) in enumerate(zip(*ranks)):
             for f in ra._fields:
                 check(torch.equal(getattr(ra, f).cpu(), getattr(rb, f)),
                       f"{path}: cuda and cpu differ in rank {j} field {f}")
         n_multi = int((ranks[1][0].n_candidates >= 2).sum())
-        rows.append(f"{path} ({len(ranks[0])} rank(s), {n_multi} reads with "
-                    f">= 2 candidates) {t1 - t0:.3f} s cuda / {t2 - t1:.3f} s "
-                    f"cpu")
-    print(f"[9 cuda=cpu] all {len(MapResult._fields)} MapResult fields "
-          f"equal on one {BATCH}-read batch of each path: " + "; ".join(rows))
+        rows.append(f"{path} ({batch.shape[0]} reads, {len(ranks[0])} "
+                    f"rank(s), {n_multi} reads with >= 2 candidates) "
+                    f"{t1 - t0:.3f} s cuda / {t2 - t1:.3f} s cpu")
+    print(f"[12 cuda=cpu] all {len(MapResult._fields)} MapResult fields "
+          f"equal on one batch of each path: " + "; ".join(rows))
 
 
 def main():
@@ -438,7 +560,10 @@ def main():
         synthetic.write_fasta(os.path.join(workdir, "ref.fa"), "chr", genome)
         for path, phase in (("single", phase_main_path),
                             ("paired", phase_paired_path),
-                            ("topn", phase_topn_path)):
+                            ("topn", phase_topn_path),
+                            ("end-to-end", phase_e2e_path),
+                            ("bisulfite", phase_bisulfite_path),
+                            ("long", phase_long_path)):
             codes[path], launches[path] = phase(genome, workdir)
     phase_cuda_equals_cpu(genome, codes, cfg)
     check("jax" not in sys.modules, "the port imported jax")

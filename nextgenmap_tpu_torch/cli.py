@@ -9,6 +9,11 @@ that will bring them.
     python -m nextgenmap_tpu_torch.cli map -r ref.fa -q reads.fq -o out.sam
     python -m nextgenmap_tpu_torch.cli map -r ref.fa -1 r1.fq -2 r2.fq -o pe.sam
     python -m nextgenmap_tpu_torch.cli map -r ref.fa -q reads.fq -n 2 -o top2.sam
+
+Modes, with every one of the above: ``--end-to-end`` (glocal alignment, no
+clipping), ``--bs-mapping [--bs-cutoff N]`` (bisulfite: CT/GA-collapsed
+tables and conversion-tolerant scoring), ``--slam-seq 1|2``.  Reads up to
+1000 bp map with the default batch shrunk as the read length grows.
 """
 
 from __future__ import annotations

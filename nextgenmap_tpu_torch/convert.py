@@ -3,7 +3,9 @@
 The JAX package's genome codes, CSR index (from ``build_index_device`` or
 ``KmerIndex.device_arrays()``) and score matrices are numpy-convertible
 arrays; ``state_from_numpy`` turns them into the port's device tensors, so
-both packages can run on the identical index.
+both packages can run on the identical index.  A bisulfite state is the
+concatenated CT and GA tables (``index.device_build.concat_tables``, the
+layout of the reference's Mapper) and the two strand matrices.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import torch
 
 class MapperState(NamedTuple):
     genome: torch.Tensor     # [G] uint8 base codes
-    offsets: torch.Tensor    # [4^k + 1 (+1)] int32 CSR row offsets
-    positions: torch.Tensor  # [P] int32 (pos << 1 | flip) entries
+    offsets: torch.Tensor    # [4^k + 1 (+1)] int32 CSR row offsets, two
+                             # tables one after the other in bisulfite mode
+    positions: torch.Tensor  # [P] int32 entries: (pos << 1 | flip) of a
+                             # canonical index, else genome positions
     matrices: torch.Tensor   # [M, 8, 8] int32 substitution matrices
 
 

@@ -1,12 +1,16 @@
-// K1: score-only local banded Smith-Waterman for Hopper (sm_90a).
+// K1: score-only banded Smith-Waterman for Hopper (sm_90a), local or glocal.
 //
 // Replaces the TPU kernel nextgenmap_tpu/ops/sw_pallas.py::
 // banded_sw_score_pallas (_kernel), and is bit-identical to its plain
-// version nextgenmap_tpu_torch/ops/sw_ref.py::banded_sw_score in local mode:
-// int32 DP in band coordinates (ref j = i + o), affine gaps with
-// gopen >= gext, lazy F, best cell = first strict maximum over rows i < qlen
-// (smallest i), and within a row the smallest o.  Returns (score, end_i,
-// end_o); an alignment with no positive cell keeps (0, 0, 0).
+// version nextgenmap_tpu_torch/ops/sw_ref.py::banded_sw_score in both of its
+// modes: int32 DP in band coordinates (ref j = i + o), affine gaps with
+// gopen >= gext, lazy F.  Local mode (LOCAL = true): a 0 floor on every
+// cell, best cell = first strict maximum over rows i < qlen (smallest i),
+// and within a row the smallest o.  Glocal mode (--end-to-end, LOCAL =
+// false): no floor, and only the read's last row i == qlen - 1 competes
+// (the TPU package scores this mode with its plain scan; here the same
+// kernel serves both).  Returns (score, end_i, end_o); an alignment with no
+// positive cell keeps (0, 0, 0).
 //
 // What bounds it on the card: integer ALU work and the latency of the row
 // recurrence.  Each of the L rows of one alignment depends on the previous
@@ -45,7 +49,7 @@ constexpr int kMaxMats = 8;
 constexpr int kMaxBand = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int NPL>
+template <int NPL, bool LOCAL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 sw_score_kernel(const uint8_t* __restrict__ query,
                 const int32_t* __restrict__ qlen,
@@ -72,6 +76,8 @@ sw_score_kernel(const uint8_t* __restrict__ query,
   int m = n_mats == 1 ? 0 : msel[s];
   m = m < 0 ? 0 : (m >= n_mats ? n_mats - 1 : m);
   const int32_t* sm = smat + m * 64;
+  // glocal: the one row that competes (none when qlen is 0 or past L)
+  const int last = qlen[s] - 1;
   int rows = qlen[s];
   rows = rows < 0 ? 0 : (rows > L ? L : rows);
   const int o0 = lane * NPL;
@@ -106,7 +112,7 @@ sw_score_kernel(const uint8_t* __restrict__ query,
         const int sub = (qi < 5 && rc < 5) ? sm[qi * 8 + rc] : 0;
         const int hd = h[k] + sub;
         en[k] = max(hu - gq, eu - ge);
-        ht[k] = max(max(hd, 0), en[k]);
+        ht[k] = max(LOCAL ? max(hd, 0) : hd, en[k]);
         run = max(run, ht[k] + o * ge);
       } else {
         en[k] = NEG;
@@ -141,6 +147,7 @@ sw_score_kernel(const uint8_t* __restrict__ query,
       }
     }
 
+    if (!LOCAL && i != last) continue;  // warp-uniform
     int rowmax = lmax;
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) {
@@ -165,13 +172,13 @@ sw_score_kernel(const uint8_t* __restrict__ query,
   }
 }
 
-template <int NPL>
+template <int NPL, bool LOCAL>
 void launch(const void* query, const void* qlen, const void* corr,
             const void* mats, const void* msel, int S, int L, int W,
             int n_mats, int gq, int gr, int ge, void* score, void* end_i,
             void* end_o, cudaStream_t stream) {
   const int blocks = (S + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sw_score_kernel<NPL><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  sw_score_kernel<NPL, LOCAL><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
       static_cast<const uint8_t*>(query), static_cast<const int32_t*>(qlen),
       static_cast<const uint8_t*>(corr), static_cast<const int32_t*>(mats),
       static_cast<const int32_t*>(msel), S, L, W, n_mats, gq, gr, ge,
@@ -179,33 +186,49 @@ void launch(const void* query, const void* qlen, const void* corr,
       static_cast<int32_t*>(end_o));
 }
 
+template <int NPL>
+void launch_mode(bool local, const void* query, const void* qlen,
+                 const void* corr, const void* mats, const void* msel, int S,
+                 int L, int W, int n_mats, int gq, int gr, int ge, void* score,
+                 void* end_i, void* end_o, cudaStream_t stream) {
+  if (local) {
+    launch<NPL, true>(query, qlen, corr, mats, msel, S, L, W, n_mats, gq, gr,
+                      ge, score, end_i, end_o, stream);
+  } else {
+    launch<NPL, false>(query, qlen, corr, mats, msel, S, L, W, n_mats, gq, gr,
+                       ge, score, end_i, end_o, stream);
+  }
+}
+
 }  // namespace
 
 // query [S, L] uint8, qlen [S] int32, corr [S, L + W] uint8,
-// mats [n_mats, 8, 8] int32, msel [S] int32 in [0, n_mats);
-// outputs three [S] int32.  1 <= W <= 256, 1 <= n_mats <= 8.
+// mats [n_mats, 8, 8] int32, msel [S] int32 in [0, n_mats); local != 0 for
+// local mode, 0 for glocal; outputs three [S] int32.  1 <= W <= 256,
+// 1 <= n_mats <= 8.
 extern "C" int ngm_sw_score(const void* query, const void* qlen,
                             const void* corr, const void* mats,
                             const void* msel, int S, int L, int W, int n_mats,
-                            int gq, int gr, int ge, void* score, void* end_i,
-                            void* end_o, void* stream) {
+                            int gq, int gr, int ge, int local, void* score,
+                            void* end_i, void* end_o, void* stream) {
   if (W < 1 || W > kMaxBand || n_mats < 1 || n_mats > kMaxMats || L < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (S > 0) {
     auto st = static_cast<cudaStream_t>(stream);
+    const bool loc = local != 0;
     if (W <= 32) {
-      launch<1>(query, qlen, corr, mats, msel, S, L, W, n_mats, gq, gr, ge,
-                score, end_i, end_o, st);
+      launch_mode<1>(loc, query, qlen, corr, mats, msel, S, L, W, n_mats, gq,
+                     gr, ge, score, end_i, end_o, st);
     } else if (W <= 64) {
-      launch<2>(query, qlen, corr, mats, msel, S, L, W, n_mats, gq, gr, ge,
-                score, end_i, end_o, st);
+      launch_mode<2>(loc, query, qlen, corr, mats, msel, S, L, W, n_mats, gq,
+                     gr, ge, score, end_i, end_o, st);
     } else if (W <= 128) {
-      launch<4>(query, qlen, corr, mats, msel, S, L, W, n_mats, gq, gr, ge,
-                score, end_i, end_o, st);
+      launch_mode<4>(loc, query, qlen, corr, mats, msel, S, L, W, n_mats, gq,
+                     gr, ge, score, end_i, end_o, st);
     } else {
-      launch<8>(query, qlen, corr, mats, msel, S, L, W, n_mats, gq, gr, ge,
-                score, end_i, end_o, st);
+      launch_mode<8>(loc, query, qlen, corr, mats, msel, S, L, W, n_mats, gq,
+                     gr, ge, score, end_i, end_o, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -3,8 +3,13 @@
 Port of ``nextgenmap_tpu/models/mapper.py``'s one-device steps.  All three
 share the front:
 
-  revcomp -> canonical k-mers -> candidate search (both strands) ->
+  revcomp -> k-mers -> candidate search (both strands) ->
   deterministic candidate order
+
+with canonical k-mers and one lookup for both strands by default, or
+(bisulfite, or a non-canonical host index) the two strands' k-mers looked
+up apart: the forward read CT-collapsed in the CT table, its reverse
+complement GA-collapsed in the GA table (`bs`).
 
 and differ in their tails:
 
@@ -16,11 +21,16 @@ and differ in their tails:
   map_step_topn    eager scoring of every candidate -> stable top-R ranks ->
                    one compacted traceback of all ranks (K2 fetch)
 
+`end_to_end` (--end-to-end) scores and aligns in glocal mode: the whole
+read is aligned, with no clipping.
+
 On a CUDA device every corridor fetch goes through the hand-written gather
-kernel and every score pass through the hand-written SW kernel; on the CPU
-their wrappers run the plain PyTorch versions.  Every output equals the
-reference's steps exactly (tests/test_torch_mapper.py,
-tests/test_torch_paired.py, tests/test_torch_topn.py).
+kernel and every score pass, local or glocal, through the hand-written SW
+kernel; on the CPU their wrappers run the plain PyTorch versions.  Every
+output equals the reference's steps exactly (tests/test_torch_mapper.py,
+tests/test_torch_paired.py, tests/test_torch_topn.py,
+tests/test_torch_glocal.py, tests/test_torch_bisulfite.py,
+tests/test_torch_long_reads.py).
 """
 
 from __future__ import annotations
@@ -35,12 +45,16 @@ from nextgenmap_tpu.index.kmer_index import KmerIndex
 from nextgenmap_tpu.ops.scoring import matrices_are_simple, score_matrix
 from nextgenmap_tpu_torch.convert import MapperState, state_from_numpy
 from nextgenmap_tpu_torch.device import resolve_device
-from nextgenmap_tpu_torch.index.device_build import build_index_device
+from nextgenmap_tpu_torch.index.device_build import (
+    build_index_device, concat_tables,
+)
 from nextgenmap_tpu_torch.ops.candidate import (
-    candidate_search_canonical, pack_offsets,
+    candidate_search_canonical, candidate_search_dual, pack_offsets,
 )
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
-from nextgenmap_tpu_torch.ops.kmer import extract_kmers_canonical
+from nextgenmap_tpu_torch.ops.kmer import (
+    extract_kmers, extract_kmers_canonical,
+)
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align
 
@@ -75,20 +89,35 @@ def revcomp_batch(codes: torch.Tensor) -> torch.Tensor:
     return torch.where(flipped < 4, 3 - flipped, flipped).to(codes.dtype)
 
 
-def _pre_extract(reads, lengths, *, k, read_stride=1):
-    """Left-shifted reverse complements and the canonical read k-mers."""
+def _pre_extract(reads, lengths, *, k, read_stride=1, bs=False, bs_cutoff=0,
+                 canonical=True):
+    """Left-shifted reverse complements and the read k-mers: canonical
+    (canon, flip, ok), or (km_f, ok_f, km_r, ok_r) of the two strands, which
+    bisulfite collapses C->T (forward) and G->A (reverse complement) with
+    the --bs-cutoff drop."""
     B, L = reads.shape
     rc = revcomp_batch(reads)
     # the flip moves right-padding to the front of short reads: shift each
     # rc row left by (L - length) so it starts at column 0
     idx = torch.arange(L, device=reads.device)[None, :] + (L - lengths)[:, None]
     rc = torch.gather(torch.nn.functional.pad(rc, (0, L), value=4), 1, idx.long())
-    return rc, extract_kmers_canonical(reads, lengths, k, stride=read_stride)
+    if canonical and not bs:
+        return rc, extract_kmers_canonical(reads, lengths, k,
+                                           stride=read_stride)
+    cut = bs_cutoff if bs else 0
+    km_f, ok_f = extract_kmers(reads, lengths, k, stride=read_stride,
+                               collapse="ct" if bs else "none",
+                               max_collapsed=cut)
+    km_r, ok_r = extract_kmers(rc, lengths, k, stride=read_stride,
+                               collapse="ga" if bs else "none",
+                               max_collapsed=cut)
+    return rc, (km_f, ok_f, km_r, ok_r)
 
 
 def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
                 max_freq, *, k, fanout_cap, hit_cap, max_cmrs, diag_bin_log2,
-                band, min_kmer_hits, read_stride=1, packed_offsets=False):
+                band, min_kmer_hits, read_stride=1, packed_offsets=False,
+                bs=False, bs_cutoff=0, canonical=True):
     """CS on both strands -> candidates ordered by (strand, corridor start).
 
     Valid candidates form a per-read prefix after the ordering (DESIGN.md
@@ -101,14 +130,21 @@ def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
     G = genome.shape[0]
     bin_w = 1 << diag_bin_log2
 
-    rc, (canon, flip, ok) = _pre_extract(reads, lengths, k=k,
-                                         read_stride=read_stride)
-    cand = candidate_search_canonical(
-        canon, flip, ok, lengths, offsets, positions, sensitivity, max_freq,
-        k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
-        diag_bin_log2=diag_bin_log2, stride=read_stride,
-        packed_offsets=packed_offsets,
-    )
+    rc, kms = _pre_extract(reads, lengths, k=k, read_stride=read_stride,
+                           bs=bs, bs_cutoff=bs_cutoff, canonical=canonical)
+    common = dict(fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
+                  diag_bin_log2=diag_bin_log2, stride=read_stride,
+                  packed_offsets=packed_offsets)
+    if canonical and not bs:
+        cand = candidate_search_canonical(
+            *kms, lengths, offsets, positions, sensitivity, max_freq, k=k,
+            **common,
+        )
+    else:
+        cand = candidate_search_dual(
+            *kms, offsets, positions, sensitivity, max_freq, dual_tables=bs,
+            **common,
+        )
     cs_score, strand = cand.score, cand.strand
     cand_valid = cs_score >= max(1, min_kmer_hits)
     if min_kmer_hits > 1:
@@ -132,9 +168,13 @@ def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
     return corr_start, strand, cand_valid, n_cands, rc, overflow
 
 
+def _sw_mode(end_to_end: bool) -> str:
+    return "glocal" if end_to_end else "local"
+
+
 def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
                       cand_valid, score_mask, matrices, gopen_q, gopen_r, gext,
-                      *, band, slot_cap, simple_matrix=False):
+                      *, band, slot_cap, end_to_end=False, simple_matrix=False):
     """Banded-SW score the candidates of the reads selected by `score_mask`.
 
     Lazy scoring: a read with one candidate needs no comparison and skips
@@ -174,7 +214,8 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
 
     # (kernel K1 on the card)
     sres = sw_score(q_s, len_s, corr_s, matrices, gopen_q, gopen_r, gext,
-                    strand_s.contiguous(), band=W, simple=simple_matrix)
+                    strand_s.contiguous(), band=W, mode=_sw_mode(end_to_end),
+                    simple=simple_matrix)
     score_s = torch.where(slot_valid, sres.score, 0)
 
     # scatter back; every invalid slot writes the one discarded dump index
@@ -187,7 +228,7 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
 def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
             lengths, matrices, gopen_q, gopen_r, gext, min_identity,
             min_residues, n_cands, overflow, proper, *, band,
-            simple_matrix=False):
+            end_to_end=False, simple_matrix=False):
     """Traceback the chosen candidate a1 [B] and apply filters + MAPQ;
     `proper` [B] (the pair resolution's verdict) is gated by `mapped`."""
     B, C = sw.shape
@@ -208,7 +249,8 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
     best_query = torch.where((best_strand == 1)[:, None], rc, reads)
     ares = banded_sw_align(
         best_query, lengths, best_corr, matrices, gopen_q, gopen_r, gext,
-        best_strand, band=band, simple=simple_matrix,
+        best_strand, band=band, mode=_sw_mode(end_to_end),
+        simple=simple_matrix,
     )
     s1 = torch.where(a1_valid, ares.score, 0)
 
@@ -255,12 +297,13 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
 def _single_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
                  gext, min_identity, min_residues, corr_start, strand,
                  cand_valid, n_cands, overflow, *, band, slot_cap,
-                 simple_matrix=False):
+                 end_to_end=False, simple_matrix=False):
     """Lazy scoring, rule-11 argmax selection, traceback + filters."""
     sw, slot_ovf = _score_candidates(
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
         n_cands >= 2, matrices, gopen_q, gopen_r, gext,
-        band=band, slot_cap=slot_cap, simple_matrix=simple_matrix,
+        band=band, slot_cap=slot_cap, end_to_end=end_to_end,
+        simple_matrix=simple_matrix,
     )
     overflow = (overflow[0], overflow[1] + slot_ovf)
     # first max = score DESC, fwd first, pos ASC; an all-zero (lazy) row
@@ -270,7 +313,8 @@ def _single_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
     return _finish(
         a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
         matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
-        n_cands, overflow, proper, band=band, simple_matrix=simple_matrix,
+        n_cands, overflow, proper, band=band, end_to_end=end_to_end,
+        simple_matrix=simple_matrix,
     )
 
 
@@ -303,7 +347,8 @@ def map_step(
     gopen_q, gopen_r, gext, sensitivity, max_freq, min_identity, min_residues,
     *, k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
     min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
-    simple_matrix=False,
+    simple_matrix=False, bs=False, bs_cutoff=0, end_to_end=False,
+    canonical=True,
 ) -> MapResult:
     """Single-end mapping step (DESIGN.md rule 11 selection) on the device
     that holds `reads`.  sensitivity, min_identity and min_residues are
@@ -313,14 +358,15 @@ def map_step(
         genome, offsets, positions, reads, lengths, sensitivity, max_freq,
         k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
         diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
-        read_stride=read_stride, packed_offsets=packed_offsets,
+        read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
+        bs_cutoff=bs_cutoff, canonical=canonical,
     )
     return _single_tail(
         genome, reads, rc, lengths, matrices,
         int(gopen_q), int(gopen_r), int(gext),
         _f32(min_identity, dev), _f32(min_residues, dev), *cands, band=band,
         slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
-        simple_matrix=simple_matrix,
+        end_to_end=end_to_end, simple_matrix=simple_matrix,
     )
 
 
@@ -328,7 +374,7 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
                  gext, min_identity, min_residues, min_insert, max_insert,
                  pair_cutoff, corr_start, strand, cand_valid, n_cands,
                  overflow, *, band, slot_cap, diag_bin_log2,
-                 simple_matrix=False):
+                 end_to_end=False, simple_matrix=False):
     """Lazy scoring of multi-candidate pairs, CxC insert-window pair
     resolution, traceback + filters.  Rows 2i / 2i+1 are the mates of pair i."""
     B, L = reads.shape
@@ -341,7 +387,8 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
     sw, slot_ovf = _score_candidates(
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
         pair_multi.repeat_interleave(2), matrices, gopen_q, gopen_r, gext,
-        band=band, slot_cap=slot_cap, simple_matrix=simple_matrix,
+        band=band, slot_cap=slot_cap, end_to_end=end_to_end,
+        simple_matrix=simple_matrix,
     )
     overflow = (overflow[0], overflow[1] + slot_ovf)
 
@@ -390,7 +437,7 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
         a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
         matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
         n_cands, overflow, proper_pair.repeat_interleave(2), band=band,
-        simple_matrix=simple_matrix,
+        end_to_end=end_to_end, simple_matrix=simple_matrix,
     )
 
 
@@ -400,7 +447,8 @@ def map_step_paired(
     min_insert, max_insert, pair_cutoff,
     *, k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
     min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
-    simple_matrix=False,
+    simple_matrix=False, bs=False, bs_cutoff=0, end_to_end=False,
+    canonical=True,
 ) -> MapResult:
     """Paired-end step: rows 2i / 2i+1 are mates (DESIGN.md rule 13).
 
@@ -416,7 +464,8 @@ def map_step_paired(
         genome, offsets, positions, reads, lengths, sensitivity, max_freq,
         k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
         diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
-        read_stride=read_stride, packed_offsets=packed_offsets,
+        read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
+        bs_cutoff=bs_cutoff, canonical=canonical,
     )
     i32 = lambda x: torch.as_tensor(x, dtype=I32, device=dev)  # noqa: E731
     return _paired_tail(
@@ -425,7 +474,8 @@ def map_step_paired(
         _f32(min_identity, dev), _f32(min_residues, dev),
         i32(min_insert), i32(max_insert), _f32(pair_cutoff, dev), *cands,
         band=band, slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
-        diag_bin_log2=diag_bin_log2, simple_matrix=simple_matrix,
+        diag_bin_log2=diag_bin_log2, end_to_end=end_to_end,
+        simple_matrix=simple_matrix,
     )
 
 
@@ -440,7 +490,7 @@ def top_ranks(sw: torch.Tensor, r: int) -> torch.Tensor:
 def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
                min_identity, min_residues, corr_start, strand, cand_valid,
                n_cands, overflow, *, band, slot_cap, topn,
-               simple_matrix=False):
+               end_to_end=False, simple_matrix=False):
     """Eager scoring, stable rank selection, ONE compacted traceback of all
     ranks.  Returns `topn` MapResults, rank 0 first."""
     B, L = reads.shape
@@ -451,7 +501,7 @@ def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
     sw, slot_ovf = _score_candidates(
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
         torch.ones(B, dtype=torch.bool, device=dev), matrices, gopen_q,
-        gopen_r, gext, band=band, slot_cap=slot_cap,
+        gopen_r, gext, band=band, slot_cap=slot_cap, end_to_end=end_to_end,
         simple_matrix=simple_matrix,
     )
     overflow = (overflow[0], overflow[1] + slot_ovf)
@@ -489,7 +539,7 @@ def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
     q_s = torch.where((strand_s == 1)[:, None], rc[b_safe], reads[b_safe])
     ares = banded_sw_align(
         q_s, lengths[b_safe], corr_s, matrices, gopen_q, gopen_r, gext,
-        strand_s, band=band, simple=simple_matrix,
+        strand_s, band=band, mode=_sw_mode(end_to_end), simple=simple_matrix,
     )
     overflow = (
         overflow[0],
@@ -565,7 +615,8 @@ def map_step_topn(
     gopen_q, gopen_r, gext, sensitivity, max_freq, min_identity, min_residues,
     *, k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
     min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
-    simple_matrix=False, topn=2,
+    simple_matrix=False, topn=2, bs=False, bs_cutoff=0, end_to_end=False,
+    canonical=True,
 ) -> tuple:
     """Single-end mapping with up to `topn` alignments per read (-n).
 
@@ -581,14 +632,15 @@ def map_step_topn(
         genome, offsets, positions, reads, lengths, sensitivity, max_freq,
         k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
         diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
-        read_stride=read_stride, packed_offsets=packed_offsets,
+        read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
+        bs_cutoff=bs_cutoff, canonical=canonical,
     )
     return _topn_tail(
         genome, reads, rc, lengths, matrices,
         int(gopen_q), int(gopen_r), int(gext),
         _f32(min_identity, dev), _f32(min_residues, dev), *cands, band=band,
         slot_cap=slot_cap or default_topn_slot_cap(reads.shape[0]),
-        topn=topn, simple_matrix=simple_matrix,
+        topn=topn, end_to_end=end_to_end, simple_matrix=simple_matrix,
     )
 
 
@@ -602,8 +654,6 @@ def check_slice(cfg: NgmConfig) -> None:
     """Raise NotImplementedError for a configuration outside the ported
     slice, naming the ROADMAP item that will bring it."""
     unported = [
-        (cfg.bs_mapping, "--bs-mapping (bisulfite) waits for ROADMAP A11"),
-        (cfg.end_to_end, "--end-to-end (glocal SW) waits for ROADMAP A11"),
         (cfg.megabatch > 1, "--megabatch waits for ROADMAP A12"),
         (cfg.index_shards > 1, "--index-shards > 1 waits for ROADMAP A13"),
         (cfg.devices != 1, "--devices/-g other than one device waits for "
@@ -617,9 +667,12 @@ def check_slice(cfg: NgmConfig) -> None:
 class Mapper:
     """Owns the device-resident genome, index and matrices, and maps batches.
 
-    index=None builds the canonical CSR index on `device`; a host KmerIndex,
-    or an (offsets, positions) pair of arrays, is carried across with
-    convert.state_from_numpy instead.
+    index=None builds the index on `device`: canonical, or in bisulfite
+    mode the CT- and GA-collapsed tables, concatenated.  A host index is
+    carried across with convert.state_from_numpy instead: a KmerIndex
+    (canonical or not), a (CT, GA) pair of KmerIndexes in bisulfite mode, or
+    an (offsets, positions) pair of arrays (in bisulfite mode, the tables
+    already concatenated).
     """
 
     def __init__(self, cfg: NgmConfig, genome, read_len: int,
@@ -632,6 +685,11 @@ class Mapper:
         self.device = resolve_device(device)
         codes = np.asarray(genome.codes)
         mats = score_matrices(cfg)
+        # canonical k-mers (one lookup serves both strands) unless the
+        # strands need tables of their own: bisulfite, or a host index
+        # built without canonical entries
+        self.canonical = (not cfg.bs_mapping
+                          and getattr(index, "canonical", True))
         if index is None:
             if codes.shape[0] >= 2**30:
                 raise NotImplementedError(
@@ -639,20 +697,21 @@ class Mapper:
                     "(ROADMAP A13)"
                 )
             g = torch.from_numpy(codes).to(self.device)
-            off, pos = build_index_device(g, k=cfg.kmer, skip=cfg.kmer_skip)
+            build = dict(k=cfg.kmer, skip=cfg.kmer_skip)
+            if cfg.bs_mapping:
+                off, pos = concat_tables(
+                    *build_index_device(g, collapse="ct", canonical=False,
+                                        **build),
+                    *build_index_device(g, collapse="ga", canonical=False,
+                                        **build),
+                )
+            else:
+                off, pos = build_index_device(g, **build)
             self.state = MapperState(
                 g, off, pos, torch.from_numpy(mats).to(self.device)
             )
         else:
-            if isinstance(index, KmerIndex):
-                if not index.canonical:
-                    raise NotImplementedError(
-                        "only canonical k-mer indexes are ported; the "
-                        "two-strand lookup waits for ROADMAP A13"
-                    )
-                off, pos = index.device_arrays()
-            else:
-                off, pos = index
+            off, pos = self._host_tables(index)
             self.state = state_from_numpy(codes, off, pos, mats, self.device)
         # pack (o0, row length) into one table: one offset gather per k-mer
         packed = pack_offsets(self.state.offsets, cfg.max_kmer_freq,
@@ -661,8 +720,22 @@ class Mapper:
         self._offsets = packed if packed is not None else self.state.offsets
         self.simple_matrix = matrices_are_simple(mats)
         self.band = cfg.corridor_for(read_len)
-        self.hit_cap = cfg.resolved_read_hits(self.state.positions.shape[0],
-                                              read_len)
+        # from one table's positions: a bisulfite table is sized by the
+        # collapsed 3^k estimate
+        n_pos = self.state.positions.shape[0] // (2 if cfg.bs_mapping else 1)
+        self.hit_cap = cfg.resolved_read_hits(n_pos, read_len)
+
+    def _host_tables(self, index) -> tuple:
+        """(offsets, positions) arrays of a host index (see the class)."""
+        if isinstance(index, KmerIndex):
+            if self.cfg.bs_mapping:
+                raise ValueError("bisulfite mode needs a (CT, GA) index pair")
+            return index.device_arrays()
+        if self.cfg.bs_mapping and isinstance(index[0], KmerIndex):
+            ct, ga = index
+            return concat_tables(*(torch.from_numpy(a) for a in
+                                   (*ct.device_arrays(), *ga.device_arrays())))
+        return index
 
     def statics(self) -> dict:
         cfg = self.cfg
@@ -672,7 +745,9 @@ class Mapper:
             band=self.band, min_kmer_hits=max(1, cfg.kmer_min),
             read_stride=cfg.read_kmer_skip,
             packed_offsets=self.packed_offsets,
-            simple_matrix=self.simple_matrix,
+            simple_matrix=self.simple_matrix, bs=cfg.bs_mapping,
+            bs_cutoff=cfg.bs_cutoff, end_to_end=cfg.end_to_end,
+            canonical=self.canonical,
         )
 
     def _common_args(self, codes: np.ndarray, lengths: np.ndarray) -> tuple:

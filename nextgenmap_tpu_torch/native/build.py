@@ -35,7 +35,7 @@ P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: (name, argtypes); every entry point returns cudaError_t
 SIGNATURES = {
     "ngm_gather_windows": (P, I64, P, I64, I32, P, P),
-    "ngm_sw_score": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32,
+    "ngm_sw_score": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
                      P, P, P, P),
     "ngm_row_gather": (P, P, I32, I32, I32, I32, P, P),
 }

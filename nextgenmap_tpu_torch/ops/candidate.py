@@ -1,8 +1,11 @@
 """Candidate search (CS): index lookup, hit compaction, diagonal voting.
 
-Port of the canonical main path of ``nextgenmap_tpu/ops/candidate.py``:
-``Candidates``, ``pack_offsets``, the element path of ``_compact_hits``,
-``_select_candidates`` and ``candidate_search_canonical``.
+Port of ``nextgenmap_tpu/ops/candidate.py``: ``Candidates``,
+``pack_offsets``, the element path of ``_compact_hits`` (with its
+two-table lookup), ``_select_candidates``, ``candidate_search_canonical``
+(the main path: one lookup per canonical read k-mer) and
+``candidate_search_dual`` (both strands looked up apart: bisulfite, and a
+non-canonical index).
 
 Per read: look every k-mer up in the CSR index, compact the ragged fan-out
 into [B, H] hit slots, bin the hits by diagonal, count votes per bucket with
@@ -62,17 +65,25 @@ def pack_offsets(offsets: torch.Tensor, max_freq: int, fanout_cap: int):
     return torch.cat([packed, packed.new_zeros(1)])
 
 
-def _compact_hits(km, ok, offsets, positions, max_freq, payload,
-                  *, fanout_cap, hit_cap, packed_offsets):
+def _compact_hits(km, ok, offsets, positions, max_freq, payload=None,
+                  *, fanout_cap, hit_cap, packed_offsets, table_split=False):
     """Compact the CSR fan-out of a k-mer batch into [B, H] hit slots.
 
+    With table_split, `offsets` holds two concatenated tables of equal
+    length (bisulfite: CT-collapsed, then GA-collapsed, the second shifted
+    into the shared positions array) and the odd k-mer columns look up the
+    second one.
+
     Returns (pos [B, H] index entries, qid [B, H] owning k-mer, valid [B, H],
-    fanout_overflow, hit_overflow, payload at each slot).
+    fanout_overflow, hit_overflow, payload at each slot or None).
     """
-    B = km.shape[0]
+    B, Qt = km.shape
     K, H = fanout_cap, hit_cap
     dev = km.device
     kmw = torch.where(ok, km, 0).long()
+    if table_split:
+        odd = torch.arange(Qt, device=dev) & 1
+        kmw = kmw + odd * (offsets.shape[0] // 2)
     if packed_offsets:
         pw = offsets[kmw]
         o0 = (pw >> PACK_CNT_BITS).to(torch.int32)
@@ -94,7 +105,7 @@ def _compact_hits(km, ok, offsets, positions, max_freq, payload,
                              out_int32=True) - 1
     qidl = qid.long()
     pidx = torch.gather(o0 - cum, 1, qidl) + harange
-    pay_at = torch.gather(payload, 1, qidl)
+    pay_at = None if payload is None else torch.gather(payload, 1, qidl)
     valid = harange < total.clamp(max=H)[:, None]
     pos = positions[torch.where(valid, pidx, 0).long()]
     return pos, qid, valid, fanout_overflow, hit_overflow, pay_at
@@ -183,6 +194,57 @@ def candidate_search_canonical(
     qoff = qid * stride
     rc_off = lengths[:, None] - k - qoff
     diag = torch.where(strand == 0, p - qoff, p - rc_off)
+    return _vote(diag, strand, valid, fo, ho, sensitivity,
+                 max_cmrs=max_cmrs, diag_bin_log2=diag_bin_log2)
+
+
+def candidate_search_dual(
+    km_f: torch.Tensor,       # [B, Q] int32 k-mers of the forward read
+    ok_f: torch.Tensor,       # [B, Q] bool
+    km_r: torch.Tensor,       # [B, Q] int32 k-mers of the reverse complement
+    ok_r: torch.Tensor,       # [B, Q] bool
+    offsets: torch.Tensor,    # CSR offsets (int32) or the packed table (int64)
+    positions: torch.Tensor,  # [P] int32 genome positions
+    sensitivity: torch.Tensor,  # float32 scalar tensor
+    max_freq: int,
+    *,
+    fanout_cap: int,
+    hit_cap: int,
+    max_cmrs: int,
+    diag_bin_log2: int,
+    stride: int = 1,
+    dual_tables: bool = False,
+    packed_offsets: bool = False,
+) -> Candidates:
+    """Both strands, looked up apart, in one counting pass.
+
+    The strands are interleaved (even k-mer columns forward, odd ones
+    reverse), so the H cap truncates both passes evenly.  With dual_tables
+    (bisulfite) the reverse pass looks up the second, GA-collapsed table of
+    the concatenated `offsets`.  A hit's diagonal is its position less its
+    k-mer's offset in the read of its own strand.
+    """
+    B, Q = km_f.shape
+    km = torch.stack([km_f, km_r], dim=2).reshape(B, 2 * Q)
+    ok = torch.stack([ok_f, ok_r], dim=2).reshape(B, 2 * Q)
+    pos, qid, valid, fo, ho, _ = _compact_hits(
+        km, ok, offsets, positions, max_freq,
+        fanout_cap=fanout_cap, hit_cap=hit_cap,
+        packed_offsets=packed_offsets, table_split=dual_tables,
+    )
+    strand = qid & 1
+    diag = pos - (qid >> 1) * stride
+    return _vote(diag, strand, valid, fo, ho, sensitivity,
+                 max_cmrs=max_cmrs, diag_bin_log2=diag_bin_log2)
+
+
+def _vote(diag, strand, valid, fanout_overflow, hit_overflow, sensitivity,
+          *, max_cmrs, diag_bin_log2) -> Candidates:
+    """Bin the hits by diagonal and select the candidate buckets.
+
+    Every hit votes for its bucket b (direct) and for b - 1 (merge), so
+    the count of b is hits(b) + hits(b + 1), the adjacent-bucket merge.
+    """
     bucket = diag >> diag_bin_log2   # arithmetic shift: floors when negative
     vote = strand * _STRAND_OFF + bucket + _BIAS
 
@@ -204,8 +266,8 @@ def candidate_search_canonical(
         score=top_score,
         strand=top_strand.to(torch.int32),
         best_score=best,
-        fanout_overflow=fo,
-        hit_overflow=ho,
+        fanout_overflow=fanout_overflow,
+        hit_overflow=hit_overflow,
         cmr_overflow=co,
         extra_score=extra,
     )

@@ -1,8 +1,10 @@
 """Wrapper of K1, the score-only banded SW kernel (``csrc/sw_score.cu``).
 
-Replaces ``nextgenmap_tpu/ops/sw_pallas.py::banded_sw_score_pallas``.  A CPU
-tensor goes to the plain version (``ops/sw_ref.py::banded_sw_score``); a
-CUDA tensor goes to the kernel, or the wrapper raises.
+Replaces ``nextgenmap_tpu/ops/sw_pallas.py::banded_sw_score_pallas`` in
+local mode, and scores glocal (--end-to-end) mode too, which the reference
+leaves to its plain scan.  A CPU tensor goes to the plain version
+(``ops/sw_ref.py::banded_sw_score``); a CUDA tensor goes to the kernel, or
+the wrapper raises.
 ``sw_score.launches`` counts kernel launches.
 """
 
@@ -11,7 +13,9 @@ from __future__ import annotations
 import torch
 
 from nextgenmap_tpu_torch.native import build
-from nextgenmap_tpu_torch.ops.sw_ref import ScoreResult, banded_sw_score
+from nextgenmap_tpu_torch.ops.sw_ref import (
+    ScoreResult, banded_sw_score, check_mode,
+)
 
 MAX_BAND = 256   # kMaxBand in csrc/sw_score.cu
 MAX_MATS = 8     # kMaxMats in csrc/sw_score.cu
@@ -31,7 +35,8 @@ def sw_score(
     mode: str = "local",
     simple: bool = False,
 ) -> ScoreResult:
-    """Local banded SW score: (score, end_i, end_o), each [S] int32.
+    """Banded SW score, local or glocal (`mode`): (score, end_i, end_o),
+    each [S] int32.
 
     `simple` is kept for signature parity with the reference; the kernel
     looks substitution scores up directly, which is exact for any matrix.
@@ -40,10 +45,7 @@ def sw_score(
         return banded_sw_score(query, qlen, ref, matrix, gopen_q, gopen_r,
                                gext, msel, band=band, mode=mode,
                                simple=simple)
-    if mode != "local":
-        raise NotImplementedError(
-            f"sw_score kernel: mode {mode!r} is not ported yet (ROADMAP A11)"
-        )
+    local = check_mode(mode)
     dev = query.device
     if dev.type != "cuda":
         raise ValueError(f"sw_score: unsupported device {dev}")
@@ -84,7 +86,7 @@ def sw_score(
         code = lib.ngm_sw_score(
             query.data_ptr(), qlen.data_ptr(), ref.data_ptr(),
             mats.data_ptr(), msel.data_ptr(), S, L, W, mats.shape[0],
-            int(gopen_q), int(gopen_r), int(gext),
+            int(gopen_q), int(gopen_r), int(gext), int(local),
             score.data_ptr(), end_i.data_ptr(), end_o.data_ptr(), stream,
         )
     build.check(code, "sw_score")

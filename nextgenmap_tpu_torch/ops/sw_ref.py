@@ -20,8 +20,10 @@ exact whenever gap open >= gap extend (NgmConfig.validate):
 ``csrc/sw_score.cu`` (wrapper: ``ops/sw_kernel.py``).  ``banded_sw_align`` is
 the traceback on the main path; it has no kernel of its own.
 
-Only local mode is ported; ``mode="glocal"`` (--end-to-end) raises
-NotImplementedError.
+Two modes: ``"local"`` (Smith-Waterman: a 0 floor, the best cell over every
+row, the walk stops at a 0 cell) and ``"glocal"`` (--end-to-end: no floor,
+the best cell on the read's last row, no cell encodes stop, so the walk runs
+until the query is consumed; a score <= 0 reports as 0, unalignable).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ OP_NONE = 255
 
 
 class ScoreResult(NamedTuple):
-    score: torch.Tensor   # [B] int32 best local score (0 = no alignment)
+    score: torch.Tensor   # [B] int32 best score (0 = no alignment)
     end_i: torch.Tensor   # [B] int32 query index of the best cell
     end_o: torch.Tensor   # [B] int32 band offset of the best cell (ref j = i + o)
 
@@ -61,12 +63,14 @@ class AlignResult(NamedTuple):
     trunc: torch.Tensor      # [B] bool: op buffer overflowed max_ops
 
 
-def _check_mode(mode: str) -> None:
-    if mode != "local":
-        raise NotImplementedError(
-            f"banded SW mode {mode!r} is not ported yet (ROADMAP A11); "
-            "only local mode runs in the port"
-        )
+MODES = ("local", "glocal")
+
+
+def check_mode(mode: str) -> bool:
+    """True for local mode, False for glocal; raises for anything else."""
+    if mode not in MODES:
+        raise ValueError(f"banded SW mode {mode!r}: expected one of {MODES}")
+    return mode == "local"
 
 
 def _matrix_flat(matrix: torch.Tensor) -> torch.Tensor:
@@ -92,23 +96,26 @@ def _shift_right(x, fill):
     return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
 
 
-def _row_step(sub, h_prev, e_prev, gopen_q, gopen_r, gext, off):
-    """One local DP row: returns (h, e, hd, f, e_ext, e_open, htmp)."""
+def _row_step(sub, h_prev, e_prev, gopen_q, gopen_r, gext, off, local):
+    """One DP row: returns (h, e, hd, f, e_ext, e_open, htmp).  Glocal rows
+    have no 0 floor (row 0's zero h_prev still starts anywhere in the
+    corridor)."""
     hd = h_prev + sub
     e_open = _shift_left(h_prev, NEG) - gopen_q
     e_ext = _shift_left(e_prev, NEG) - gext
     e = torch.maximum(e_open, e_ext)
-    htmp = torch.maximum(hd.clamp(min=0), e)
+    htmp = torch.maximum(hd.clamp(min=0) if local else hd, e)
     cm = torch.cummax(htmp + off * gext, dim=1).values
     f = _shift_right(cm, NEG) - gopen_r - (off - 1) * gext
     h = torch.maximum(htmp, f)
     return h, e, hd, f, e_ext, e_open, htmp
 
 
-def _dirs(h, hd, e, e_ext, e_open, f_prev_ext, f_prev_open, mbit):
-    """Pack the direction byte per cell (tie-breaks per DESIGN.md rule 10)."""
+def _dirs(h, hd, e, e_ext, e_open, f_prev_ext, f_prev_open, mbit, local):
+    """Pack the direction byte per cell (tie-breaks per DESIGN.md rule 10);
+    glocal cells never encode stop."""
     src = torch.where(h == hd, 1, torch.where(h == e, 2, 3))
-    d = torch.where(h <= 0, 0, src)
+    d = torch.where(h <= 0, 0, src) if local else src
     e_bit = (e_ext > e_open).to(torch.int32) << 2
     f_bit = (f_prev_ext > f_prev_open).to(torch.int32) << 3
     m_bit = mbit.to(torch.int32) << 4
@@ -127,10 +134,11 @@ def _setup(query, ref, matrix, msel):
     return B, L, q, r, flat, moff
 
 
-def _row_best(h, i, qlen, best, bi, bo):
-    """Fold row i into the running best (rows i >= qlen do not count;
-    first max wins, so ties go to the smallest i, then the smallest o)."""
-    valid = (i < qlen)[:, None]
+def _row_best(h, i, qlen, best, bi, bo, local):
+    """Fold row i into the running best: local mode counts rows i < qlen,
+    glocal only the last row i == qlen - 1; first max wins, so ties go to
+    the smallest i, then the smallest o."""
+    valid = ((i < qlen) if local else (i == qlen - 1))[:, None]
     h_m = torch.where(valid, h, NEG)
     rowmax = h_m.max(dim=1).values.clamp(min=0)
     rowarg = torch.argmax(h_m, dim=1).to(torch.int32)
@@ -160,7 +168,7 @@ def banded_sw_score(
     `simple` is accepted for signature parity; the one lookup path is exact
     for every matrix.
     """
-    _check_mode(mode)
+    local = check_mode(mode)
     B, L, q, r, flat, moff = _setup(query, ref, matrix, msel)
     W = band
     dev = q.device
@@ -173,8 +181,8 @@ def banded_sw_score(
     bo = torch.zeros_like(best)
     for i in range(L):
         sub = _sub_scores(flat, moff, q[:, i], r[:, i:i + W])
-        h, e, *_ = _row_step(sub, h, e, gopen_q, gopen_r, gext, off)
-        best, bi, bo = _row_best(h, i, qlen, best, bi, bo)
+        h, e, *_ = _row_step(sub, h, e, gopen_q, gopen_r, gext, off, local)
+        best, bi, bo = _row_best(h, i, qlen, best, bi, bo, local)
     return ScoreResult(best, bi, bo)
 
 
@@ -194,8 +202,9 @@ def banded_sw_align(
     simple: bool = False,
 ) -> AlignResult:
     """Banded SW with traceback: [L, B, W] direction bytes, then the
-    row-synchronized backwalk."""
-    _check_mode(mode)
+    row-synchronized backwalk (a glocal walk ends when the query is
+    consumed)."""
+    local = check_mode(mode)
     B, L, q, r, flat, moff = _setup(query, ref, matrix, msel)
     W = band
     MO = max_ops or (L + W)
@@ -211,14 +220,14 @@ def banded_sw_align(
     for i in range(L):
         sub = _sub_scores(flat, moff, q[:, i], r[:, i:i + W])
         h, e, hd, f, e_ext, e_open, htmp = _row_step(
-            sub, h, e, gopen_q, gopen_r, gext, off
+            sub, h, e, gopen_q, gopen_r, gext, off, local
         )
         # F[o] extends F[o-1] vs opens from Htmp[o-1] (prefer open on tie)
         f_prev_ext = _shift_right(f, NEG) - gext
         f_prev_open = _shift_right(htmp, NEG) - gopen_r
         dirs[i] = _dirs(h, hd, e, e_ext, e_open, f_prev_ext, f_prev_open,
-                        sub > 0)
-        best, bi, bo = _row_best(h, i, qlen, best, bi, bo)
+                        sub > 0, local)
+        best, bi, bo = _row_best(h, i, qlen, best, bi, bo, local)
     return _backwalk_rows(dirs, best, bi, bo, MO)
 
 

@@ -1,8 +1,9 @@
 """Mapping run: reads -> device step -> SAM, in input order.
 
 Port of ``nextgenmap_tpu/pipeline/runner.py`` on one device
-(``run_mapping`` with its single-end, top-n and paired branches,
-``load_reference``, ``emit_single``, ``emit_single_topn``).  The loop is
+(``run_mapping`` with its single-end, top-n and paired branches and its
+long-read batch size, ``load_reference`` with its bisulfite branch,
+``emit_single``, ``emit_single_topn``).  The loop is
 serial: parse a batch, map it on the device, fetch its result to the host,
 format and write its records.  Records are formatted by the
 jax-free native formatter ``nextgenmap_tpu.native.format_sam`` when it is
@@ -48,17 +49,28 @@ class RunStats(MappingStats):
 
 
 def load_reference(cfg: NgmConfig, ref_path: str):
-    """(genome, index): index is a memoized canonical host KmerIndex when
-    one matches the genome, a fresh host build for genomes over 2^28 bases,
-    else None (the Mapper builds the index on the device)."""
+    """(genome, index): index is a memoized host KmerIndex when one matches
+    the genome (in bisulfite mode a (CT, GA) pair, when both do), a fresh
+    host build for genomes over 2^28 bases (not bisulfite), else None (the
+    Mapper builds the index on the device)."""
     genome = Genome.open(ref_path, skip_save=cfg.skip_save)
-    cache = KmerIndex.cache_path(ref_path, cfg.kmer, cfg.kmer_skip, "none",
-                                 canonical=True)
-    if os.path.exists(cache):
-        index = KmerIndex.load(cache)
-        if index.genome_sha1 == genome.sha1():
-            log.info("loaded k-mer index from %s", cache)
-            return genome, index
+
+    def try_load(collapse: str) -> KmerIndex | None:
+        cache = KmerIndex.cache_path(ref_path, cfg.kmer, cfg.kmer_skip,
+                                     collapse, canonical=collapse == "none")
+        if os.path.exists(cache):
+            index = KmerIndex.load(cache)
+            if index.genome_sha1 == genome.sha1():
+                log.info("loaded k-mer index from %s", cache)
+                return index
+        return None
+
+    if cfg.bs_mapping:
+        ct, ga = try_load("ct"), try_load("ga")
+        return genome, (ct, ga) if ct and ga else None
+    index = try_load("none")
+    if index is not None:
+        return genome, index
     if genome.codes.shape[0] > (1 << 28):
         log.info("large genome: building k-mer index on host (one-time)")
         index = KmerIndex.open(
@@ -308,6 +320,16 @@ def slots_scored(mode: str, n_candidates: np.ndarray, batch_size: int) -> int:
     return min(int(nc[nc >= 2].sum()), default_slot_cap(batch_size))
 
 
+def long_read_batch_size(cfg: NgmConfig, read_len: int) -> int:
+    """The batch size to map `read_len` reads with: the default one shrinks
+    for reads over 250 bp, so that the traceback's [L, B, W] direction
+    bytes stay near their 150 bp size (the reference runner's rule on one
+    device; a batch of pairs stays even)."""
+    if read_len > 250 and cfg.batch_size == NgmConfig().batch_size:
+        return max(16, cfg.batch_size * 150 // read_len // 2 * 2)
+    return cfg.batch_size
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -340,6 +362,11 @@ def run_mapping(cfg: NgmConfig, ref_path: str, qry: str | None = None,
     genome, index = load_reference(cfg, ref_path)
     read_len = cfg.read_len or peek_read_len(qry1 or qry)
     log.info("read length (padded): %d", read_len)
+    batch = long_read_batch_size(cfg, read_len)
+    if batch != cfg.batch_size:
+        log.info("long reads (%d bp): batch_size %d -> %d",
+                 read_len, cfg.batch_size, batch)
+        cfg = cfg.replace(batch_size=batch)
     t1 = time.perf_counter()
     stats.add_time("reference", t1 - t0)
     mapper = Mapper(cfg, genome, read_len, index, device=device)

@@ -4,14 +4,20 @@ A random genome gives every read exactly one candidate, so the score pass
 (and its kernel) would only ever see empty slots.  ``repeat_genome`` copies
 segments of the genome elsewhere, half of them exact and half mutated at
 ~1%, so reads from those regions have two or more candidates and reach the
-banded SW score.  Read names follow the repo's truth convention
+banded SW score.  Reads: SNP-only short reads, FR pairs, bisulfite-converted
+reads (original top and bottom strands) and long reads with SNPs and 1 bp
+indels.  Read names follow the repo's truth convention
 ``<prefix>_<i>_<pos>_<strand>`` (0-based forward position, strand 0/1); the
 two mates of a pair carry their own truth each.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
+
+from nextgenmap_tpu.io.encode import CODE_C, CODE_T
 
 _BASES = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
@@ -33,6 +39,20 @@ def repeat_genome(size: int, *, n_repeats: int, min_len: int, max_len: int,
     return g
 
 
+def _acgt_windows(genome: np.ndarray, n: int, width: int, rng):
+    """n random windows of `width` bases holding no N: (pos, windows)."""
+    G = genome.shape[0]
+    pos = rng.integers(0, G - width, n)
+    cols = np.arange(width)[None, :]
+    win = genome[pos[:, None] + cols].astype(np.int64)
+    bad = (win >= 4).any(axis=1)
+    while bad.any():
+        pos[bad] = rng.integers(0, G - width, int(bad.sum()))
+        win[bad] = genome[pos[bad][:, None] + cols]
+        bad = (win >= 4).any(axis=1)
+    return pos, win
+
+
 def simulate_reads(genome: np.ndarray, n: int, read_len: int,
                    snp_rate: float, seed: int = 0):
     """SNP-only reads from ACGT windows of `genome`, half reverse-complemented.
@@ -40,15 +60,7 @@ def simulate_reads(genome: np.ndarray, n: int, read_len: int,
     Returns (codes [n, read_len] uint8, pos [n] int64, strand [n] int8).
     """
     rng = np.random.default_rng(seed)
-    G = genome.shape[0]
-    pos = rng.integers(0, G - read_len, n)
-    cols = np.arange(read_len)[None, :]
-    win = genome[pos[:, None] + cols].astype(np.int64)
-    bad = (win >= 4).any(axis=1)
-    while bad.any():
-        pos[bad] = rng.integers(0, G - read_len, int(bad.sum()))
-        win[bad] = genome[pos[bad][:, None] + cols]
-        bad = (win >= 4).any(axis=1)
+    pos, win = _acgt_windows(genome, n, read_len, rng)
     snp = rng.random(win.shape) < snp_rate
     win = np.where(snp, (win + rng.integers(1, 4, win.shape)) % 4, win)
     strand = rng.integers(0, 2, n).astype(np.int8)
@@ -91,6 +103,55 @@ def simulate_pairs(genome: np.ndarray, n_pairs: int, read_len: int,
     win = np.where(snp, (win + rng.integers(1, 4, win.shape)) % 4, win)
     rc = (3 - win)[:, ::-1]
     codes = np.where(strand[:, None] == 1, rc, win).astype(np.uint8)
+    return codes, pos, strand
+
+
+def bisulfite_convert(codes: np.ndarray, rate: float, rng) -> np.ndarray:
+    """Each C of the reads read as T with probability `rate`."""
+    conv = (codes == CODE_C) & (rng.random(codes.shape) < rate)
+    return np.where(conv, CODE_T, codes).astype(np.uint8)
+
+
+def simulate_bisulfite_reads(genome: np.ndarray, n: int, read_len: int,
+                             rate: float = 0.8, seed: int = 0):
+    """Bisulfite reads of a directional library: even reads come from the
+    original top strand (the locus, strand 0), odd ones from the original
+    bottom strand (its reverse complement, strand 1), and each C of the
+    read is read as T with probability `rate`.
+
+    Returns (codes [n, read_len] uint8, pos [n] int64, strand [n] int8).
+    """
+    rng = np.random.default_rng(seed)
+    pos, win = _acgt_windows(genome, n, read_len, rng)
+    strand = (np.arange(n) % 2).astype(np.int8)
+    seq = np.where(strand[:, None] == 1, (3 - win)[:, ::-1], win)
+    return bisulfite_convert(seq, rate, rng), pos, strand
+
+
+def simulate_long_reads(genome: np.ndarray, n: int, read_len: int,
+                        snp_rate: float, indel_rate: float, seed: int = 0):
+    """Reads with SNPs and 1 bp indels (each base deleted, or preceded by an
+    inserted base, at indel_rate / 2 each), half reverse-complemented.
+
+    Returns (codes [n, read_len] uint8, pos [n] int64, strand [n] int8);
+    pos is the window's first base, which a leading deletion shifts by one.
+    """
+    rng = np.random.default_rng(seed)
+    slack = 8 + int(4 * indel_rate * read_len)   # room for the deletions
+    pos, win = _acgt_windows(genome, n, read_len + slack, rng)
+    strand = rng.integers(0, 2, n).astype(np.int8)
+    codes = np.empty((n, read_len), np.uint8)
+    for i in range(n):
+        w = win[i]
+        snp = rng.random(w.shape[0]) < snp_rate
+        w = np.where(snp, (w + rng.integers(1, 4, w.shape[0])) % 4, w)
+        r = rng.random(w.shape[0])
+        dele = r < indel_rate / 2
+        ins = ~dele & (r < indel_rate)
+        kept = np.cumsum(~dele) - 1            # index of each base once kept
+        seq = np.insert(w[~dele], kept[ins], rng.integers(0, 4, int(ins.sum())))
+        seq = seq[:read_len]
+        codes[i] = (3 - seq)[::-1] if strand[i] else seq
     return codes, pos, strand
 
 
@@ -154,3 +215,60 @@ def truth_correct(sam_path: str, tol: int = 5) -> tuple[int, int, int]:
     """(primary records, mapped, truth-correct) of sam_counts."""
     c = sam_counts(sam_path, tol)
     return c["primary"], c["mapped"], c["correct"]
+
+
+_CIGAR_OP = re.compile(r"(\d+)([MIDSH])")
+
+
+def alignment_counts(sam_path: str, genome: np.ndarray, tol: int = 5) -> dict:
+    """What the CIGARs of a single-chromosome SAM (chromosome at genome
+    offset 0, read names carrying the truth) say about its primary records.
+
+    Keys: records, mapped, correct (mapped, strand right and POS within
+    `tol` bp of the truth), clipped (mapped records with an S or H op),
+    seq_mismatch (CIGARs whose query length differs from SEQ's) and
+    nm_mismatch (NM:i differing from the edits the CIGAR and the genome
+    show: mismatched M columns plus inserted and deleted bases).
+    """
+    c = dict(records=0, mapped=0, correct=0, clipped=0, seq_mismatch=0,
+             nm_mismatch=0)
+    with open(sam_path) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            fields = line.rstrip("\n").split("\t")
+            flag = int(fields[1])
+            if flag & 0x100:
+                continue
+            c["records"] += 1
+            if flag & 4:
+                continue
+            c["mapped"] += 1
+            _, _, p, s = fields[0].rsplit("_", 3)
+            p0 = int(fields[3]) - 1
+            if ((flag >> 4) & 1) == int(s) and abs(p0 - int(p)) <= tol:
+                c["correct"] += 1
+            seq = np.frombuffer(fields[9].encode(), np.uint8)
+            qi = ri = edits = 0
+            clipped = False
+            for num, op in _CIGAR_OP.findall(fields[5]):
+                k = int(num)
+                if op == "M":
+                    ref = _BASES[genome[p0 + ri:p0 + ri + k]]
+                    edits += int((seq[qi:qi + k] != ref).sum())
+                    qi += k
+                    ri += k
+                elif op == "I":
+                    edits += k
+                    qi += k
+                elif op == "D":
+                    edits += k
+                    ri += k
+                else:
+                    clipped = True
+                    qi += k if op == "S" else 0
+            c["clipped"] += clipped
+            c["seq_mismatch"] += qi != seq.shape[0]
+            nm = next(int(t[5:]) for t in fields[11:] if t.startswith("NM:i:"))
+            c["nm_mismatch"] += nm != edits
+    return c

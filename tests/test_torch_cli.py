@@ -20,6 +20,7 @@ from nextgenmap_tpu.io.fasta import write_fasta  # noqa: E402
 from nextgenmap_tpu.io.simulate import simulate_reads, write_fastq  # noqa: E402
 from nextgenmap_tpu_torch.cli import main as torch_main  # noqa: E402
 from nextgenmap_tpu_torch.synthetic import repeat_genome  # noqa: E402
+from tests.test_torch_row_gather import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,6 +84,7 @@ def test_import_loads_no_jax():
         "import nextgenmap_tpu_torch.ops.row_gather\n"
         "import nextgenmap_tpu_torch.pair.resolve\n"
         "import nextgenmap_tpu_torch.tools.probe_dyngather\n"
+        "import nextgenmap_tpu_torch.synthetic\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -100,7 +102,8 @@ def test_device_cuda_raises_without_card(workload, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume"], ["--bs-mapping"], ["--dist-nprocs", "2"], ["--end-to-end"],
+    ["--resume"], ["--devices", "2"], ["--dist-nprocs", "2"],
+    ["--shard-across-hosts"],
     ["--index-shards", "2"], ["--megabatch", "2"], ["--bam"],
 ])
 def test_out_of_slice_flags_raise(workload, flags):

@@ -20,6 +20,7 @@ from nextgenmap_tpu.ops.gather_pallas import (  # noqa: E402
 )
 from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table  # noqa: E402
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows  # noqa: E402
+from tests.test_torch_row_gather import one_torch_thread  # noqa: E402,F401
 
 G = 20_000
 

@@ -22,6 +22,7 @@ from nextgenmap_tpu_torch.index.device_build import build_index_device  # noqa: 
 from nextgenmap_tpu_torch.ops import candidate as tcand  # noqa: E402
 from nextgenmap_tpu_torch.ops.kmer import extract_kmers_canonical  # noqa: E402
 from nextgenmap_tpu_torch.synthetic import repeat_genome, simulate_reads  # noqa: E402
+from tests.test_torch_row_gather import one_torch_thread  # noqa: E402,F401
 
 K = 11
 L = 100

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the single-end, paired and top-n steps on the card against the CPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card
+(K1 in local and glocal mode), and the single-end, paired and top-n steps,
+also under --end-to-end and --bs-mapping, on the card against the CPU.
 
 Marked `cuda`: every test needs a CUDA card and skips without one (the
 kernels have no CPU mode).  Run on the card with
@@ -21,7 +22,7 @@ from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
 from nextgenmap_tpu_torch.synthetic import (
-    repeat_genome, simulate_pairs, simulate_reads,
+    repeat_genome, simulate_long_reads, simulate_pairs, simulate_reads,
 )
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +79,41 @@ def test_sw_kernel_equals_plain(dev, S, L, W, general):
     assert int(got.score.max()) > 0
 
 
+@pytest.mark.parametrize("S,L,W,general", [
+    (2048, 100, 48, False), (2048, 100, 48, True), (32, 1000, 184, False),
+])
+def test_sw_kernel_glocal_equals_plain(dev, S, L, W, general):
+    """K1's glocal variant at chip_smoke.py's glocal shapes, with reads
+    shorter than L and N-padded (their last row competes) among them."""
+    rng = np.random.default_rng(S + L + W)
+    cfg = NgmConfig(bs_mapping=general)
+    mats = np.stack([score_matrix(cfg, 0), score_matrix(cfg, 1)])
+    q = rng.integers(0, 4, (S, L)).astype(np.uint8)
+    r = rng.integers(0, 5, (S, L + W)).astype(np.uint8)
+    for i in range(0, S, 2):
+        o = int(rng.integers(0, W // 2))
+        r[i, o:o + L] = q[i]
+        r[i, o + L // 3] = (r[i, o + L // 3] + 1) % 4     # a mismatch
+    lens = np.where(rng.random(S) < 0.2, rng.integers(0, L + 1, S), L)
+    lens = lens.astype(np.int32)
+    for i in range(S):
+        q[i, lens[i]:] = 4
+    msel = rng.integers(0, 2, S).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (q, lens, r, mats)]
+    gaps = (25, 30, 7) if general else (20, 20, 20)
+    msel_t = torch.from_numpy(msel).to(dev)
+    before = sw_score.launches
+    got = sw_score(*args, *gaps, msel_t, band=W, mode="glocal")
+    torch.cuda.synchronize()
+    assert sw_score.launches == before + 1
+    ref = banded_sw_score(*args, *gaps, msel_t, band=W, mode="glocal")
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+    assert int(got.score.max()) > 0
+    hit = got.score > 0
+    assert torch.equal(got.end_i[hit], args[1][hit] - 1)   # the last row
+
+
 def test_mapper_cuda_equals_cpu(dev):
     cfg = NgmConfig(kmer=11)
     g = repeat_genome(60_000, n_repeats=12, min_len=800, max_len=2000, seed=5)
@@ -117,13 +153,13 @@ def test_row_gather_kernel_equals_plain(dev, dim, r, w, rep):
     assert torch.equal(got, row_gather_plain(x, idx, rep, dim))
 
 
-def _mappers(dev, cfg, g):
+def _mappers(dev, cfg, g, read_len=100):
     class _G:
         codes = g
 
-    gpu = Mapper(cfg, _G(), 100, device=dev)
+    gpu = Mapper(cfg, _G(), read_len, device=dev)
     index = (gpu.state.offsets.cpu().numpy(), gpu.state.positions.cpu().numpy())
-    return gpu, Mapper(cfg, _G(), 100, index, device="cpu")
+    return gpu, Mapper(cfg, _G(), read_len, index, device="cpu")
 
 
 def test_paired_and_topn_cuda_equal_cpu(dev):
@@ -154,3 +190,31 @@ def test_paired_and_topn_cuda_equal_cpu(dev):
         for f in ra._fields:
             assert torch.equal(getattr(ra, f).cpu(), getattr(rb, f)), (j, f)
     assert int(b[1].mapped.sum()) > 0
+
+
+@pytest.mark.parametrize("change,read_len", [
+    (dict(end_to_end=True), 100), (dict(bs_mapping=True), 100),
+    (dict(bs_mapping=True, end_to_end=True), 100), (dict(), 1000),
+    (dict(end_to_end=True), 500),
+])
+def test_modes_cuda_equal_cpu(dev, change, read_len):
+    """Single, paired and top-n steps in each mode, and for long reads,
+    launch K1 and K2 on the card and equal the CPU from the same state."""
+    g = repeat_genome(60_000, n_repeats=12, min_len=800, max_len=2000, seed=10)
+    gpu, cpu = _mappers(dev, NgmConfig(kmer=11, topn=2).replace(**change), g,
+                        read_len)
+    B = 256 if read_len == 100 else 64
+    lens = np.full(B, read_len, np.int32)
+    codes, _, _ = simulate_long_reads(g, B, read_len, 0.02, 0.004, seed=11)
+    for step in ("map_batch", "map_batch_paired", "map_batch_topn"):
+        launches = (sw_score.launches, gather_genome_windows.launches)
+        a = getattr(gpu, step)(codes, lens)
+        torch.cuda.synchronize()
+        assert sw_score.launches == launches[0] + 1
+        assert gather_genome_windows.launches == launches[1] + 2
+        b = getattr(cpu, step)(codes, lens)
+        ranks = (a, b) if step == "map_batch_topn" else ((a,), (b,))
+        for j, (ra, rb) in enumerate(zip(*ranks)):
+            for f in ra._fields:
+                assert torch.equal(getattr(ra, f).cpu(), getattr(rb, f)), \
+                    (step, j, f)

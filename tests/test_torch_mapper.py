@@ -29,6 +29,7 @@ from nextgenmap_tpu_torch.convert import state_from_numpy  # noqa: E402
 from nextgenmap_tpu_torch.models import mapper as tmapper  # noqa: E402
 from nextgenmap_tpu_torch.ops import candidate as tcand  # noqa: E402
 from nextgenmap_tpu_torch.synthetic import repeat_genome, simulate_reads  # noqa: E402
+from tests.test_torch_row_gather import one_torch_thread  # noqa: E402,F401
 
 L = 100
 B = 96
@@ -123,7 +124,8 @@ def test_mapper_builds_same_state_and_results_as_jax(repeats):
 
 
 @pytest.mark.parametrize("change", [
-    dict(bs_mapping=True), dict(end_to_end=True), dict(bs_mapping=True, topn=2),
+    dict(bs_mapping=True, index_shards=2), dict(end_to_end=True, megabatch=2),
+    dict(devices=0),
     dict(index_shards=2), dict(devices=2), dict(megabatch=2),
 ])
 def test_out_of_slice_config_raises(change):

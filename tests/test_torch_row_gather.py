@@ -66,3 +66,15 @@ def test_probe_without_card_fails(monkeypatch, capsys):
     assert probe_dyngather.main(["--dim", "0", "--w", "64", "--r", "8"]) == 2
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["ok"] is False and res["dim"] == 0 and res["w"] == 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the tensors here are small, and the test
+    workers run side by side, so a thread per core in each worker only
+    contends (the tests run ~4x faster under pytest-xdist this way).
+    Every CPU test file of the port imports it; this file needs no JAX."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -20,6 +20,7 @@ from nextgenmap_tpu.ops.scoring import matrices_are_simple, score_matrix  # noqa
 from nextgenmap_tpu.ops.sw_pallas import banded_sw_score_pallas  # noqa: E402
 from nextgenmap_tpu_torch.ops import sw_ref as tsw  # noqa: E402
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score  # noqa: E402
+from tests.test_torch_row_gather import one_torch_thread  # noqa: E402,F401
 
 
 def _mats(cfg, n=2):
@@ -148,8 +149,11 @@ def test_kernel_wrapper_on_cpu_runs_plain_version():
     assert sw_score.launches == before
 
 
-def test_glocal_mode_not_ported():
+def test_unknown_mode_raises():
+    """Only "local" and "glocal" exist (tests/test_torch_glocal.py holds
+    the glocal mode); any other name raises in every entry point."""
     q, lens, r, mats, msel, gaps, W = case("odd_sizes")
-    with pytest.raises(NotImplementedError):
-        tsw.banded_sw_score(*_torch_args(q, lens, r, mats, msel, gaps),
-                            band=W, mode="glocal")
+    ta = _torch_args(q, lens, r, mats, msel, gaps)
+    for fn in (tsw.banded_sw_score, tsw.banded_sw_align, sw_score):
+        with pytest.raises(ValueError, match="semiglobal"):
+            fn(*ta, band=W, mode="semiglobal")

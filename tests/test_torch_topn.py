@@ -38,6 +38,7 @@ from nextgenmap_tpu_torch.convert import state_from_numpy  # noqa: E402
 from nextgenmap_tpu_torch.models import mapper as tmapper  # noqa: E402
 from nextgenmap_tpu_torch.ops import candidate as tcand  # noqa: E402
 from nextgenmap_tpu_torch.synthetic import repeat_genome, simulate_reads  # noqa: E402
+from tests.test_torch_row_gather import one_torch_thread  # noqa: E402,F401
 
 L = 100
 B = 64
