@@ -7,16 +7,22 @@ Needs one CUDA card (exits non-zero without one, and outside a checkout of
 the repository).  Phases, one line of output each:
 
   1. card     the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build    nvcc builds the three hand-written kernels from the checkout
+  2. build    nvcc builds the three hand-written kernels from the checkout,
+              and g++ the port's host IO library
   3. K2       gather kernel == its plain PyTorch version on the card (exact),
               at 2048x148, 4096x148, 4096x206 and the long reads' 614x1184,
-              with windows past the end
+              with windows past the end; device time, call time, bound
+              (bytes), share, and the one-call library yardstick
+              (index_select on an unfold view of the padded genome)
   4. K1       SW score kernel == its plain version on the card (exact) at
-              the main path's shapes and the long-read bands, local and
-              glocal (--end-to-end), with GCUPS
+              the main path's shapes (all 2048 slots, and 650 real ones with
+              the rest at length 0), the long-read bands and a tie-heavy
+              periodic input, local and glocal (--end-to-end); device time,
+              call time, bound (integer operations), share and GCUPS
   5. K3       the dynamic-gather probe's kernel == its plain version (exact)
-              at the probe's default 256 x 1024, REP 32, along dim 0 and 1;
-              then the probe's entry point, which launches it
+              at the probe's default 256 x 1024, REP 32, along dim 0 and 1,
+              with its bound (bytes) and torch.gather's time at REP 1; then
+              the probe's entry point, which launches it
   6. single   the port's CLI maps 3 x 4096 simulated 100 bp reads (2% SNPs)
               against a 4.6 Mbp genome with planted repeats (E. coli K-12
               scale) on the card; >= 99% mapped, >= 95% truth-correct, K1
@@ -45,6 +51,23 @@ the repository).  Phases, one line of output each:
               mapped on the card and on the CPU from the same state: all 17
               MapResult fields equal, every rank of top-n
 
+A kernel's device time (device_ms, also "ms" in the summary) comes from
+torch.profiler (nextgenmap_tpu_torch/tools/timing.py): the device time of
+the kernels launched in a window of calls, from the kernels' own rows only,
+divided by the launches it recorded.  call_ms is the wrapper's wall time per
+call (CUDA events around one call: host checks, allocation, the launch).
+K1's summary row is the shape the single-end path hands it (2048 slots, ~650
+of them real, the rest at length 0); its other shapes are under
+"other_shapes".
+bound_ms is the least time the card could take: for K2 and K3 the bytes
+moved (each input byte read once, each output byte written once) over
+3.35 TB/s; for K1 the integer instructions its cells need (OPS_PER_CELL per
+cell of each real slot's qlen x W) over 132 SMs x 64 INT32 lanes x the
+card's maximum SM clock (nvidia-smi).  share = bound_ms / device_ms.
+
+After the last path phase the script fails if jax or any module of the JAX
+package (nextgenmap_tpu) was imported.
+
 Any failure raises and ends the run without the final line.  The line
 before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -53,7 +76,6 @@ Everything is made from fixed seeds; nothing is fetched.
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -76,22 +98,27 @@ def check(ok, what):
         raise RuntimeError(what)
 
 
-def median_ms(fn, reps, warmup=2):
-    """Median per-call time in ms over `reps` calls, by CUDA events."""
-    import torch
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
+INT32_LANES = 132 * 64         # SMs x INT32 lanes per SM per clock (sm_90)
+OPS_PER_CELL = 6               # K1: integer instructions per DP cell
+                               # (csrc/sw_score.cu's note counts them)
+K1_MAIN = "local [2048,100]xW48 (650 real)"   # what the single-end path
+                                              # hands K1 (~650 real slots)
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+
+def sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def timing_row(dev_ms, c_ms, bound, extra=""):
+    return (f"device {dev_ms * 1e3:.2f} us, call {c_ms * 1e3:.2f} us, bound "
+            f"{bound * 1e3:.3f} us, share {bound / dev_ms:.3f}{extra}")
 
 
 def max_abs_err(got, ref):
@@ -114,49 +141,67 @@ def phase_card():
     print(smi)   # the card's name and power limit, as nvidia-smi gives them
     print(f"[1 card] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    return smi
 
 
 def phase_build():
-    from nextgenmap_tpu_torch.native import build
+    from nextgenmap_tpu_torch.native import build, hostio
 
+    repo = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     cached = os.path.exists(build.library_path())
     path = build.build()
     build.load()
-    print(f"[2 build] {time.perf_counter() - t0:.2f} s "
-          f"({'cached' if cached else 'nvcc'}) -> "
-          f"{os.path.relpath(path, os.path.dirname(os.path.abspath(__file__)))}")
+    t1 = time.perf_counter()
+    host = hostio.lib() is not None      # g++ of the host IO library
+    print(f"[2 build] {t1 - t0:.2f} s ({'cached' if cached else 'nvcc'}) -> "
+          f"{os.path.relpath(path, repo)}; host IO library "
+          f"{'built' if host else 'absent (Python paths)'} in "
+          f"{time.perf_counter() - t1:.2f} s")
 
 
-def phase_gather(genome_dev, rng):
+def phase_gather(genome_dev, rng, card):
     import torch
 
     from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
     from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
+    from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
 
     G = genome_dev.shape[0]
     err = 0
-    timing = {}
+    rows, main = [], None
     for n, T in ((2048, 148), (4096, 148), (4096, 206), (LONG_BATCH, 1184)):
         s = rng.integers(0, G + 1, n).astype(np.int32)
         s[:6] = [0, G - T, G - T + 1, G - T // 2, G - 1, G]   # past the end too
         starts = torch.from_numpy(s).cuda()
+        padded = pad_table(genome_dev, T, 4)      # the yardstick's table
         k = lambda: gather_genome_windows(genome_dev, starts, T)  # noqa: E731
         p = lambda: gather_windows(pad_table(genome_dev, T, 4), starts, T)  # noqa: E731
-        got, ref = k(), p()
+        lib = lambda: padded.unfold(0, T, 1).index_select(0, starts)  # noqa: E731
+        got, ref, yard = k(), p(), lib()
         torch.cuda.synchronize()
         check(torch.equal(got, ref), f"K2 differs from plain at {n}x{T}")
+        check(torch.equal(yard, ref), f"the K2 yardstick differs at {n}x{T}")
         err = max(err, max_abs_err([got], [ref]))
-        timing[(n, T)] = (median_ms(k, 50), median_ms(p, 50))
-    line = ", ".join(f"{n}x{T}: kernel {a:.4f} ms / plain {b:.4f} ms"
-                     for (n, T), (a, b) in timing.items())
-    print(f"[3 K2 gather] exact at every shape; {line}")
-    return err, timing[(2048, 148)]
+        t = {"device_ms": device_ms(k), "call_ms": call_ms(k, 50),
+             "plain_ms": call_ms(p, 50), "library_ms": device_ms(lib),
+             "bound_ms": 1e3 * (2 * n * T + 4 * n) / HBM_BYTES_PER_S}
+        rows.append(f"{n}x{T}: " + timing_row(
+            t["device_ms"], t["call_ms"], t["bound_ms"],
+            f", library {t['library_ms'] * 1e3:.2f} us, plain call "
+            f"{t['plain_ms'] * 1e3:.2f} us"))
+        if main is None:
+            main = t
+    print(f"[3 K2 gather] exact at every shape ({card}; share against "
+          f"3.35 TB/s); " + "; ".join(rows))
+    return err, main
 
 
-def _sw_inputs(rng, S, L, W):
+def _sw_inputs(rng, S, L, W, real=None):
     """Queries, and corridors holding each query with ~2% SNPs and a short
-    indel at a random offset; every 16th slot is an all-4 (invalid) one."""
+    indel at a random offset; every 16th slot is an all-4 (invalid) one.
+    real: only the first `real` slots hold a candidate, the rest are
+    invalid slots as the mapper passes them (length 0, all-4 corridor)."""
     q = rng.integers(0, 4, (S, L)).astype(np.uint8)
     r = rng.integers(0, 4, (S, L + W)).astype(np.uint8)
     for i in range(S):
@@ -172,8 +217,23 @@ def _sw_inputs(rng, S, L, W):
     r[::16] = 4
     q[3::7, 5] = 4                                    # N in some queries
     lens = np.where(rng.random(S) < 0.1, rng.integers(0, L + 1, S), L)
+    if real is not None:
+        lens[real:] = 0
+        r[real:] = 4
     msel = rng.integers(0, 2, S).astype(np.int32)
     return q, lens.astype(np.int32), r, msel
+
+
+def _tie_inputs(rng, S, L, W):
+    """Tie-heavy input: periodic ACAC... queries over periodic corridors, so
+    that many cells share the maximum (the first one in (i, o) must win)."""
+    q = np.tile(np.array([0, 1], np.uint8), (S, (L + 1) // 2))[:, :L].copy()
+    r = np.tile(np.array([0, 1], np.uint8), (S, (L + W + 1) // 2))[:, :L + W]
+    r = r.copy()
+    r[1::3, :] = 1 - r[1::3, :]              # out of phase by one base
+    lens = np.full(S, L, np.int32)
+    lens[2::5] = rng.integers(1, L + 1, len(lens[2::5]))
+    return q, lens, r, np.zeros(S, np.int32)
 
 
 def _general_matrices(rng):
@@ -186,26 +246,38 @@ def _general_matrices(rng):
     return m
 
 
-def phase_sw(rng, cfg):
+def phase_sw(rng, cfg, card):
     import torch
 
     from nextgenmap_tpu_torch.models.mapper import score_matrices
     from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
     from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
+    from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
 
-    shapes = [  # (S, L, W, general matrices, mode)
-        (2048, 100, 48, False, "local"), (2048, 150, 56, False, "local"),
-        (1000, 100, 48, True, "local"), (777, 100, 48, False, "local"),
-        (64, 500, 120, False, "local"), (32, 1000, 184, False, "local"),
-        (512, 1000, 184, False, "local"),
-        (2048, 100, 48, False, "glocal"), (2048, 100, 48, True, "glocal"),
-        (32, 1000, 184, False, "glocal"),
+    ops_per_s = INT32_LANES * sm_clock_hz()
+    shapes = [  # (S, L, W, general matrices, mode, real slots or None)
+        (2048, 100, 48, False, "local", None),
+        (2048, 100, 48, False, "local", 650),
+        (2048, 150, 56, False, "local", None),
+        (1000, 100, 48, True, "local", None),
+        (777, 100, 48, False, "local", None),
+        (64, 500, 120, False, "local", None),
+        (32, 1000, 184, False, "local", None),
+        (512, 1000, 184, False, "local", None),
+        (2048, 100, 48, False, "glocal", None),
+        (2048, 100, 48, True, "glocal", None),
+        (32, 1000, 184, False, "glocal", None),
+        (2048, 100, 48, False, "local", "ties"),
+        (2048, 100, 48, False, "glocal", "ties"),
     ]
     err = 0
     rows = []
-    main = None
-    for S, L, W, general, mode in shapes:
-        q, lens, r, msel = _sw_inputs(rng, S, L, W)
+    timings = {}
+    for S, L, W, general, mode, real in shapes:
+        if real == "ties":
+            q, lens, r, msel = _tie_inputs(rng, S, L, W)
+        else:
+            q, lens, r, msel = _sw_inputs(rng, S, L, W, real)
         mats = _general_matrices(rng) if general else score_matrices(cfg)
         args = [torch.from_numpy(a).cuda() for a in (q, lens, r, mats)]
         gaps = (30, 25, 7) if general else (cfg.gap_read_penalty,
@@ -216,29 +288,35 @@ def phase_sw(rng, cfg):
         p = lambda: banded_sw_score(*args, *gaps, ms, band=W, mode=mode)  # noqa: E731
         got, ref = k(), p()
         torch.cuda.synchronize()
-        shape = (f"{mode} [{S},{L}]xW{W}"
-                 f"{' 2 general mats' if general else ''}")
+        shape = f"{mode} [{S},{L}]xW{W}" + (" 2 general mats" if general
+                                           else "")
+        if real is not None:
+            shape += " tie-heavy" if real == "ties" else f" ({real} real)"
         for name, a, b in zip(("score", "end_i", "end_o"), got, ref):
             check(torch.equal(a, b), f"K1 {name} differs from plain at {shape}")
         check(int(got.score.max()) > 0, f"K1 scored nothing at {shape}")
         err = max(err, max_abs_err(got, ref))
-        t_k = median_ms(k, 20)
-        t_p = median_ms(p, 3, warmup=1)
-        cells = S * L * W
-        rows.append(f"{shape}: "
-                    f"kernel {t_k:.3f} ms ({cells / t_k / 1e6:.2f} GCUPS) / "
-                    f"plain {t_p:.3f} ms ({cells / t_p / 1e6:.3f} GCUPS)")
-        if main is None:
-            main = (t_k, t_p)
-    print("[4 K1 sw_score] exact at every shape; " + "; ".join(rows))
-    return err, main
+        cells = int(np.clip(lens, 0, L).astype(np.int64).sum()) * W
+        t = {"device_ms": device_ms(k), "call_ms": call_ms(k, 20),
+             "plain_ms": call_ms(p, 3, warmup=1),
+             "bound_ms": 1e3 * OPS_PER_CELL * cells / ops_per_s}
+        t["gcups"] = cells / (t["device_ms"] * 1e-3) / 1e9
+        rows.append(f"{shape}: " + timing_row(
+            t["device_ms"], t["call_ms"], t["bound_ms"],
+            f", {t['gcups']:.2f} GCUPS, plain call {t['plain_ms']:.3f} ms"))
+        timings.setdefault(shape, t)
+    print(f"[4 K1 sw_score] exact at every shape ({card}; bound: "
+          f"{OPS_PER_CELL} int ops/cell at {ops_per_s / 1e12:.2f} T/s); "
+          + "; ".join(rows))
+    return err, timings
 
 
-def phase_row_gather():
+def phase_row_gather(card):
     import torch
 
     from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
     from nextgenmap_tpu_torch.tools import probe_dyngather
+    from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
 
     R, W, REP = 256, 1024, 32           # the probe's defaults
     rng = np.random.default_rng(3)
@@ -253,7 +331,13 @@ def phase_row_gather():
         torch.cuda.synchronize()
         check(torch.equal(got, ref), f"K3 differs from plain along dim {dim}")
         err = max(err, max_abs_err([got], [ref]))
-        timing[dim] = (median_ms(k, 50), median_ms(p, 10))
+        idx64 = idx.long()
+        lib = lambda: torch.gather(x, dim, idx64)  # noqa: E731
+        timing[dim] = {"device_ms": device_ms(k), "call_ms": call_ms(k, 50),
+                       "plain_ms": call_ms(p, 10),
+                       # REP = 1: the one call that computes it
+                       "gather_rep1_ms": device_ms(lib),
+                       "bound_ms": 1e3 * 3 * R * W * 4 / HBM_BYTES_PER_S}
     # the probe's own entry point is the path that launches K3
     row_gather.launches = 0
     for dim in (0, 1):
@@ -263,12 +347,15 @@ def phase_row_gather():
     launches = row_gather.launches
     check(launches > 0, "the probe never launched K3")
     line = "; ".join(
-        f"dim {d}: kernel {a:.4f} ms / plain {b:.4f} ms, probe "
-        f"{probes[d]['ns_per_elem']:.5f} ns/elem = "
+        f"dim {d}: " + timing_row(
+            t["device_ms"], t["call_ms"], t["bound_ms"],
+            f", torch.gather (REP 1) {t['gather_rep1_ms'] * 1e3:.2f} us, "
+            f"plain call {t['plain_ms'] * 1e3:.2f} us")
+        + f", probe {probes[d]['ns_per_elem']:.5f} ns/elem = "
         f"{probes[d]['gelem_per_s']:.1f} Gelem/s"
-        for d, (a, b) in timing.items())
-    print(f"[5 K3 row_gather] exact at {R}x{W} REP {REP}; {line}; probe "
-          f"launches {launches}")
+        for d, t in timing.items())
+    print(f"[5 K3 row_gather] exact at {R}x{W} REP {REP} ({card}); {line}; "
+          f"probe launches {launches}")
     return err, timing[1], launches
 
 
@@ -542,7 +629,7 @@ def main():
               "(nextgenmap_tpu_torch/ is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
-    phase_card()
+    card = phase_card()
     import torch
 
     from nextgenmap_tpu_torch import cli, synthetic
@@ -552,9 +639,10 @@ def main():
     rng = np.random.default_rng(SEED)
     genome = synthetic.repeat_genome(GENOME_SIZE, n_repeats=120, min_len=1000,
                                      max_len=2000, seed=SEED)
-    k2_err, k2_ms = phase_gather(torch.from_numpy(genome).cuda(), rng)
-    k1_err, k1_ms = phase_sw(rng, cfg)
-    k3_err, k3_ms, k3_launches = phase_row_gather()
+    k2_err, k2 = phase_gather(torch.from_numpy(genome).cuda(), rng, card)
+    k1_err, k1_shapes = phase_sw(rng, cfg, card)
+    k1 = k1_shapes[K1_MAIN]
+    k3_err, k3, k3_launches = phase_row_gather(card)
     codes, launches = {}, {}
     with tempfile.TemporaryDirectory() as workdir:
         synthetic.write_fasta(os.path.join(workdir, "ref.fa"), "chr", genome)
@@ -567,29 +655,46 @@ def main():
             codes[path], launches[path] = phase(genome, workdir)
     phase_cuda_equals_cpu(genome, codes, cfg)
     check("jax" not in sys.modules, "the port imported jax")
+    reference = sorted(m for m in sys.modules if m == "nextgenmap_tpu"
+                       or m.startswith("nextgenmap_tpu."))
+    check(not reference, f"the port imported the JAX package: {reference}")
 
-    def by_path(name):
-        return {path: n[name] for path, n in launches.items()}
+    def per_step(name):
+        return {path: n[name] / (N_BATCHES if path == "single"
+                                 else N_BATCHES_NEW)
+                for path, n in launches.items()}
+
+    def row(name, source, replaces, err, t, n_launches, by_step, bound_by,
+            library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launches,
+                "launches_per_step": by_step, "max_abs_err": err,
+                "ms": t["device_ms"], "device_ms": t["device_ms"],
+                "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": bound_by,
+                "share": t["bound_ms"] / t["device_ms"],
+                "library_ms": library_ms, **extra}
 
     kernels = [
-        {"name": "sw_score", "route": "cuda",
-         "source": "nextgenmap_tpu_torch/csrc/sw_score.cu",
-         "replaces": "nextgenmap_tpu/ops/sw_pallas.py:150",
-         "launches": sum(by_path("sw_score").values()),
-         "launches_by_path": by_path("sw_score"), "max_abs_err": k1_err,
-         "ms": k1_ms[0], "plain_ms": k1_ms[1]},
-        {"name": "gather_windows", "route": "cuda",
-         "source": "nextgenmap_tpu_torch/csrc/gather_windows.cu",
-         "replaces": "nextgenmap_tpu/ops/gather_pallas.py:124",
-         "launches": sum(by_path("gather_windows").values()),
-         "launches_by_path": by_path("gather_windows"), "max_abs_err": k2_err,
-         "ms": k2_ms[0], "plain_ms": k2_ms[1]},
-        {"name": "row_gather", "route": "cuda",
-         "source": "nextgenmap_tpu_torch/csrc/row_gather.cu",
-         "replaces": "tools/probe_dyngather.py:51",
-         "launches": k3_launches,
-         "launches_by_path": {"probe_dyngather": k3_launches},
-         "max_abs_err": k3_err, "ms": k3_ms[0], "plain_ms": k3_ms[1]},
+        row("sw_score", "nextgenmap_tpu_torch/csrc/sw_score.cu",
+            "nextgenmap_tpu/ops/sw_pallas.py:150", k1_err, k1,
+            sum(n["sw_score"] for n in launches.values()),
+            per_step("sw_score"), "operations", None, gcups=k1["gcups"],
+            shape=K1_MAIN + ": the single-end path's input",
+            other_shapes={
+                shape: {"device_ms": t["device_ms"], "bound_ms": t["bound_ms"],
+                        "share": t["bound_ms"] / t["device_ms"]}
+                for shape, t in k1_shapes.items() if shape != K1_MAIN}),
+        row("gather_windows", "nextgenmap_tpu_torch/csrc/gather_windows.cu",
+            "nextgenmap_tpu/ops/gather_pallas.py:124", k2_err, k2,
+            sum(n["gather_windows"] for n in launches.values()),
+            per_step("gather_windows"), "bytes", k2["library_ms"],
+            shape="2048x148"),
+        row("row_gather", "nextgenmap_tpu_torch/csrc/row_gather.cu",
+            "tools/probe_dyngather.py:51", k3_err, k3, k3_launches,
+            {"probe_dyngather": k3_launches}, "bytes", None,
+            gather_rep1_ms=k3["gather_rep1_ms"],
+            shape="256x1024 REP 32 dim 1"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,205 +7,334 @@
 // gopen >= gext, lazy F.  Local mode (LOCAL = true): a 0 floor on every
 // cell, best cell = first strict maximum over rows i < qlen (smallest i),
 // and within a row the smallest o.  Glocal mode (--end-to-end, LOCAL =
-// false): no floor, and only the read's last row i == qlen - 1 competes
-// (the TPU package scores this mode with its plain scan; here the same
-// kernel serves both).  Returns (score, end_i, end_o); an alignment with no
-// positive cell keeps (0, 0, 0).
+// false): no floor, and only the read's last row i == qlen - 1 competes.
+// Returns (score, end_i, end_o); an alignment with no positive cell, and a
+// slot of length 0 (the mapper's invalid slots), keeps (0, 0, 0).
 //
-// What bounds it on the card: integer ALU work and the latency of the row
-// recurrence.  Each of the L rows of one alignment depends on the previous
-// one, and a row is ~12 int ops per cell plus a handful of warp shuffles;
-// there are no floating-point or memory-bandwidth limits to speak of
-// (queries, corridors and matrices are a few hundred bytes per alignment).
+// What bounds it on the card: integer instructions, and in practice the
+// latency of the row recurrence.  One cell of the recurrence needs at least
+// OPS_PER_CELL = 6 32-bit integer instructions on sm_90 (a DPX instruction
+// counts as one):
+//   E  = max(H[o+1] - gq, E[o+1] - ge)                   2  IADD + VIADDMAX
+//   Ht = max(H[o] + S[q_i, r_{i+o}], E, 0)               1  VIADDMAX.RELU
+//        (glocal: max(H[o] + S, E))                         (VIADDMAX)
+//   scan: run = max(run, Ht + o*ge) within the lane      1  VIADDMAX
+//   F/H: H = max(max(excl, incl[o-1]) - c_o, Ht)         2  IMNMX + VIADDMAX
+// (the substitution lookup is two shared-memory loads, and the argmax adds
+// a compare and three selects per cell: both are left out of the bound,
+// which is a floor).  Each
+// of the L rows of one alignment depends on the row before, so a row's
+// dependency chain (shuffles across lanes, the in-lane scan) sets the pace
+// whenever the alignments in flight do not fill the card.
 //
-// Design: one warp per alignment, band offsets spread over the lanes in
-// contiguous chunks of NPL cells (lane l owns o = l*NPL .. l*NPL+NPL-1), so
-// W may be any value from 1 to kMaxBand; the TPU's multiple-of-8 rule came
-// from its sublanes and is gone.  Per row:
-//   - E[o] needs H and E of the previous row at o+1: in-lane, or one
-//     shuffle from the next lane; NEG past the band;
-//   - F uses the sequential form F[o] = max_{t<o} Htmp[t] + t*gext
-//     - gopen_r - (o-1)*gext: an inclusive max within the lane, then an
-//     exclusive max-scan of the lane totals across the warp (5 shuffles);
-//   - the row maximum is a 5-shuffle warp max; only when it beats the best
-//     so far does a second reduction find its smallest o.
-// Substitution scores come straight from the [M, 8, 8] matrices held in
-// shared memory, S[msel][q][r]; that covers the simple and the general
-// matrices alike, so the `simple` flag of the TPU kernel (an op-count
-// trick) is not needed here.  The kernel stops at row qlen, since later
-// rows cannot change the result.  An invalid slot arrives as an all-4
-// corridor and scores 0.
+// Design, against the parent kernel (one warp per alignment):
+//   - a group of LPA = 8, 16 or 32 lanes owns one alignment, NPL cells per
+//     lane (lane l owns o = l*NPL .. l*NPL+NPL-1); a template on (LPA, NPL)
+//     is picked from W, so a short band (W = 48: 16 lanes x 3 cells) puts 2
+//     alignments in one warp and needs 4+1 shuffles for the F scan and 1 for
+//     the E neighbour, where the parent needed 5+1 and 2 (and 5-10 more
+//     for the row maximum).  Segmented shuffles (the `width` argument) keep
+//     the groups of a warp apart;
+//   - each group stages its query and corridor in shared memory before the
+//     row loop (aligned 4-byte loads, codes clamped to 5 on the way: code 5
+//     scores 0 against anything, as codes >= 5 do in the plain version), and
+//     the substitution scores of row i+1 are loaded while row i computes, so
+//     no global load and no dependent shared load sits in the row chain;
+//   - the argmax is deferred: each lane keeps its own first maximum in
+//     (i, o) order (value, i, o), updated with a strict > as the rows and,
+//     within a row, its cells go up, and one lexicographic reduction after
+//     the last row takes the largest value, then the smallest i, then the
+//     smallest o: the global first maximum the plain version defines.  (A
+//     key packing h and o into one int took 4-7% longer at W = 48 and 56
+//     and 4% less at W = 184 on an H100, tools/kernel_ab.py; the plain
+//     compare stays);
+//   - Hopper's DPX instructions do the max-plus steps (__viaddmax_s32,
+//     __viaddmax_s32_relu);
+//   - cells past W (the template rounds W up to LPA*NPL) are inert: their
+//     gap-open constant is 2^29, so the E they hand down to cell W-1 stays
+//     ~-2^29 (the plain version's NEG plays that role), and the argmax
+//     skips them; exact while |H| < 2^27, far beyond any read;
+//   - a group stops updating its best past its own qlen; a warp whose groups
+//     all have length 0 exits at once.
+// Exact int32 arithmetic throughout; no narrower type.
 
-#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int NEG = -(1 << 30);
-constexpr int kWarpsPerBlock = 4;
+// one warp per block: a short batch spreads over as many SMs as it has
+// warps, and a block needs no barrier after its matrices are loaded
+constexpr int kWarpsPerBlock = 1;
+constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kMaxMats = 8;
 constexpr int kMaxBand = 256;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPadCode = 5;            // staged N/pad: scores 0 against all
+constexpr int kNeg = -(1 << 29);       // E and F from outside the band
+constexpr int kInert = 1 << 29;        // gap open of the cells past W
+constexpr int kFar = 1 << 30;          // F offset and argmax mask past W
+constexpr int kMaxDynSmem = 200 * 1024;
 
-template <int NPL, bool LOCAL>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// dst[t] = min(src[t], 5) for t < n, kPadCode for n <= t < n_pad, by the
+// `lpa` lanes of one group (sub-lane sl).  src is read as aligned 32-bit
+// words: a word may reach up to 3 bytes before or after the row, never
+// outside the 512-byte-aligned allocation that holds it.
+__device__ __forceinline__ void stage_codes(const uint8_t* src, int n,
+                                            uint8_t* dst, int n_pad, int sl,
+                                            int lpa) {
+  if (n > 0) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
+    const int lead = static_cast<int>(a & 3);
+    const int nw = (lead + n + 3) >> 2;
+#pragma unroll 4
+    for (int j = sl; j < nw; j += lpa) {
+      const uint32_t v = __ldg(w + j);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int t = 4 * j + b - lead;
+        if (t >= 0 && t < n) {
+          dst[t] = static_cast<uint8_t>(
+              min((v >> (8 * b)) & 0xffu, static_cast<uint32_t>(kPadCode)));
+        }
+      }
+    }
+  }
+  for (int t = (n > 0 ? n : 0) + sl; t < n_pad; t += lpa) dst[t] = kPadCode;
+}
+
+template <int NPL>
+__device__ __forceinline__ void load_subs(const int32_t* sm, const uint8_t* qs,
+                                          const uint8_t* rs, int i, int o0,
+                                          int (&out)[NPL]) {
+  const int32_t* row = sm + 8 * qs[i];
+  const uint8_t* rr = rs + i + o0;
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) out[k] = row[rr[k]];
+}
+
+template <int LPA, int NPL, bool LOCAL>
+__global__ void __launch_bounds__(kThreads)
 sw_score_kernel(const uint8_t* __restrict__ query,
                 const int32_t* __restrict__ qlen,
                 const uint8_t* __restrict__ corr,
                 const int32_t* __restrict__ mats,
                 const int32_t* __restrict__ msel,
                 int S, int L, int W, int n_mats, int gq, int gr, int ge,
+                int stage_q, int stage_bytes,
                 int32_t* __restrict__ out_score,
                 int32_t* __restrict__ out_i,
                 int32_t* __restrict__ out_o) {
+  constexpr int APW = 32 / LPA;   // alignments per warp
+  constexpr int WP = LPA * NPL;   // cells per alignment, >= W
   __shared__ int32_t smat[kMaxMats * 64];
-  for (int t = threadIdx.x; t < n_mats * 64; t += blockDim.x) {
-    smat[t] = mats[t];
+  extern __shared__ __align__(16) uint8_t stage[];
+
+  // matrices with every entry of a code >= 5 zeroed (codes are staged
+  // clamped to 5)
+  for (int t = threadIdx.x; t < n_mats * 64; t += kThreads) {
+    const bool in = ((t >> 3) & 7) < kPadCode && (t & 7) < kPadCode;
+    smat[t] = in ? mats[t] : 0;
   }
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (s >= S) return;  // the whole warp leaves together
+  const int warp = threadIdx.x >> 5;
+  const int g = lane / LPA;
+  const int sl = lane % LPA;
+  const int slot = (blockIdx.x * kWarpsPerBlock + warp) * APW + g;
+  const bool real = slot < S;
+  const int len = real ? qlen[slot] : 0;
+  const int last = len - 1;   // glocal: the one row that competes
+  const int rows = len < 0 ? 0 : (len > L ? L : len);
+  int warp_rows = rows;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    warp_rows = max(warp_rows, __shfl_xor_sync(kFull, warp_rows, d));
+  }
+  if (warp_rows == 0) {   // warp-uniform: nothing to score
+    if (real && sl == 0) {
+      out_score[slot] = 0;
+      out_i[slot] = 0;
+      out_o[slot] = 0;
+    }
+    return;
+  }
 
-  const int T = L + W;
-  const uint8_t* q = query + static_cast<long long>(s) * L;
-  const uint8_t* r = corr + static_cast<long long>(s) * T;
-  int m = n_mats == 1 ? 0 : msel[s];
+  // stage the rows and corridor bytes this warp's loop reads
+  uint8_t* qs = stage + (warp * APW + g) * stage_bytes;
+  uint8_t* rs = qs + stage_q;
+  const int nr = warp_rows + WP - 1;
+  if (rows > 0) {
+    stage_codes(query + static_cast<long long>(slot) * L, warp_rows, qs,
+                warp_rows, sl, LPA);
+    stage_codes(corr + static_cast<long long>(slot) * (L + W),
+                min(nr, L + W), rs, nr, sl, LPA);
+  } else {
+    stage_codes(query, 0, qs, warp_rows, sl, LPA);
+    stage_codes(corr, 0, rs, nr, sl, LPA);
+  }
+  __syncwarp();
+
+  int m = (n_mats == 1 || !real) ? 0 : msel[slot];
   m = m < 0 ? 0 : (m >= n_mats ? n_mats - 1 : m);
   const int32_t* sm = smat + m * 64;
-  // glocal: the one row that competes (none when qlen is 0 or past L)
-  const int last = qlen[s] - 1;
-  int rows = qlen[s];
-  rows = rows < 0 ? 0 : (rows > L ? L : rows);
-  const int o0 = lane * NPL;
 
-  // cells past the band (o >= W) hold NEG, so they act as "outside"
-  int h[NPL], e[NPL];
+  const int o0 = sl * NPL;
+  int h[NPL], e[NPL], ngq[NPL], nck[NPL], oge[NPL], kk[NPL];
 #pragma unroll
   for (int k = 0; k < NPL; ++k) {
-    h[k] = o0 + k < W ? 0 : NEG;
-    e[k] = NEG;
+    const int o = o0 + k;
+    const bool valid = o < W;
+    h[k] = 0;
+    e[k] = kNeg;
+    ngq[k] = valid ? -gq : -kInert;
+    nck[k] = valid ? -(gr + (o - 1) * ge) : -kFar;
+    oge[k] = o * ge;
+    // >= 0 exactly for the valid cells; an int per cell tested in the loop
+    // timed ~8% faster on an H100 than testing o < W there
+    kk[k] = valid ? 255 - o : -kFar;
   }
-  int best = 0, bi = 0, bo = 0;
+  // the lane's first maximum (value, row, o); none while the value is 0
+  int lb = 0, li = 0, lo = 0;
 
-  for (int i = 0; i < rows; ++i) {
-    const int qi = q[i];
-    int h_next = __shfl_down_sync(kFull, h[0], 1);
-    int e_next = __shfl_down_sync(kFull, e[0], 1);
-    if (lane == 31) {
-      h_next = NEG;
-      e_next = NEG;
-    }
+  int sub[NPL];
+  load_subs<NPL>(sm, qs, rs, 0, o0, sub);
+  // two rows per trip: the compiler overlaps one row's argmax and loads
+  // with the next row's chain (timed faster at W = 48 and W = 184)
+#pragma unroll 2
+  for (int i = 0; i < warp_rows; ++i) {
+    int nsub[NPL];
+    load_subs<NPL>(sm, qs, rs, min(i + 1, warp_rows - 1), o0, nsub);
 
-    int ht[NPL], en[NPL], incl[NPL];
-    int run = NEG;
+    // E that each cell hands down to the cell below it (o - 1)
+    int eo[NPL];
 #pragma unroll
     for (int k = 0; k < NPL; ++k) {
-      const int o = o0 + k;
-      const int hu = k + 1 < NPL ? h[k + 1] : h_next;
-      const int eu = k + 1 < NPL ? e[k + 1] : e_next;
-      if (o < W) {
-        const int rc = r[i + o];
-        const int sub = (qi < 5 && rc < 5) ? sm[qi * 8 + rc] : 0;
-        const int hd = h[k] + sub;
-        en[k] = max(hu - gq, eu - ge);
-        ht[k] = max(LOCAL ? max(hd, 0) : hd, en[k]);
-        run = max(run, ht[k] + o * ge);
-      } else {
-        en[k] = NEG;
-        ht[k] = NEG;
-      }
-      incl[k] = run;
+      eo[k] = __viaddmax_s32(h[k], ngq[k], e[k] - ge);
     }
+    int feed = __shfl_down_sync(kFull, eo[0], 1, LPA);
+    if (sl == LPA - 1) feed = kNeg;
 
-    // exclusive max-scan of the lane totals across the warp
+    int ht[NPL], incl[NPL];
+    int run = kNeg;
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      const int en = k + 1 < NPL ? eo[k + 1] : feed;
+      ht[k] = LOCAL ? __viaddmax_s32_relu(h[k], sub[k], en)
+                    : __viaddmax_s32(h[k], sub[k], en);
+      run = __viaddmax_s32(ht[k], oge[k], run);
+      incl[k] = run;
+      e[k] = en;
+    }
+    // exclusive max-scan of the lane totals across the group
     int v = run;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(kFull, v, d);
-      if (lane >= d) v = max(v, t);
+    for (int d = 1; d < LPA; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, v, d, LPA);
+      if (sl >= d) v = max(v, t);
     }
-    int excl = __shfl_up_sync(kFull, v, 1);
-    if (lane == 0) excl = NEG;
-
-    int lmax = NEG, larg = INT_MAX;
+    int excl = __shfl_up_sync(kFull, v, 1, LPA);
+    if (sl == 0) excl = kNeg;
 #pragma unroll
     for (int k = 0; k < NPL; ++k) {
-      const int o = o0 + k;
-      if (o < W) {
-        const int cm = k == 0 ? excl : max(excl, incl[k - 1]);
-        const int f = cm - gr - (o - 1) * ge;
-        h[k] = max(ht[k], f);
-        e[k] = en[k];
-        if (h[k] > lmax) {
-          lmax = h[k];
-          larg = o;
+      const int cm = k == 0 ? excl : max(excl, incl[k - 1]);
+      h[k] = __viaddmax_s32(cm, nck[k], ht[k]);
+    }
+
+    if (LOCAL ? i < rows : i == last) {
+#pragma unroll
+      for (int k = 0; k < NPL; ++k) {   // strict >: ties keep the earlier
+        if (kk[k] >= 0 && h[k] > lb) {
+          lb = h[k];
+          lo = o0 + k;
+          li = i;
         }
       }
     }
-
-    if (!LOCAL && i != last) continue;  // warp-uniform
-    int rowmax = lmax;
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      rowmax = max(rowmax, __shfl_xor_sync(kFull, rowmax, d));
-    }
-    if (rowmax > best) {  // warp-uniform
-      int arg = lmax == rowmax ? larg : INT_MAX;
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        arg = min(arg, __shfl_xor_sync(kFull, arg, d));
-      }
-      best = rowmax;
-      bi = i;
-      bo = arg;
-    }
+    for (int k = 0; k < NPL; ++k) sub[k] = nsub[k];
   }
 
-  if (lane == 0) {
-    out_score[s] = best;
-    out_i[s] = bi;
-    out_o[s] = bo;
+  // lexicographic reduction over the group: largest value, then smallest
+  // i, then smallest o
+  int bv = lb, bi = li, bo = lo;
+#pragma unroll
+  for (int d = LPA / 2; d > 0; d >>= 1) {
+    const int ov = __shfl_xor_sync(kFull, bv, d, LPA);
+    const int oi = __shfl_xor_sync(kFull, bi, d, LPA);
+    const int oo = __shfl_xor_sync(kFull, bo, d, LPA);
+    if (ov > bv || (ov == bv && (oi < bi || (oi == bi && oo < bo)))) {
+      bv = ov;
+      bi = oi;
+      bo = oo;
+    }
+  }
+  if (real && sl == 0) {
+    out_score[slot] = bv;
+    out_i[slot] = bi;
+    out_o[slot] = bo;
   }
 }
 
-template <int NPL, bool LOCAL>
-void launch(const void* query, const void* qlen, const void* corr,
-            const void* mats, const void* msel, int S, int L, int W,
-            int n_mats, int gq, int gr, int ge, void* score, void* end_i,
-            void* end_o, cudaStream_t stream) {
-  const int blocks = (S + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sw_score_kernel<NPL, LOCAL><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+template <int LPA, int NPL, bool LOCAL>
+cudaError_t launch(const void* query, const void* qlen, const void* corr,
+                   const void* mats, const void* msel, int S, int L, int W,
+                   int n_mats, int gq, int gr, int ge, void* score,
+                   void* end_i, void* end_o, cudaStream_t stream) {
+  constexpr int APB = kThreads / LPA;   // alignments per block
+  const int stage_q = (L + 3) & ~3;
+  const int stage_bytes = stage_q + ((L + LPA * NPL + 3) & ~3);
+  const long long smem = static_cast<long long>(APB) * stage_bytes;
+  if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
+  auto kern = sw_score_kernel<LPA, NPL, LOCAL>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (S + APB - 1) / APB;
+  kern<<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(
       static_cast<const uint8_t*>(query), static_cast<const int32_t*>(qlen),
       static_cast<const uint8_t*>(corr), static_cast<const int32_t*>(mats),
       static_cast<const int32_t*>(msel), S, L, W, n_mats, gq, gr, ge,
-      static_cast<int32_t*>(score), static_cast<int32_t*>(end_i),
-      static_cast<int32_t*>(end_o));
+      stage_q, stage_bytes, static_cast<int32_t*>(score),
+      static_cast<int32_t*>(end_i), static_cast<int32_t*>(end_o));
+  return cudaGetLastError();
 }
 
-template <int NPL>
-void launch_mode(bool local, const void* query, const void* qlen,
-                 const void* corr, const void* mats, const void* msel, int S,
-                 int L, int W, int n_mats, int gq, int gr, int ge, void* score,
-                 void* end_i, void* end_o, cudaStream_t stream) {
-  if (local) {
-    launch<NPL, true>(query, qlen, corr, mats, msel, S, L, W, n_mats, gq, gr,
-                      ge, score, end_i, end_o, stream);
-  } else {
-    launch<NPL, false>(query, qlen, corr, mats, msel, S, L, W, n_mats, gq, gr,
-                       ge, score, end_i, end_o, stream);
-  }
+template <bool LOCAL>
+cudaError_t launch_band(const void* query, const void* qlen, const void* corr,
+                        const void* mats, const void* msel, int S, int L,
+                        int W, int n_mats, int gq, int gr, int ge, void* score,
+                        void* end_i, void* end_o, cudaStream_t st) {
+#define NGM_SW_LAUNCH(LPA, NPL)                                             \
+  return launch<LPA, NPL, LOCAL>(query, qlen, corr, mats, msel, S, L, W,    \
+                                 n_mats, gq, gr, ge, score, end_i, end_o, st)
+  // (lanes per alignment, cells per lane): at W = 48, 16 lanes x 3 cells
+  // timed faster than 8 x 6, and 4 x 12 slower, in a side-by-side build on
+  // the card (a shorter in-lane chain against one shuffle more); a warp per
+  // alignment past W = 128
+  if (W <= 16) NGM_SW_LAUNCH(8, 2);
+  if (W <= 32) NGM_SW_LAUNCH(8, 4);
+  if (W <= 48) NGM_SW_LAUNCH(16, 3);
+  if (W <= 64) NGM_SW_LAUNCH(16, 4);
+  if (W <= 96) NGM_SW_LAUNCH(16, 6);
+  if (W <= 128) NGM_SW_LAUNCH(16, 8);
+  if (W <= 192) NGM_SW_LAUNCH(32, 6);
+  NGM_SW_LAUNCH(32, 8);
+#undef NGM_SW_LAUNCH
 }
 
 }  // namespace
 
 // query [S, L] uint8, qlen [S] int32, corr [S, L + W] uint8,
-// mats [n_mats, 8, 8] int32, msel [S] int32 in [0, n_mats); local != 0 for
-// local mode, 0 for glocal; outputs three [S] int32.  1 <= W <= 256,
-// 1 <= n_mats <= 8.
+// mats [n_mats, 8, 8] int32, msel [S] int32 (clamped to [0, n_mats)); local
+// != 0 for local mode, 0 for glocal; outputs three [S] int32.
+// 1 <= W <= 256, 1 <= n_mats <= 8.
 extern "C" int ngm_sw_score(const void* query, const void* qlen,
                             const void* corr, const void* mats,
                             const void* msel, int S, int L, int W, int n_mats,
@@ -214,22 +343,13 @@ extern "C" int ngm_sw_score(const void* query, const void* qlen,
   if (W < 1 || W > kMaxBand || n_mats < 1 || n_mats > kMaxMats || L < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (S > 0) {
-    auto st = static_cast<cudaStream_t>(stream);
-    const bool loc = local != 0;
-    if (W <= 32) {
-      launch_mode<1>(loc, query, qlen, corr, mats, msel, S, L, W, n_mats, gq,
-                     gr, ge, score, end_i, end_o, st);
-    } else if (W <= 64) {
-      launch_mode<2>(loc, query, qlen, corr, mats, msel, S, L, W, n_mats, gq,
-                     gr, ge, score, end_i, end_o, st);
-    } else if (W <= 128) {
-      launch_mode<4>(loc, query, qlen, corr, mats, msel, S, L, W, n_mats, gq,
-                     gr, ge, score, end_i, end_o, st);
-    } else {
-      launch_mode<8>(loc, query, qlen, corr, mats, msel, S, L, W, n_mats, gq,
-                     gr, ge, score, end_i, end_o, st);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (S <= 0) return static_cast<int>(cudaGetLastError());
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      local != 0
+          ? launch_band<true>(query, qlen, corr, mats, msel, S, L, W, n_mats,
+                              gq, gr, ge, score, end_i, end_o, st)
+          : launch_band<false>(query, qlen, corr, mats, msel, S, L, W, n_mats,
+                               gq, gr, ge, score, end_i, end_o, st);
+  return static_cast<int>(err);
 }

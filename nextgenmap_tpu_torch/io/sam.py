@@ -14,10 +14,10 @@ from typing import IO
 
 import numpy as np
 
-from nextgenmap_tpu.config import NgmConfig
-from nextgenmap_tpu.index.genome import Genome
-from nextgenmap_tpu.io.encode import decode_seq
 from nextgenmap_tpu_torch import __version__
+from nextgenmap_tpu_torch.config import NgmConfig
+from nextgenmap_tpu_torch.index.genome import Genome
+from nextgenmap_tpu_torch.io.encode import decode_seq
 from nextgenmap_tpu_torch.ops.sw_ref import OP_D, OP_I, OP_M
 
 PROGRAM = "ngm-torch"

@@ -40,14 +40,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nextgenmap_tpu.config import NgmConfig
-from nextgenmap_tpu.index.kmer_index import KmerIndex
-from nextgenmap_tpu.ops.scoring import matrices_are_simple, score_matrix
+from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.convert import MapperState, state_from_numpy
 from nextgenmap_tpu_torch.device import resolve_device
 from nextgenmap_tpu_torch.index.device_build import (
     build_index_device, concat_tables,
 )
+from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
 from nextgenmap_tpu_torch.ops.candidate import (
     candidate_search_canonical, candidate_search_dual, pack_offsets,
 )
@@ -55,6 +54,7 @@ from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer import (
     extract_kmers, extract_kmers_canonical,
 )
+from nextgenmap_tpu_torch.ops.scoring import matrices_are_simple, score_matrix
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align
 
@@ -181,7 +181,9 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
     this pass (its score comes from the traceback).  The (read, candidate)
     pairs of the masked reads are compacted batch-wide into `slot_cap`
     slots, gathered and scored once each, and the scores are scattered back
-    to a dense [B, C] grid (0 where unscored).  Returns (sw, slot_overflow).
+    to a dense [B, C] grid (0 where unscored).  The slots past the real
+    ones are scored at length 0, so the kernel does no work for them.
+    Returns (sw, slot_overflow).
     """
     B, L = reads.shape
     C = corr_start.shape[1]
@@ -206,10 +208,10 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
 
     corr_starts = torch.where(slot_valid, corr_start.reshape(-1)[flat_idx], 0)
     strand_s = strand.reshape(-1)[flat_idx]
-    len_s = lengths[b_s]
+    # an invalid slot has length 0: it runs no DP row and scores (0, 0, 0)
+    len_s = torch.where(slot_valid, lengths[b_s], 0)
     # one contiguous window per real candidate (kernel K2 on the card)
     corr_s = gather_genome_windows(genome, corr_starts.contiguous(), T)
-    corr_s = torch.where(slot_valid[:, None], corr_s, 4).to(torch.uint8)
     q_s = torch.where((strand_s == 1)[:, None], rc[b_s], reads[b_s])
 
     # (kernel K1 on the card)

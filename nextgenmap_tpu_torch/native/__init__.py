@@ -1,1 +1,2 @@
-"""Port of nextgenmap_tpu.native."""
+"""Native code of the port: the CUDA kernels' build (``build.py``) and the
+host IO library (``hostio.py``, ``ngmio.cpp``)."""

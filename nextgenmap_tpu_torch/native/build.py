@@ -50,13 +50,13 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def sources(srcdir: str = CSRC_DIR) -> list[str]:
+    return sorted(glob.glob(os.path.join(srcdir, "*.cu")))
 
 
-def library_path() -> str:
+def library_path(srcdir: str = CSRC_DIR) -> str:
     h = hashlib.sha256()
-    for path in sources():
+    for path in sources(srcdir):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -74,14 +74,15 @@ def _run(procs: list[subprocess.Popen], what: list[str]) -> None:
             )
 
 
-def build() -> str:
-    """Compile the kernels unless the keyed library exists; returns its path."""
-    so = library_path()
+def build(srcdir: str = CSRC_DIR) -> str:
+    """Compile the kernels of `srcdir` (the port's csrc/, or another copy of
+    it to compare with) unless the keyed library exists; returns its path."""
+    so = library_path(srcdir)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
-    srcs = sources()
+    srcs = sources(srcdir)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
         objs = [os.path.join(td, f"{i}.o") for i in range(len(srcs))]
         _run([subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
@@ -97,18 +98,23 @@ def build() -> str:
     return so
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a kernel library and declare its C signatures."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.ngm_error_string.argtypes = [I32]
+    lib.ngm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.ngm_error_string.argtypes = [I32]
-        lib.ngm_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 

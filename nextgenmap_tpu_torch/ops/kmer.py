@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from nextgenmap_tpu.io.encode import CODE_A, CODE_C, CODE_G, CODE_T
+from nextgenmap_tpu_torch.io.encode import CODE_A, CODE_C, CODE_G, CODE_T
 
 _COLLAPSED_FROM = {"ct": CODE_C, "ga": CODE_G}
 

@@ -13,17 +13,17 @@ import time
 
 import numpy as np
 
-from nextgenmap_tpu import native
-from nextgenmap_tpu.io.encode import revcomp_codes
-from nextgenmap_tpu.io.fastq import ReadBatch
-from nextgenmap_tpu.utils.stats import MappingStats
+from nextgenmap_tpu_torch.io.encode import revcomp_codes
+from nextgenmap_tpu_torch.io.fastq import ReadBatch
 from nextgenmap_tpu_torch.io.sam import (
     FLAG_FIRST, FLAG_MATE_REVERSE, FLAG_MATE_UNMAPPED, FLAG_PAIRED,
     FLAG_PROPER, FLAG_REVERSE, FLAG_SECOND, FLAG_UNMAPPED, SamWriter,
     aligned_rows,
 )
 from nextgenmap_tpu_torch.models.mapper import MapResult
+from nextgenmap_tpu_torch.native import hostio as native
 from nextgenmap_tpu_torch.ops.sw_ref import OP_I
+from nextgenmap_tpu_torch.utils.stats import MappingStats
 
 
 def _ref_span(ops: np.ndarray, n_ops: int) -> int:

@@ -5,9 +5,9 @@ Port of ``nextgenmap_tpu/pipeline/runner.py`` on one device
 long-read batch size, ``load_reference`` with its bisulfite branch,
 ``emit_single``, ``emit_single_topn``).  The loop is
 serial: parse a batch, map it on the device, fetch its result to the host,
-format and write its records.  Records are formatted by the
-jax-free native formatter ``nextgenmap_tpu.native.format_sam`` when it is
-available, else by the Python SamWriter; both give the same bytes.
+format and write its records.  Records are formatted by the port's native
+formatter (``native/hostio.py::format_sam``) when g++ could build it, else by
+the Python SamWriter; both give the same bytes.
 """
 
 from __future__ import annotations
@@ -19,26 +19,26 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from nextgenmap_tpu import native
-from nextgenmap_tpu.config import NgmConfig
-from nextgenmap_tpu.index.genome import Genome
-from nextgenmap_tpu.index.kmer_index import KmerIndex
-from nextgenmap_tpu.io.encode import revcomp_codes
-from nextgenmap_tpu.io.fastq import (
+from nextgenmap_tpu_torch.config import NgmConfig
+from nextgenmap_tpu_torch.device import resolve_device
+from nextgenmap_tpu_torch.index.genome import Genome
+from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
+from nextgenmap_tpu_torch.io.encode import revcomp_codes
+from nextgenmap_tpu_torch.io.fastq import (
     ReadBatch, batch_paired, batch_single, peek_read_len,
 )
-from nextgenmap_tpu.utils.logging import get_logger
-from nextgenmap_tpu.utils.stats import MappingStats
-from nextgenmap_tpu_torch.device import resolve_device
 from nextgenmap_tpu_torch.io.sam import (
     FLAG_SECONDARY, FLAG_UNMAPPED, SamWriter, aligned_rows, open_output,
 )
 from nextgenmap_tpu_torch.models.mapper import (
     MapResult, Mapper, default_slot_cap, default_topn_slot_cap,
 )
+from nextgenmap_tpu_torch.native import hostio as native
 from nextgenmap_tpu_torch.pair.resolve import emit_paired
+from nextgenmap_tpu_torch.utils.logging import get_logger
+from nextgenmap_tpu_torch.utils.stats import MappingStats
 
-log = get_logger("ngm-tpu.torch.run")
+log = get_logger("ngm-torch.run")
 
 
 @dataclass

@@ -17,7 +17,7 @@ import re
 
 import numpy as np
 
-from nextgenmap_tpu.io.encode import CODE_C, CODE_T
+from nextgenmap_tpu_torch.io.encode import CODE_C, CODE_T
 
 _BASES = np.frombuffer(b"ACGTN", dtype=np.uint8)
 

@@ -38,7 +38,9 @@ from nextgenmap_tpu.ops.kmer import extract_kmers as j_kmers  # noqa: E402
 from nextgenmap_tpu.ops.scoring import matrices_are_simple  # noqa: E402
 from nextgenmap_tpu_torch import cli as tcli  # noqa: E402
 from nextgenmap_tpu_torch import synthetic  # noqa: E402
-from nextgenmap_tpu_torch.convert import state_from_numpy  # noqa: E402
+from nextgenmap_tpu_torch.convert import (  # noqa: E402
+    config_from_reference, index_from_reference, state_from_numpy,
+)
 from nextgenmap_tpu_torch.index.device_build import (  # noqa: E402
     build_index_device, concat_tables,
 )
@@ -186,7 +188,7 @@ def bs_state(genome):
     """(cfg, JAX args, port state, packed port offsets, statics)."""
     cfg = NgmConfig(kmer=K, bs_mapping=True)
     off, pos = _jax_tables(genome)
-    mats = tmapper.score_matrices(cfg)
+    mats = tmapper.score_matrices(config_from_reference(cfg))
     statics = dict(
         k=K, fanout_cap=cfg.max_kmer_fanout,
         hit_cap=cfg.resolved_read_hits(pos.shape[0] // 2, L),
@@ -272,7 +274,8 @@ def test_mapper_bs_state_and_results_equal_jax(genome, reads, host_pair):
             KmerIndex.build(genome, K, 1, cfg.max_kmer_freq, c, "x")
             for c in ("ct", "ga"))
     ref = jmapper.Mapper(cfg, g, L, index)
-    port = tmapper.Mapper(cfg, g, L, index, device="cpu")
+    port = tmapper.Mapper(config_from_reference(cfg), g, L,
+                          index and index_from_reference(index), device="cpu")
     assert not port.canonical and port.packed_offsets
     assert port.hit_cap == ref.hit_cap
     np.testing.assert_array_equal(np.asarray(ref._off_dev).astype(np.int64),
@@ -299,7 +302,8 @@ def test_mapper_non_canonical_host_index_equals_jax(genome, reads):
     g = _G()
     g.codes = genome
     ref = jmapper.Mapper(cfg, g, L, idx)
-    port = tmapper.Mapper(cfg, g, L, idx, device="cpu")
+    port = tmapper.Mapper(config_from_reference(cfg), g, L,
+                          index_from_reference(idx), device="cpu")
     assert not port.canonical and not port.statics()["bs"]
     assert_fields_equal(ref.map_batch(codes, lens),
                         port.map_batch(codes, lens))
@@ -362,12 +366,12 @@ def test_memoized_tables_sam_identical_to_jax_cli(tmp_path):
     codes, pos, strand = synthetic.simulate_bisulfite_reads(g, 40, L, seed=90)
     synthetic.write_fastq(str(tmp_path / "bs.fq"), codes, pos, strand)
     cfg = NgmConfig(kmer=K, bs_mapping=True)
-    genome, index = trunner.load_reference(cfg, ref)
+    genome, index = trunner.load_reference(config_from_reference(cfg), ref)
     assert index is None                   # nothing memoized yet
     for c in ("ct", "ga"):
         KmerIndex.open(ref, genome.codes, genome.sha1(), k=K, skip=1,
                        max_freq=cfg.max_kmer_freq, collapse=c)
-    _, index = trunner.load_reference(cfg, ref)
+    _, index = trunner.load_reference(config_from_reference(cfg), ref)
     assert [i.collapse for i in index] == ["ct", "ga"]
     common = ["map", "-r", ref, "-q", str(tmp_path / "bs.fq"), "-k", str(K),
               "--batch-size", "32", "--bs-mapping", "--no-progress"]

@@ -19,6 +19,7 @@ from nextgenmap_tpu.io.encode import decode_seq  # noqa: E402
 from nextgenmap_tpu.io.fasta import write_fasta  # noqa: E402
 from nextgenmap_tpu.io.simulate import simulate_reads, write_fastq  # noqa: E402
 from nextgenmap_tpu_torch.cli import main as torch_main  # noqa: E402
+from nextgenmap_tpu_torch.native import hostio  # noqa: E402
 from nextgenmap_tpu_torch.synthetic import repeat_genome  # noqa: E402
 from tests.test_torch_row_gather import one_torch_thread  # noqa: E402,F401
 
@@ -56,6 +57,7 @@ def _records(path):
 def test_sam_identical_to_jax_cli(workload, monkeypatch, extra, python_emit):
     if python_emit:   # both CLIs format with the Python SamWriter
         monkeypatch.setattr(native, "lib", lambda: None)
+        monkeypatch.setattr(hostio, "lib", lambda: None)
     d = workload
     tag = f"{len(extra)}{int(python_emit)}"
     n_reads = 100 if "--qry-count" in extra else 120

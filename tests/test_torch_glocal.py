@@ -29,7 +29,9 @@ from nextgenmap_tpu.ops.candidate import pack_offsets  # noqa: E402
 from nextgenmap_tpu.ops.scoring import matrices_are_simple, score_matrix  # noqa: E402
 from nextgenmap_tpu_torch import cli as tcli  # noqa: E402
 from nextgenmap_tpu_torch import synthetic  # noqa: E402
-from nextgenmap_tpu_torch.convert import state_from_numpy  # noqa: E402
+from nextgenmap_tpu_torch.convert import (  # noqa: E402
+    config_from_reference, state_from_numpy,
+)
 from nextgenmap_tpu_torch.models import mapper as tmapper  # noqa: E402
 from nextgenmap_tpu_torch.ops import candidate as tcand  # noqa: E402
 from nextgenmap_tpu_torch.ops import sw_ref as tsw  # noqa: E402
@@ -164,7 +166,7 @@ def repeats():
     g = synthetic.repeat_genome(50_000, n_repeats=12, min_len=800,
                                 max_len=2000, seed=71)
     off, pos = build_index_device(jnp.asarray(g), k=11, skip=1, canonical=True)
-    mats = tmapper.score_matrices(cfg)
+    mats = tmapper.score_matrices(config_from_reference(cfg))
     statics = dict(
         k=11, fanout_cap=cfg.max_kmer_fanout,
         hit_cap=cfg.resolved_read_hits(pos.shape[0], L),

@@ -2,6 +2,15 @@
 (K1 in local and glocal mode), and the single-end, paired and top-n steps,
 also under --end-to-end and --bs-mapping, on the card against the CPU.
 
+K1 is checked at every band width that crosses a boundary of its (lanes per
+alignment, cells per lane) templates, with S not a multiple of the
+alignments per warp, qlen 0, 1, L and > L, 1 to 8 matrices, invalid all-4
+slots, tie-heavy periodic inputs (many cells share the maximum, so the
+deferred argmax must pick the first in (i, o)), and matrices large enough
+that the kernel keeps (value, o) unpacked.  K2 is checked at T around the
+16-byte store width, at starts 0, G - T, G - 1, G and beyond, and on a
+genome of more than 2^31 bytes.
+
 Marked `cuda`: every test needs a CUDA card and skips without one (the
 kernels have no CPU mode).  Run on the card with
     python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -13,12 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from nextgenmap_tpu.config import NgmConfig
-from nextgenmap_tpu.ops.scoring import score_matrix
+from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.models.mapper import Mapper
 from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+from nextgenmap_tpu_torch.ops.scoring import score_matrix
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
 from nextgenmap_tpu_torch.synthetic import (
@@ -35,13 +44,13 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("T", [1, 148, 206, 1300])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 148, 206, 1184, 1300])
 def test_gather_kernel_equals_plain(dev, T):
     rng = np.random.default_rng(T)
     G = 50_000
     g = torch.from_numpy(rng.integers(0, 5, G).astype(np.uint8)).to(dev)
     s = rng.integers(-5, G + 5, 999).astype(np.int32)
-    s[:4] = [0, G - T, G - 1, G]
+    s[:7] = [0, G - T, G - 1, G, G + 1, G + 3 * T, -1]
     starts = torch.from_numpy(s).to(dev)
     before = gather_genome_windows.launches
     got = gather_genome_windows(g, starts, T)
@@ -49,6 +58,28 @@ def test_gather_kernel_equals_plain(dev, T):
     assert gather_genome_windows.launches == before + 1
     ref = gather_windows(pad_table(g, T, 4), starts, T)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("T", [148, 1184])
+def test_gather_kernel_genome_past_2_31(dev, T):
+    """A genome of more than 2^31 bytes: windows that start below 2^31 and
+    reach past it, and windows past the end."""
+    G = (1 << 31) + 4096
+    g = torch.arange(G, dtype=torch.int64, device=dev).remainder_(5).to(
+        torch.uint8)
+    top = (1 << 31) - 1
+    s = np.array([0, top - T, top - 1, top, 12345, top - 2 * T + 7],
+                 np.int32)
+    starts = torch.from_numpy(s).to(dev)
+    got = gather_genome_windows(g, starts, T)
+    torch.cuda.synchronize()
+    want = torch.stack([g[int(x):int(x) + T] for x in s])
+    assert torch.equal(got, want)
+    small = g[G - 3 * T:].contiguous()       # the same code on a short tail
+    s2 = torch.tensor([0, 2 * T, 3 * T - 1, 3 * T], dtype=torch.int32,
+                      device=dev)
+    assert torch.equal(gather_genome_windows(small, s2, T),
+                       gather_windows(pad_table(small, T, 4), s2, T))
 
 
 @pytest.mark.parametrize("S,L,W,general", [
@@ -112,6 +143,89 @@ def test_sw_kernel_glocal_equals_plain(dev, S, L, W, general):
     assert int(got.score.max()) > 0
     hit = got.score > 0
     assert torch.equal(got.end_i[hit], args[1][hit] - 1)   # the last row
+
+
+# every band width on each side of a template boundary of csrc/sw_score.cu
+BANDS = [1, 2, 15, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64, 65, 95, 96, 97,
+         127, 128, 129, 191, 192, 193, 255, 256]
+
+
+def _sw_case(rng, S, L, W, n_mats):
+    """Queries, corridors holding most queries at a random offset, lengths
+    0, 1, L and > L among random ones, every 7th slot an invalid all-4 one,
+    and n_mats asymmetric matrices with a random one per slot."""
+    q = rng.integers(0, 5, (S, L)).astype(np.uint8)
+    r = rng.integers(0, 5, (S, L + W)).astype(np.uint8)
+    for i in range(S):
+        if i % 3:
+            o = int(rng.integers(0, W))
+            seg = q[i, :L + W - o]
+            r[i, o:o + seg.shape[0]] = seg
+    r[::7] = 4
+    lens = rng.integers(0, L + 1, S).astype(np.int32)
+    lens[:4] = [0, 1, L, L + 5]
+    mats = rng.integers(-20, 4, (n_mats, 8, 8)).astype(np.int32)
+    for c in range(4):
+        mats[:, c, c] = rng.integers(6, 13, n_mats)
+    msel = rng.integers(-1, n_mats + 1, S).astype(np.int32)   # clamped
+    return q, lens, r, mats, msel
+
+
+def _check_sw(dev, q, lens, r, mats, msel, gaps, W, mode):
+    args = [torch.from_numpy(a).to(dev) for a in (q, lens, r, mats)]
+    ms = torch.from_numpy(msel).to(dev)
+    before = sw_score.launches
+    got = sw_score(*args, *gaps, ms, band=W, mode=mode)
+    torch.cuda.synchronize()
+    assert sw_score.launches == before + 1
+    # the plain version indexes matrices by msel unclamped
+    ref = banded_sw_score(*args, *gaps, ms.clamp(0, mats.shape[0] - 1),
+                          band=W, mode=mode)
+    for name, a, b in zip(("score", "end_i", "end_o"), ref, got):
+        assert torch.equal(a, b), (name, W, mode)
+    return got
+
+
+@pytest.mark.parametrize("mode", ["local", "glocal"])
+@pytest.mark.parametrize("W", BANDS)
+def test_sw_kernel_bands(dev, W, mode):
+    rng = np.random.default_rng(W * 2 + (mode == "local"))
+    S, L = 37, 60          # 37: not a multiple of 4, 2 or 1 per warp
+    n_mats = 1 + W % 8
+    got = _check_sw(dev, *_sw_case(rng, S, L, W, n_mats), (22, 25, 7), W,
+                    mode)
+    assert int(got.score[0]) == 0          # qlen 0
+    assert int(got.score.max()) > 0
+
+
+@pytest.mark.parametrize("mode", ["local", "glocal"])
+@pytest.mark.parametrize("W", [48, 56, 184])
+def test_sw_kernel_ties(dev, W, mode):
+    """Periodic ACAC... queries over periodic corridors: many cells share
+    the maximum, so the first one in (i, o) order must win."""
+    S, L = 66, 100
+    q = np.tile(np.array([0, 1], np.uint8), (S, L // 2))
+    r = np.tile(np.array([0, 1], np.uint8), (S, (L + W + 1) // 2))[:, :L + W]
+    r = r.copy()
+    r[1::3] = 1 - r[1::3]                   # out of phase by one base
+    r[2::3, ::9] = 2                         # and a few breaks
+    lens = np.full(S, L, np.int32)
+    lens[::5] = np.arange(1, L + 1, 5)[:len(lens[::5])]
+    mats = np.stack([score_matrix(NgmConfig(), 0)])
+    got = _check_sw(dev, q, lens, r, mats, np.zeros(S, np.int32),
+                    (20, 20, 20), W, mode)
+    assert int(got.score.max()) > 0
+
+
+@pytest.mark.parametrize("mode", ["local", "glocal"])
+def test_sw_kernel_large_scores(dev, mode):
+    """Scores in the millions (|H| >= 2^21 possible), far past any read's:
+    the int32 DP and the argmax stay exact."""
+    rng = np.random.default_rng(17)
+    q, lens, r, mats, msel = _sw_case(rng, 45, 100, 48, 2)
+    mats = mats * 3000
+    _check_sw(dev, q, lens, r, mats, msel, (60_000, 70_000, 20_000), 48,
+              mode)
 
 
 def test_mapper_cuda_equals_cpu(dev):

@@ -33,7 +33,9 @@ from nextgenmap_tpu.ops.candidate import pack_offsets  # noqa: E402
 from nextgenmap_tpu.ops.scoring import matrices_are_simple  # noqa: E402
 from nextgenmap_tpu_torch import cli as tcli  # noqa: E402
 from nextgenmap_tpu_torch import synthetic  # noqa: E402
-from nextgenmap_tpu_torch.convert import state_from_numpy  # noqa: E402
+from nextgenmap_tpu_torch.convert import (  # noqa: E402
+    config_from_reference, state_from_numpy,
+)
 from nextgenmap_tpu_torch.models import mapper as tmapper  # noqa: E402
 from nextgenmap_tpu_torch.ops import candidate as tcand  # noqa: E402
 from nextgenmap_tpu_torch.pipeline import runner as trunner  # noqa: E402
@@ -96,7 +98,7 @@ def test_topn_step_equals_jax_at_500bp(end_to_end):
     lens[-1] = 300
     codes[-1, 300:] = 4
     off, pos = build_index_device(jnp.asarray(g), k=11, skip=1, canonical=True)
-    mats = tmapper.score_matrices(cfg)
+    mats = tmapper.score_matrices(config_from_reference(cfg))
     statics = dict(
         k=11, fanout_cap=cfg.max_kmer_fanout,
         hit_cap=cfg.resolved_read_hits(pos.shape[0], L),
@@ -174,4 +176,4 @@ def test_runner_batch_size_for_600bp_reads_equals_jax(tmp_path, monkeypatch):
 ])
 def test_long_read_batch_size(read_len, batch, expect):
     cfg = NgmConfig(batch_size=batch)
-    assert trunner.long_read_batch_size(cfg, read_len) == expect
+    assert trunner.long_read_batch_size(config_from_reference(cfg), read_len) == expect

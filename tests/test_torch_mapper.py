@@ -25,7 +25,9 @@ from nextgenmap_tpu.index.device_build import build_index_device  # noqa: E402
 from nextgenmap_tpu.models import mapper as jmapper  # noqa: E402
 from nextgenmap_tpu.ops.candidate import pack_offsets  # noqa: E402
 from nextgenmap_tpu.ops.scoring import matrices_are_simple, score_matrix  # noqa: E402
-from nextgenmap_tpu_torch.convert import state_from_numpy  # noqa: E402
+from nextgenmap_tpu_torch.convert import (  # noqa: E402
+    config_from_reference, state_from_numpy,
+)
 from nextgenmap_tpu_torch.models import mapper as tmapper  # noqa: E402
 from nextgenmap_tpu_torch.ops import candidate as tcand  # noqa: E402
 from nextgenmap_tpu_torch.synthetic import repeat_genome, simulate_reads  # noqa: E402
@@ -118,7 +120,7 @@ def test_mapper_builds_same_state_and_results_as_jax(repeats):
         codes = g
 
     ref = jmapper.Mapper(cfg, _G(), L).map_batch(reads, lens)
-    port = tmapper.Mapper(cfg, _G(), L, device="cpu")
+    port = tmapper.Mapper(config_from_reference(cfg), _G(), L, device="cpu")
     assert port.packed_offsets and port.device.type == "cpu"
     assert_results_equal(ref, port.map_batch(reads, lens))
 
@@ -133,7 +135,7 @@ def test_out_of_slice_config_raises(change):
         codes = np.zeros(1000, np.uint8)
 
     with pytest.raises(NotImplementedError):
-        tmapper.Mapper(NgmConfig(kmer=11).replace(**change), _G(), L,
+        tmapper.Mapper(config_from_reference(NgmConfig(kmer=11).replace(**change)), _G(), L,
                        device="cpu")
 
 
@@ -144,4 +146,5 @@ def test_mapper_cuda_raises_without_card(monkeypatch):
         codes = np.zeros(1000, np.uint8)
 
     with pytest.raises(RuntimeError):
-        tmapper.Mapper(NgmConfig(kmer=11), _G(), L, device="cuda")
+        tmapper.Mapper(config_from_reference(NgmConfig(kmer=11)), _G(), L,
+                       device="cuda")

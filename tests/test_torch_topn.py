@@ -34,7 +34,9 @@ from nextgenmap_tpu.models import mapper as jmapper  # noqa: E402
 from nextgenmap_tpu.ops.candidate import pack_offsets  # noqa: E402
 from nextgenmap_tpu.ops.scoring import matrices_are_simple, score_matrix  # noqa: E402
 from nextgenmap_tpu_torch import cli as tcli  # noqa: E402
-from nextgenmap_tpu_torch.convert import state_from_numpy  # noqa: E402
+from nextgenmap_tpu_torch.convert import (  # noqa: E402
+    config_from_reference, state_from_numpy,
+)
 from nextgenmap_tpu_torch.models import mapper as tmapper  # noqa: E402
 from nextgenmap_tpu_torch.ops import candidate as tcand  # noqa: E402
 from nextgenmap_tpu_torch.synthetic import repeat_genome, simulate_reads  # noqa: E402
@@ -128,7 +130,7 @@ def test_mapper_topn_equals_jax(repeats):
         codes = g
 
     ref = jmapper.Mapper(cfg, _G(), L).map_batch_topn(reads, lens)
-    port = tmapper.Mapper(cfg, _G(), L, device="cpu")
+    port = tmapper.Mapper(config_from_reference(cfg), _G(), L, device="cpu")
     assert port.topn() == 2
     assert_ranks_equal(ref, port.map_batch_topn(reads, lens))
 
