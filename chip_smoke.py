@@ -47,9 +47,26 @@ the repository).  Phases, one line of output each:
               CIGAR consumes SEQ and every NM equals the edits, K1 at W 184
               and K2 at T 1184 launched
  12. cuda=cpu one batch of each path (single, paired, top-n, end-to-end,
-              bisulfite single and paired: 4096 reads; 1000 bp: 614 reads)
-              mapped on the card and on the CPU from the same state: all 17
-              MapResult fields equal, every rank of top-n
+              bisulfite single and paired: 4096 reads; 1000 bp: 614 reads;
+              single with --index-shards 4) mapped on the card and on the
+              CPU from the same state: all 17 MapResult fields equal, every
+              rank of top-n
+ 13. sharded  the CLI with --index-shards 4 (the cross-shard tail pool of
+              8192 rows; K1 at 4096 slots) and 2 (full per-shard tails) on
+              phase 6's reads, and -1/-2 --index-shards 4 on phase 7's
+              pairs: each SAM equal to the unsharded one byte for byte but
+              @PG, K1 and K2 launched as the shard loop predicts; K1 == its
+              plain version at the pool's [4096,100]xW48 input with the
+              real slots of a batch, K2 at the flattened [S*Gs] genome
+ 14. gigabase a 2^31 + 2^27 base (2.28 Gbp) genome drawn as uint8 from the
+              seed with the same 120 planted repeats, past 2^31 so no
+              unsharded path can hold it: host KmerIndex (k 13, skip 2,
+              native passes; canonical entries fall away), split into 4
+              shards, 2 x 4096 reads (2% SNPs) through Mapper.map_batch on
+              the card with full per-shard tails; >= 99% mapped, >= 95%
+              truth-correct, some global positions past 2^31, K1 and K2
+              launched by every shard's tail; seconds of each stage, the
+              peak device memory and the process's peak host memory
 
 A kernel's device time (device_ms, also "ms" in the summary) comes from
 torch.profiler (nextgenmap_tpu_torch/tools/timing.py): the device time of
@@ -58,7 +75,8 @@ divided by the launches it recorded.  call_ms is the wrapper's wall time per
 call (CUDA events around one call: host checks, allocation, the launch).
 K1's summary row is the shape the single-end path hands it (2048 slots, ~650
 of them real, the rest at length 0); its other shapes are under
-"other_shapes".
+"other_shapes", the sharded pool's among them, and K2's flattened-genome
+launch under "other_shapes" of K2.
 bound_ms is the least time the card could take: for K2 and K3 the bytes
 moved (each input byte read once, each output byte written once) over
 3.35 TB/s; for K1 the integer instructions its cells need (OPS_PER_CELL per
@@ -76,6 +94,7 @@ Everything is made from fixed seeds; nothing is fetched.
 
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -91,6 +110,12 @@ GENOME_SIZE = 4_600_000
 SEED = 2026
 LONG_LEN = 1000
 LONG_BATCH = 614       # the runner's batch for 1000 bp reads
+# phase 13: (name, input, flags); phase 14: genome size and shard count
+SHARDED = (("sharded-4", "single", ("--index-shards", "4")),
+           ("sharded-2", "single", ("--index-shards", "2")),
+           ("paired-sharded-4", "paired", ("--index-shards", "4")))
+GIGA_SIZE = (1 << 31) + (1 << 27)
+GIGA_SHARDS = 4
 
 
 def check(ok, what):
@@ -562,13 +587,235 @@ def phase_long_path(genome, workdir, device="cuda"):
     return codes, launches
 
 
-def phase_cuda_equals_cpu(genome, codes, cfg, device="cuda"):
+def sam_records(path):
+    """The SAM lines of `path` but the @PG one."""
+    with open(path) as f:
+        return [ln for ln in f if not ln.startswith("@PG")]
+
+
+class Capture:
+    """Within `with`, record the arguments of every call the mapper makes
+    to the K1 and K2 wrappers (which it still calls), to rerun a kernel on
+    exactly the inputs a path gave it."""
+
+    def __enter__(self):
+        from nextgenmap_tpu_torch.models import mapper
+
+        self.mod, self.calls = mapper, {"sw_score": [], "gather_windows": []}
+        self.orig = (mapper.sw_score, mapper.gather_genome_windows)
+
+        def rec(name, fn):
+            def call(*a, **k):
+                self.calls[name].append((a, k))
+                return fn(*a, **k)
+            return call
+
+        mapper.sw_score = rec("sw_score", self.orig[0])
+        mapper.gather_genome_windows = rec("gather_windows", self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sw_score, self.mod.gather_genome_windows = self.orig
+
+
+def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
+                      device="cuda"):
+    """The CLI with --index-shards on phases 6 and 7's inputs, SAM against
+    theirs; then K1 and K2 on the inputs one pooled batch gives them."""
+    import torch
+
+    from nextgenmap_tpu_torch.models.mapper import Mapper, shard_tail_cap
+    from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
+    from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
+    from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
+    from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
+    from nextgenmap_tpu_torch.pipeline.runner import load_reference
+    from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
+
+    ref = os.path.join(workdir, "ref.fa")
+    launches, rows = {}, []
+    for name, kind, flags in SHARDED:
+        if kind == "paired":
+            qry = ["-1", os.path.join(workdir, "r1.fq"),
+                   "-2", os.path.join(workdir, "r2.fq")]
+            base, n_batches = "pe.sam", N_BATCHES_NEW
+        else:
+            qry = ["-q", os.path.join(workdir, "reads.fq")]
+            base, n_batches = "out.sam", N_BATCHES
+        out = os.path.join(workdir, f"{name}.sam")
+        stats, counts, wall = run_cli(name, [
+            "map", "-r", ref, *qry, "-o", out, *flags, "--device", device,
+            "--no-progress"])
+        check(sam_records(out) == sam_records(os.path.join(workdir, base)),
+              f"{name}: SAM differs from the unsharded run's")
+        S = int(flags[-1])
+        per = 1 if shard_tail_cap(BATCH, S) else S    # pool, or S tails
+        check(counts == {"sw_score": per * n_batches,
+                         "gather_windows": 2 * per * n_batches},
+              f"{name}: launches {counts}, expected {per} K1 and {2 * per} "
+              f"K2 per batch")
+        launches[name] = (counts, n_batches)
+        rows.append(f"{name} ({'pool' if per == 1 else f'{S} tails'}): "
+                    f"SAM equal; " + summary(stats, n_batches, counts, wall))
+
+    # K1 and K2 on the inputs one --index-shards 4 batch gives them
+    c4 = cfg.replace(index_shards=4)
+    genome_obj, sidx = load_reference(c4, ref)
+    mapper = Mapper(c4, genome_obj, READ_LEN, sidx, device=device)
+    with Capture() as cap:
+        mapper.map_batch(single_codes[:BATCH],
+                         np.full(BATCH, READ_LEN, np.int32))
+        torch.cuda.synchronize()
+    (a, kw), = cap.calls["sw_score"]
+    q, lens = a[0], a[1]
+    S, Gs = sidx.genome.shape
+    real = int((lens > 0).sum())
+    check(tuple(q.shape) == (4096, READ_LEN) and kw["band"] == 48,
+          f"the pool handed K1 {tuple(q.shape)}xW{kw['band']}")
+    k = lambda: sw_score(*a, **kw)  # noqa: E731
+    p = lambda: banded_sw_score(*a, **kw)  # noqa: E731
+    got, want = k(), p()
+    for nm, x, y in zip(("score", "end_i", "end_o"), got, want):
+        check(torch.equal(x, y), f"K1 {nm} differs from plain at the pool")
+    err = max_abs_err(got, want)
+    cells = int(lens.clamp(0, READ_LEN).long().sum()) * kw["band"]
+    k1 = {"device_ms": device_ms(k), "call_ms": call_ms(k, 20),
+          "plain_ms": call_ms(p, 3, warmup=1),
+          "bound_ms": 1e3 * OPS_PER_CELL * cells / (INT32_LANES
+                                                    * sm_clock_hz())}
+    k1["shape"] = f"local [4096,100]xW48 ({real} real), the sharded pool"
+    (ga, _), *_ = cap.calls["gather_windows"]
+    g_flat, starts, T = ga
+    check(g_flat.shape[0] == S * Gs, "K2 did not gather from the flattened "
+          "stacked genome")
+    gk = lambda: gather_genome_windows(g_flat, starts, T)  # noqa: E731
+    padded = pad_table(g_flat, T, 4)
+    gp = lambda: gather_windows(padded, starts, T)  # noqa: E731
+    gg, gw = gk(), gp()
+    check(torch.equal(gg, gw), "K2 differs from plain at the flat genome")
+    err2 = max_abs_err([gg], [gw])
+    n = starts.numel()
+    k2 = {"device_ms": device_ms(gk), "call_ms": call_ms(gk, 50),
+          "plain_ms": call_ms(gp, 20),
+          "bound_ms": 1e3 * (2 * n * T + 4 * n) / HBM_BYTES_PER_S,
+          "shape": f"{n}x{T} from the flattened [{S}*{Gs}] genome"}
+    print(f"[13 sharded] " + "; ".join(rows) + f"; K1 exact at {k1['shape']}"
+          f" ({card}): " + timing_row(k1["device_ms"], k1["call_ms"],
+                                      k1["bound_ms"],
+                                      f", plain call {k1['plain_ms']:.3f} ms")
+          + f"; K2 exact at {k2['shape']}: " + timing_row(
+              k2["device_ms"], k2["call_ms"], k2["bound_ms"]))
+    return launches, k1, k2, (err, err2)
+
+
+def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
+                   device="cuda"):
+    """The 2.28 Gbp genome in 4 shards through Mapper.map_batch; returns
+    ({kernel: launches}, number of batches, the stage figures)."""
+    import torch
+
+    from nextgenmap_tpu_torch import synthetic
+    from nextgenmap_tpu_torch.config import NgmConfig
+    from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
+    from nextgenmap_tpu_torch.models.mapper import Mapper
+    from nextgenmap_tpu_torch.native import hostio
+    from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
+    from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
+    from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
+
+    check(hostio.lib() is not None,
+          "the gigabase phase needs the native index passes (g++)")
+    cfg = NgmConfig(kmer_skip=2, read_kmer_skip=1, index_shards=n_shards)
+    sec = {}
+    t = time.perf_counter()
+    g = synthetic.repeat_genome_large(size, n_repeats=120, min_len=1000,
+                                      max_len=2000, seed=SEED)
+    sec["genome"], t = time.perf_counter() - t, time.perf_counter()
+    idx = KmerIndex.build(g, k=cfg.kmer, skip=cfg.kmer_skip,
+                          max_freq=cfg.max_kmer_freq, canonical=True,
+                          allow_u32=True)
+    n_pos = idx.positions.shape[0]
+    check(idx.canonical == (size < 2**31),
+          "canonical entries past 2^31 bases")
+    sec["host index"], t = time.perf_counter() - t, time.perf_counter()
+    sidx = ShardedIndex.build(idx, g, n_shards, ShardedIndex.halo_for(cfg))
+    del idx
+    sec["shard split"], t = time.perf_counter() - t, time.perf_counter()
+    host_gb = (sidx.genome.nbytes + sidx.offsets.nbytes
+               + sidx.positions.nbytes) / 1e9
+    shape = (tuple(sidx.genome.shape), tuple(sidx.positions.shape))
+
+    class Codes:
+        codes = g
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mapper = Mapper(cfg, Codes, READ_LEN, sidx, device=device)
+    del sidx
+    if device == "cuda":
+        torch.cuda.synchronize()
+    sec["to device"] = time.perf_counter() - t
+
+    n = 2 * batch
+    codes, pos, strand = synthetic.simulate_reads(g, n, READ_LEN, 0.02,
+                                                  seed=SEED + 8)
+    lens = np.full(batch, READ_LEN, np.int32)
+    sw_score.launches = 0
+    gather_genome_windows.launches = 0
+    mapped, gpos, gstrand = [], [], []
+    for b in range(2):
+        t = time.perf_counter()
+        res = mapper.map_batch(codes[b * batch:(b + 1) * batch], lens)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        sec[f"batch {b + 1}"] = time.perf_counter() - t
+        mapped.append(res.mapped.cpu().numpy())
+        gpos.append(res.pos.cpu().numpy())
+        gstrand.append(res.strand.cpu().numpy())
+    launches = {"sw_score": sw_score.launches,
+                "gather_windows": gather_genome_windows.launches}
+    mapped, gpos, gstrand = (np.concatenate(x) for x in
+                             (mapped, gpos, gstrand))
+    correct = mapped & (np.abs(gpos - pos) <= 5) & (gstrand == strand)
+    past = int((mapped & (gpos >= 2**31)).sum())
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else float("nan"))
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    # past S * Gs = 2^31 the tails run per shard: K1 once and K2 twice each
+    per = (1 if mapper.tail_cap(batch)
+           and mapper.shards.genome.numel() < 2**31 else n_shards)
+    check(launches == {"sw_score": 2 * per, "gather_windows": 4 * per},
+          f"gigabase launches {launches}, expected {per} K1 and {2 * per} "
+          f"K2 per batch")
+    check(mapped.sum() >= 0.99 * n, f"only {mapped.sum()}/{n} reads mapped")
+    check(correct.sum() >= 0.95 * n,
+          f"only {correct.sum()}/{n} reads truth-correct")
+    check(size < 2**31 or past > 0, "no mapped position past 2^31")
+    print(f"[14 gigabase] {size} bp genome ({n_pos} index positions, "
+          f"{n_shards} shards {shape[0]} genome / {shape[1]} positions, "
+          f"{host_gb:.2f} GB of tables; {card}): {n} reads x {READ_LEN} bp, "
+          f"mapped {int(mapped.sum())} ({100 * mapped.mean():.2f}%), "
+          f"truth-correct {int(correct.sum())} "
+          f"({100 * correct.mean():.2f}%), {past} mapped past 2^31; "
+          f"launches {launches}; seconds "
+          f"{ {k: round(v, 3) for k, v in sec.items()} }; peak device "
+          f"memory {peak:.3f} GiB, peak host memory of the process "
+          f"{host_peak:.3f} GiB")
+    return launches, 2, {"seconds": sec, "peak_gib": peak,
+                         "host_peak_gib": host_peak,
+                         "mapped": int(mapped.sum()),
+                         "correct": int(correct.sum()), "past_2_31": past}
+
+
+def phase_cuda_equals_cpu(genome, codes, cfg, ref_path, device="cuda"):
     """codes: {path: reads}; one batch of each path is mapped on the card
-    and on the CPU from the card's state."""
+    and on the CPU from the card's state (the sharded one from the same
+    ShardedIndex)."""
     import torch
 
     from nextgenmap_tpu_torch import synthetic
     from nextgenmap_tpu_torch.models.mapper import MapResult, Mapper
+    from nextgenmap_tpu_torch.pipeline.runner import load_reference
 
     class Codes:
         pass
@@ -591,11 +838,20 @@ def phase_cuda_equals_cpu(genome, codes, cfg, device="cuda"):
         ("bisulfite paired", bs_cfg, "map_batch_paired", bs_pairs, READ_LEN),
         ("long", cfg, "map_batch", codes["long"][:LONG_BATCH], LONG_LEN),
     ]
+    # one sharded batch: both mappers from the runner's memoized
+    # ShardedIndex (phase 13's CLI runs load it)
+    sh_cfg = cfg.replace(index_shards=4)
+    cases.append(("sharded-4", sh_cfg, "map_batch", codes["single"][:BATCH],
+                  READ_LEN))
     mappers = {}
     rows = []
     for path, c, step, batch, read_len in cases:
-        key = (c.bs_mapping, c.end_to_end, read_len)
-        if key not in mappers:
+        key = (c.bs_mapping, c.end_to_end, read_len, c.index_shards)
+        if key not in mappers and c.index_shards > 1:
+            _, sidx = load_reference(c, ref_path)
+            mappers[key] = tuple(Mapper(c, g, read_len, sidx, device=d)
+                                 for d in (device, "cpu"))
+        elif key not in mappers:
             gpu = Mapper(c, g, read_len, device=device)
             index = (gpu.state.offsets.cpu().numpy(),
                      gpu.state.positions.cpu().numpy())
@@ -643,26 +899,36 @@ def main():
     k1_err, k1_shapes = phase_sw(rng, cfg, card)
     k1 = k1_shapes[K1_MAIN]
     k3_err, k3, k3_launches = phase_row_gather(card)
-    codes, launches = {}, {}
+    codes, launches = {}, {}     # launches: {path: (counts, batches)}
     with tempfile.TemporaryDirectory() as workdir:
-        synthetic.write_fasta(os.path.join(workdir, "ref.fa"), "chr", genome)
+        ref_path = os.path.join(workdir, "ref.fa")
+        synthetic.write_fasta(ref_path, "chr", genome)
         for path, phase in (("single", phase_main_path),
                             ("paired", phase_paired_path),
                             ("topn", phase_topn_path),
                             ("end-to-end", phase_e2e_path),
                             ("bisulfite", phase_bisulfite_path),
                             ("long", phase_long_path)):
-            codes[path], launches[path] = phase(genome, workdir)
-    phase_cuda_equals_cpu(genome, codes, cfg)
+            codes[path], counts = phase(genome, workdir)
+            launches[path] = (counts, N_BATCHES if path == "single"
+                              else N_BATCHES_NEW)
+        phase_cuda_equals_cpu(genome, codes, cfg, ref_path)
+        sharded, k1_pool, k2_flat, (k1_sh_err, k2_sh_err) = phase_sharded_cli(
+            genome, workdir, codes["single"], cfg, card)
+        launches.update(sharded)
+    giga_counts, giga_batches, _ = phase_gigabase(card)
+    launches["gigabase-4"] = (giga_counts, giga_batches)
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m == "nextgenmap_tpu"
                        or m.startswith("nextgenmap_tpu."))
     check(not reference, f"the port imported the JAX package: {reference}")
+    k1_shapes[k1_pool.pop("shape")] = k1_pool
 
     def per_step(name):
-        return {path: n[name] / (N_BATCHES if path == "single"
-                                 else N_BATCHES_NEW)
-                for path, n in launches.items()}
+        return {path: n[name] / b for path, (n, b) in launches.items()}
+
+    def total(name):
+        return sum(n[name] for n, _ in launches.values())
 
     def row(name, source, replaces, err, t, n_launches, by_step, bound_by,
             library_ms, **extra):
@@ -677,19 +943,22 @@ def main():
 
     kernels = [
         row("sw_score", "nextgenmap_tpu_torch/csrc/sw_score.cu",
-            "nextgenmap_tpu/ops/sw_pallas.py:150", k1_err, k1,
-            sum(n["sw_score"] for n in launches.values()),
-            per_step("sw_score"), "operations", None, gcups=k1["gcups"],
+            "nextgenmap_tpu/ops/sw_pallas.py:150", max(k1_err, k1_sh_err), k1,
+            total("sw_score"), per_step("sw_score"), "operations", None,
+            gcups=k1["gcups"],
             shape=K1_MAIN + ": the single-end path's input",
             other_shapes={
                 shape: {"device_ms": t["device_ms"], "bound_ms": t["bound_ms"],
                         "share": t["bound_ms"] / t["device_ms"]}
                 for shape, t in k1_shapes.items() if shape != K1_MAIN}),
         row("gather_windows", "nextgenmap_tpu_torch/csrc/gather_windows.cu",
-            "nextgenmap_tpu/ops/gather_pallas.py:124", k2_err, k2,
-            sum(n["gather_windows"] for n in launches.values()),
-            per_step("gather_windows"), "bytes", k2["library_ms"],
-            shape="2048x148"),
+            "nextgenmap_tpu/ops/gather_pallas.py:124", max(k2_err, k2_sh_err),
+            k2, total("gather_windows"), per_step("gather_windows"), "bytes",
+            k2["library_ms"], shape="2048x148",
+            other_shapes={k2_flat["shape"]: {
+                "device_ms": k2_flat["device_ms"],
+                "bound_ms": k2_flat["bound_ms"],
+                "share": k2_flat["bound_ms"] / k2_flat["device_ms"]}}),
         row("row_gather", "nextgenmap_tpu_torch/csrc/row_gather.cu",
             "tools/probe_dyngather.py:51", k3_err, k3, k3_launches,
             {"probe_dyngather": k3_launches}, "bytes", None,

@@ -1,19 +1,25 @@
 """``ngm-torch``: the PyTorch port's command line.
 
 ``build_parser`` and ``config_from_args`` are the port's copy of
-``nextgenmap_tpu/cli.py``'s: the same `map` flags, mapped onto the same
-``NgmConfig``, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path).  Flags outside the ported slice raise NotImplementedError
-naming the ROADMAP item that will bring them.
+``nextgenmap_tpu/cli.py``'s: the same `map` and `index` flags, mapped onto
+the same ``NgmConfig``, plus ``--device`` (default ``cuda``; ``cpu`` runs
+the plain PyTorch path).  Flags outside the ported slice raise
+NotImplementedError naming the ROADMAP item that will bring them.
 
     python -m nextgenmap_tpu_torch.cli map -r ref.fa -q reads.fq -o out.sam
     python -m nextgenmap_tpu_torch.cli map -r ref.fa -1 r1.fq -2 r2.fq -o pe.sam
     python -m nextgenmap_tpu_torch.cli map -r ref.fa -q reads.fq -n 2 -o top2.sam
+    python -m nextgenmap_tpu_torch.cli map -r ref.fa -q r.fq --index-shards 4 -o o.sam
+    python -m nextgenmap_tpu_torch.cli index -r ref.fa [--index-shards 4]
 
 Modes, with every one of the above: ``--end-to-end`` (glocal alignment, no
 clipping), ``--bs-mapping [--bs-cutoff N]`` (bisulfite: CT/GA-collapsed
 tables and conversion-tolerant scoring), ``--slam-seq 1|2``.  Reads up to
 1000 bp map with the default batch shrunk as the read length grows.
+``--index-shards N`` splits the index into N position ranges mapped one
+after the other on the device, which is how a genome of 2^31 bases or more
+maps; ``index`` builds the host index and the shard artifacts ahead of a
+mapping run.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ _UNPORTED = (
 
 
 def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:
-    """(parser, its `map` subparser) with ngm-tpu's `map` flag surface."""
+    """(parser, its `map` subparser) with ngm-tpu's `map` and `index` flag
+    surfaces."""
     D = NgmConfig()  # single source of truth for every default
 
     p = argparse.ArgumentParser(
@@ -144,6 +151,21 @@ def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:
 
     sp.add_argument("--device", default="cuda",
                     help="torch device to map on: cuda (default) or cpu")
+
+    ip = sub.add_parser("index", help="build (and memoize) the index only")
+    ip.add_argument("-r", "--reference", required=True)
+    ip.add_argument("-k", "--kmer", type=int, default=D.kmer)
+    ip.add_argument("--kmer-skip", type=int, default=D.kmer_skip)
+    ip.add_argument("--max-freq", type=int, default=D.max_kmer_freq)
+    ip.add_argument("--bs-mapping", action="store_true")
+    ip.add_argument("--index-shards", type=int, default=D.index_shards,
+                    help="also build the .ngmt-shards artifact (and one per "
+                         "shard), so that `map --index-shards N` does no "
+                         "index work")
+    ip.add_argument("-X", "--max-insert-size", type=int,
+                    default=D.max_insert_size,
+                    help="keys the shard halo; use the same value at map "
+                         "time to reuse the artifact")
     return p, sp
 
 
@@ -187,20 +209,18 @@ def config_from_args(a) -> NgmConfig:
 
 
 def parse(argv: list[str]):
-    """(argv with the verb, parsed arguments, NgmConfig) of a `map` command
-    line (the verb may be omitted); raises NotImplementedError for flags
-    outside the ported slice."""
+    """(argv with the verb, parsed arguments, NgmConfig or None) of a
+    command line: `map` (the verb may be omitted) or `index` (config None);
+    raises NotImplementedError for flags outside the ported slice."""
     argv = list(argv)
-    if argv and argv[0] == "index":
-        raise NotImplementedError(
-            "only the `map` verb is ported; build indexes with `ngm-tpu index`"
-        )
-    if argv and argv[0] not in ("map", "-h", "--help"):
+    if argv and argv[0] not in ("map", "index", "-h", "--help"):
         argv = ["map"] + argv
     parser, _ = build_parser()
     a = parser.parse_args(argv)
+    if a.verb == "index":
+        return argv, a, None
     if a.verb != "map":
-        parser.error("the verb is `map`")
+        parser.error("the verb is `map` or `index`")
     for attr, is_set, what in _UNPORTED:
         if is_set(getattr(a, attr)):
             raise NotImplementedError(f"not in the PyTorch port yet: {what}")
@@ -215,9 +235,54 @@ def parse(argv: list[str]):
     return argv, a, cfg
 
 
+def build_indexes(a) -> None:
+    """The `index` verb: build and memoize the host KmerIndex (the CT and
+    GA ones with --bs-mapping) next to the reference, and with
+    --index-shards N > 1 also the .ngmt-shards artifact and one artifact
+    per shard, the same files `ngm-tpu index` writes."""
+    from nextgenmap_tpu_torch.index.genome import Genome
+    from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
+    from nextgenmap_tpu_torch.parallel.index_shard import (
+        ShardedIndex, open_sharded,
+    )
+
+    genome = Genome.open(a.reference)
+    sharded = a.index_shards > 1
+    built = [
+        KmerIndex.open(
+            a.reference, genome.codes, genome.sha1(), k=a.kmer,
+            skip=a.kmer_skip, max_freq=a.max_freq, collapse=collapse,
+            # canonical entries while they fit: int32 unsharded, uint32
+            # when the shards rebase them into int32
+            canonical=(collapse == "none" and genome.codes.shape[0]
+                       < (2**31 if sharded else 2**30)),
+            allow_u32=sharded,
+        )
+        for collapse in (("ct", "ga") if a.bs_mapping else ("none",))
+    ]
+    if not sharded:
+        return
+    cfg = NgmConfig(
+        kmer=a.kmer, kmer_skip=a.kmer_skip, max_kmer_freq=a.max_freq,
+        bs_mapping=a.bs_mapping, index_shards=a.index_shards,
+        max_insert_size=a.max_insert_size,
+    )
+    sidx = open_sharded(cfg, a.reference, genome,
+                        tuple(built) if a.bs_mapping else built[0])
+    halo = ShardedIndex.halo_for(cfg)
+    sidx.save_shards(
+        lambda s: ShardedIndex.shard_cache_path(
+            a.reference, s, cfg.kmer, cfg.kmer_skip, cfg.index_shards, halo,
+            cfg.max_kmer_freq, dual=cfg.bs_mapping, canonical=sidx.canonical),
+        genome.sha1())
+
+
 def run(argv: list[str]):
-    """Parse `argv`, map, return the run's RunStats."""
+    """Parse `argv` and run it: `map` returns the run's RunStats, `index`
+    None."""
     argv, a, cfg = parse(argv)
+    if cfg is None:
+        return build_indexes(a)
     from nextgenmap_tpu_torch.pipeline.runner import run_mapping
 
     return run_mapping(

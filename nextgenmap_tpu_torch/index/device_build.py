@@ -34,7 +34,8 @@ def build_index_device(genome: torch.Tensor, *, k: int, skip: int,
     G = genome.shape[0]
     if G >= 2**30:
         raise NotImplementedError(
-            "genomes of 2^30 bases or more need index sharding (ROADMAP A13)"
+            "a genome of 2^30 bases or more maps with --index-shards N (a "
+            "host index split into N shards), not with a device-built index"
         )
     nb = 4**k
     Q = (G - k) // skip + 1

@@ -1,13 +1,14 @@
 """CSR k-mer index over the encoded genome.
 
-Copy of ``nextgenmap_tpu/index/kmer_index.py`` (one-device part): a
-direct-addressed CSR from k-mers (k in [10,14], stride --kmer-skip) to
-reference positions — ``offsets[4^k + 1]`` (int64 on host, int32 on device)
-and a flat ``positions[]`` (uint32) — built in two passes (count, fill) with
+Copy of ``nextgenmap_tpu/index/kmer_index.py``: a direct-addressed CSR
+from k-mers (k in [10,14], stride --kmer-skip) to reference positions —
+``offsets[4^k + 1]`` (int64 on host, int32 on device) and a flat
+``positions[]`` (uint32) — built in two passes (count, fill) with
 over-frequent k-mers dropped (repeat masking), and memoized next to the
 reference in the same ``.npz`` artifact as ``ngm-tpu``'s.  The port builds
 its index on the device (index/device_build.py); this host build serves
-genomes over 2^28 bases and reloads memoized artifacts.
+genomes over 2^28 bases, the index shards (parallel/index_shard.py) and
+reloads memoized artifacts.
 
 Bisulfite mode collapses C->T *at hashing time* (both in the genome pass and
 in read k-mer extraction) so bisulfite-converted reads still hit their
@@ -96,16 +97,22 @@ class KmerIndex:
                            # (canonical=True: (pos << 1) | flip entries)
     canonical: bool = False
 
+    @property
+    def n_buckets(self) -> int:
+        return 4**self.k
+
     def device_arrays(self):
         """(offsets int32 [4^k+1], positions int32 [total]) for HBM residence.
 
         int32 is safe while total positions < 2^31 and genome < 2^31; larger
-        genomes need position-range sharding (ROADMAP A13).
+        genomes map with --index-shards N, where each shard rebases its
+        positions into its own int32 range (parallel/index_shard.py).
         """
         if self.positions.shape[0] >= 2**31 or (
             self.positions.shape[0] and int(self.positions.max()) >= 2**31
         ):
-            raise ValueError("index too large for single-shard int32; shard it")
+            raise ValueError("index too large for int32 device tables; map "
+                             "with --index-shards N")
         return self.offsets.astype(np.int32), self.positions.astype(np.int32)
 
     # ------------------------------------------------------------------
@@ -119,12 +126,19 @@ class KmerIndex:
         collapse: str = "none",
         genome_sha1: str = "",
         canonical: bool = False,
+        allow_u32: bool = False,
     ) -> "KmerIndex":
         """Two-pass CSR build — native C passes when available (seconds for a
         gigabase genome), vectorized numpy otherwise (byte-identical
-        arrays)."""
+        arrays).
+
+        allow_u32: keep canonical (pos<<1|flip) entries up to genome 2^31,
+        for consumers that never place the global table on the device
+        (--index-shards rebases each shard's entries into int32).  Past
+        that the entries fall back to raw positions.
+        """
         assert not (canonical and collapse != "none"), "canonical excludes collapse"
-        if canonical and genome_codes.shape[0] >= 2**30:
+        if canonical and genome_codes.shape[0] >= (2**31 if allow_u32 else 2**30):
             canonical = False  # (pos<<1) must fit int32 on device
         n = genome_codes.shape[0]
         nb = 4**k
@@ -262,6 +276,7 @@ class KmerIndex:
         cls, fasta_path: str, genome_codes: np.ndarray, genome_sha1: str,
         k: int, skip: int, max_freq: int, collapse: str = "none",
         skip_save: bool = False, canonical: bool = False,
+        allow_u32: bool = False,
     ) -> "KmerIndex":
         cache = cls.cache_path(fasta_path, k, skip, collapse, canonical)
         if os.path.exists(cache):
@@ -271,7 +286,7 @@ class KmerIndex:
                 return idx
             log.warning("stale index cache (genome or params changed); rebuilding")
         idx = cls.build(genome_codes, k, skip, max_freq, collapse, genome_sha1,
-                        canonical=canonical)
+                        canonical=canonical, allow_u32=allow_u32)
         if not skip_save:
             try:
                 idx.save(cache)

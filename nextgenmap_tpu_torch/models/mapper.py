@@ -57,6 +57,9 @@ from nextgenmap_tpu_torch.ops.kmer import (
 from nextgenmap_tpu_torch.ops.scoring import matrices_are_simple, score_matrix
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align
+from nextgenmap_tpu_torch.parallel.index_shard import (
+    ShardedIndex, ShardTables, merge_sharded_results, merge_sharded_topn,
+)
 
 I32 = torch.int32
 
@@ -94,7 +97,8 @@ def _pre_extract(reads, lengths, *, k, read_stride=1, bs=False, bs_cutoff=0,
     """Left-shifted reverse complements and the read k-mers: canonical
     (canon, flip, ok), or (km_f, ok_f, km_r, ok_r) of the two strands, which
     bisulfite collapses C->T (forward) and G->A (reverse complement) with
-    the --bs-cutoff drop."""
+    the --bs-cutoff drop.  They depend on the reads only, so the shard loop
+    extracts them once for every shard."""
     B, L = reads.shape
     rc = revcomp_batch(reads)
     # the flip moves right-padding to the front of short reads: shift each
@@ -115,14 +119,17 @@ def _pre_extract(reads, lengths, *, k, read_stride=1, bs=False, bs_cutoff=0,
 
 
 def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
-                max_freq, *, k, fanout_cap, hit_cap, max_cmrs, diag_bin_log2,
-                band, min_kmer_hits, read_stride=1, packed_offsets=False,
-                bs=False, bs_cutoff=0, canonical=True):
+                max_freq, pre=None, *, k, fanout_cap, hit_cap, max_cmrs,
+                diag_bin_log2, band, min_kmer_hits, read_stride=1,
+                packed_offsets=False, bs=False, bs_cutoff=0, canonical=True):
     """CS on both strands -> candidates ordered by (strand, corridor start).
 
     Valid candidates form a per-read prefix after the ordering (DESIGN.md
-    rule 11).  Returns (corr_start, strand, cand_valid, n_cands, rc,
-    (fanout + hit overflow, cmr overflow)).
+    rule 11).  Returns (corr_start, strand, cand_valid, cs_score [B, C] the
+    bucket hit counts in the same order, n_cands, rc, best [B] the best
+    bucket count, (fanout + hit overflow, cmr overflow), extra_score [B] the
+    (C+1)-th best eligible count).  `pre` is _pre_extract's result when the
+    caller already has it.
     """
     B, L = reads.shape
     W = band
@@ -130,8 +137,10 @@ def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
     G = genome.shape[0]
     bin_w = 1 << diag_bin_log2
 
-    rc, kms = _pre_extract(reads, lengths, k=k, read_stride=read_stride,
+    if pre is None:
+        pre = _pre_extract(reads, lengths, k=k, read_stride=read_stride,
                            bs=bs, bs_cutoff=bs_cutoff, canonical=canonical)
+    rc, kms = pre
     common = dict(fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
                   diag_bin_log2=diag_bin_log2, stride=read_stride,
                   packed_offsets=packed_offsets)
@@ -161,11 +170,13 @@ def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
     order = torch.sort(order_key, dim=1, stable=True).indices
     corr_start = torch.gather(corr_start, 1, order)
     strand = torch.gather(strand, 1, order)
+    cs_score = torch.gather(cs_score, 1, order)
     cand_valid = torch.gather(cand_valid, 1, order)
 
     n_cands = cand_valid.sum(dim=1, dtype=I32)
     overflow = (cand.fanout_overflow + cand.hit_overflow, cand.cmr_overflow)
-    return corr_start, strand, cand_valid, n_cands, rc, overflow
+    return (corr_start, strand, cand_valid, cs_score, n_cands, rc,
+            cand.best_score, overflow, cand.extra_score)
 
 
 def _sw_mode(end_to_end: bool) -> str:
@@ -337,7 +348,7 @@ def _front(genome, offsets, positions, reads, lengths, sensitivity, max_freq,
     """What every step shares: (int32 lengths, rc, (corr_start, strand,
     cand_valid, n_cands, overflow)), the ordered candidates of both strands."""
     lengths = lengths.to(I32)
-    corr_start, strand, cand_valid, n_cands, rc, overflow = _candidates(
+    corr_start, strand, cand_valid, _, n_cands, rc, _, overflow, _ = _candidates(
         genome, offsets, positions, reads, lengths,
         _f32(sensitivity, reads.device), int(max_freq), **cand_statics,
     )
@@ -646,6 +657,408 @@ def map_step_topn(
     )
 
 
+class CandState(NamedTuple):
+    """One shard's candidate lists from one CS pass (the shard loop's
+    phase 1).
+
+    cs_score holds the bucket hit counts of the top-C candidates under the
+    shard's LOCAL adaptive threshold; _regate_candidates re-derives validity
+    from them against the GLOBAL best, which is exact: the global threshold
+    is at least the local one, and the globally eligible candidates are the
+    list's top scorers, so C clips them only where a one-shot selection at
+    the global threshold would clip them too.
+    """
+
+    corr_start: torch.Tensor       # [B, C] int32
+    strand: torch.Tensor           # [B, C] int32
+    cs_score: torch.Tensor         # [B, C] int32
+    best: torch.Tensor             # [B] int32 local best bucket count
+    fanout_overflow: torch.Tensor  # [] int32
+    cmr_overflow: torch.Tensor     # [] int32 at the LOCAL threshold; the
+                                   # tails recount it from extra_score
+    extra_score: torch.Tensor      # [B] int32 (C+1)-th best eligible count
+
+
+def cs_cands_step(genome, offsets, positions, reads, lengths, sensitivity,
+                  max_freq, pre=None, *, k, fanout_cap, hit_cap=256,
+                  max_cmrs, diag_bin_log2, band, min_kmer_hits=1,
+                  read_stride=1, packed_offsets=False, bs=False, bs_cutoff=0,
+                  canonical=True) -> CandState:
+    """Phase 1 of the shard loop: the full CS against one shard's tables,
+    keeping its candidate lists for phase 2.  `pre` is the batch's
+    _pre_extract result, shared by every shard."""
+    corr_start, strand, _, cs_score, _, _, best, overflow, extra = _candidates(
+        genome, offsets, positions, reads, lengths.to(I32),
+        _f32(sensitivity, reads.device), int(max_freq), pre,
+        k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
+        diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
+        read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
+        bs_cutoff=bs_cutoff, canonical=canonical,
+    )
+    return CandState(corr_start, strand, cs_score, best, overflow[0],
+                     overflow[1], extra)
+
+
+def _regate_candidates(cand: CandState, best_g, sensitivity, min_kmer_hits):
+    """Validity against the GLOBAL best bucket count best_g [B], and the
+    valid-prefix order of _candidates again.  Returns (corr_start, strand,
+    cand_valid, n_cands, cmr_overflow)."""
+    thresh = torch.ceil(best_g.to(torch.float32) * sensitivity).clamp(min=1)
+    thresh = thresh.to(I32)
+    if min_kmer_hits > 1:
+        # the zero-CMR retry, gated on the GLOBAL best (DESIGN.md rule 15)
+        need = torch.where(best_g < min_kmer_hits, 1, min_kmer_hits)
+        thresh = torch.maximum(thresh, need.to(I32))
+    valid = cand.cs_score >= thresh[:, None]
+    order_key = torch.where(valid, cand.strand * (2**30) + cand.corr_start,
+                            2**31 - 1)
+    order = torch.sort(order_key, dim=1, stable=True).indices
+    corr_start = torch.gather(cand.corr_start, 1, order)
+    strand = torch.gather(cand.strand, 1, order)
+    valid = torch.gather(valid, 1, order)
+    n_cands = valid.sum(dim=1, dtype=I32)
+    # a read lost an eligible candidate to C iff its (C+1)-th best local
+    # count still clears the global threshold (eligibility is count >= thr)
+    cmr_overflow = (cand.extra_score >= thresh).sum(dtype=I32)
+    return corr_start, strand, valid, n_cands, cmr_overflow
+
+
+def _scalars(dev, gopen_q, gopen_r, gext, sensitivity, min_identity,
+             min_residues):
+    """The steps' scalar arguments as their tails take them: int gap costs,
+    float32 tensors for the rest (the reference's jnp.float32 arguments)."""
+    return (int(gopen_q), int(gopen_r), int(gext), _f32(sensitivity, dev),
+            _f32(min_identity, dev), _f32(min_residues, dev))
+
+
+def _pair_args(dev, min_insert, max_insert, pair_cutoff):
+    i32 = lambda x: torch.as_tensor(x, dtype=I32, device=dev)  # noqa: E731
+    return i32(min_insert), i32(max_insert), _f32(pair_cutoff, dev)
+
+
+def map_step_from_cands(genome, reads, lengths, matrices, gopen_q, gopen_r,
+                        gext, sensitivity, min_identity, min_residues,
+                        cand: CandState, best_g, rc, *, band,
+                        min_kmer_hits=1, slot_cap=0, end_to_end=False,
+                        simple_matrix=False) -> MapResult:
+    """Phase 2 of the shard loop for one shard: the full single-end tail on
+    the shard's candidates, re-gated by the cross-shard best best_g; rc is
+    the batch's left-shifted reverse complement (_pre_extract's).  Equal to
+    map_step with the global threshold, by the CandState invariant."""
+    dev = reads.device
+    lengths = lengths.to(I32)
+    go_q, go_r, ge, sens, min_id, min_res = _scalars(
+        dev, gopen_q, gopen_r, gext, sensitivity, min_identity, min_residues)
+    corr_start, strand, cand_valid, n_cands, cmr_ovf = _regate_candidates(
+        cand, best_g, sens, min_kmer_hits)
+    return _single_tail(
+        genome, reads, rc, lengths, matrices, go_q, go_r, ge, min_id,
+        min_res, corr_start, strand, cand_valid, n_cands,
+        (cand.fanout_overflow, cmr_ovf), band=band,
+        slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
+        end_to_end=end_to_end, simple_matrix=simple_matrix,
+    )
+
+
+def map_step_paired_from_cands(genome, reads, lengths, matrices, gopen_q,
+                               gopen_r, gext, sensitivity, min_identity,
+                               min_residues, min_insert, max_insert,
+                               pair_cutoff, cand: CandState, best_g, rc,
+                               *, band, diag_bin_log2,
+                               min_kmer_hits=1, slot_cap=0, end_to_end=False,
+                               simple_matrix=False) -> MapResult:
+    """Paired phase 2 of the shard loop for one shard."""
+    dev = reads.device
+    lengths = lengths.to(I32)
+    go_q, go_r, ge, sens, min_id, min_res = _scalars(
+        dev, gopen_q, gopen_r, gext, sensitivity, min_identity, min_residues)
+    corr_start, strand, cand_valid, n_cands, cmr_ovf = _regate_candidates(
+        cand, best_g, sens, min_kmer_hits)
+    return _paired_tail(
+        genome, reads, rc, lengths, matrices, go_q, go_r, ge, min_id,
+        min_res, *_pair_args(dev, min_insert, max_insert, pair_cutoff),
+        corr_start, strand, cand_valid, n_cands,
+        (cand.fanout_overflow, cmr_ovf), band=band,
+        slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
+        diag_bin_log2=diag_bin_log2, end_to_end=end_to_end,
+        simple_matrix=simple_matrix,
+    )
+
+
+def map_step_topn_from_cands(genome, reads, lengths, matrices, gopen_q,
+                             gopen_r, gext, sensitivity, min_identity,
+                             min_residues, cand: CandState, best_g, rc,
+                             *, band, topn=2, min_kmer_hits=1,
+                             slot_cap=0, end_to_end=False,
+                             simple_matrix=False) -> tuple:
+    """Top-n phase 2 of the shard loop for one shard: the shard's own top
+    ranks, which merge_sharded_topn interleaves (exact, because a global
+    top-R entry is within its own shard's top R)."""
+    dev = reads.device
+    lengths = lengths.to(I32)
+    go_q, go_r, ge, sens, min_id, min_res = _scalars(
+        dev, gopen_q, gopen_r, gext, sensitivity, min_identity, min_residues)
+    corr_start, strand, cand_valid, n_cands, cmr_ovf = _regate_candidates(
+        cand, best_g, sens, min_kmer_hits)
+    return _topn_tail(
+        genome, reads, rc, lengths, matrices, go_q, go_r, ge, min_id,
+        min_res, corr_start, strand, cand_valid, n_cands,
+        (cand.fanout_overflow, cmr_ovf), band=band,
+        slot_cap=slot_cap or default_topn_slot_cap(reads.shape[0]),
+        topn=topn, end_to_end=end_to_end, simple_matrix=simple_matrix,
+    )
+
+
+def _global_shard_tail(genome_s, reads, rc, lengths, matrices, gopen_q,
+                       gopen_r, gext, min_identity, min_residues,
+                       cands: CandState, best_g, pair_args=None, *,
+                       sensitivity, min_kmer_hits, band, slot_cap,
+                       diag_bin_log2, end_to_end, simple_matrix, compact_cap):
+    """The tails of all shards as ONE pool of `compact_cap` rows.
+
+    Every (read, shard) group (a pair in paired mode) with re-gated
+    candidates in that shard takes a row, shard-major then in read order,
+    whichever shards the reads fall in: a position-sorted batch whose reads
+    all lie in one shard needs B rows there, which per-shard budgets would
+    starve.  The tail runs once over the pool with corridors gathered from
+    the flattened [S * Gs] genome (a view of the stacked one; each shard's
+    corr_start is already clipped to its own row, so no window crosses
+    rows), and the rows scatter back to the [S, B] layout of the merge.
+    Groups past the cap are counted in cmr_overflow.  Equal to the full
+    per-shard tails whenever nothing overflows (the compaction is stable
+    and every tail row is independent of the others).  The caller keeps
+    S * Gs < 2^31, so corridor starts stay int32.
+    """
+    S, B, C = cands.corr_start.shape
+    Gs = genome_s.shape[1]
+    dev = reads.device
+    best_t = best_g.repeat(S)
+    corr_f, strand_f, valid_f, n_cands_f, cmr_total = _regate_candidates(
+        CandState(cands.corr_start.reshape(S * B, C),
+                  cands.strand.reshape(S * B, C),
+                  cands.cs_score.reshape(S * B, C), best_t,
+                  cands.fanout_overflow, cands.cmr_overflow,
+                  cands.extra_score.reshape(S * B)),
+        best_t, sensitivity, min_kmer_hits)
+    keep = n_cands_f > 0                                   # [S*B]
+    paired = pair_args is not None
+    if paired:
+        keep_g = keep.reshape(S * B // 2, 2).any(dim=1)
+        cap_g, Bg = compact_cap // 2, B // 2
+    else:
+        keep_g, cap_g, Bg = keep, compact_cap, B
+    # stable: kept groups first, shard-major then in read order (the order
+    # the per-shard tails would process them in)
+    order = torch.sort((~keep_g).to(I32), stable=True).indices
+    n_keep = keep_g.sum(dtype=I32)
+    sel_g = order[:cap_g]
+    valid_g = torch.arange(cap_g, device=dev) < n_keep.clamp(max=cap_g)
+    n_lost = (n_keep - cap_g).clamp(min=0)
+    sid_g, row_g = sel_g // Bg, sel_g % Bg
+    if paired:
+        rows_b = torch.stack([row_g * 2, row_g * 2 + 1], dim=1).reshape(-1)
+        sid = sid_g.repeat_interleave(2)
+        row_valid = valid_g.repeat_interleave(2)
+    else:
+        rows_b, sid, row_valid = row_g, sid_g, valid_g
+    rows_safe = torch.where(row_valid, rows_b, 0)
+    sid_safe = torch.where(row_valid, sid, 0)
+    flat_row = sid_safe * B + rows_safe
+
+    reads_c = reads[rows_safe]
+    rc_c = rc[rows_safe]
+    lengths_c = torch.where(row_valid, lengths[rows_safe], 0)
+    strand_c = strand_f[flat_row]
+    valid_c = valid_f[flat_row] & row_valid[:, None]
+    n_cands_c = torch.where(row_valid, n_cands_f[flat_row], 0)
+    # shard-local corridor starts -> flattened stacked-genome coordinates
+    row_base = (sid_safe * Gs).to(I32)
+    corr_c = corr_f[flat_row] + row_base[:, None]
+    genome_flat = genome_s.reshape(-1)
+    ovf = (cands.fanout_overflow.sum(dtype=I32),
+           cmr_total + n_lost * (2 if paired else 1))
+    if paired:
+        res_c = _paired_tail(
+            genome_flat, reads_c, rc_c, lengths_c, matrices, gopen_q,
+            gopen_r, gext, min_identity, min_residues, *pair_args,
+            corr_c, strand_c, valid_c, n_cands_c, ovf, band=band,
+            slot_cap=slot_cap, diag_bin_log2=diag_bin_log2,
+            end_to_end=end_to_end, simple_matrix=simple_matrix,
+        )
+    else:
+        res_c = _single_tail(
+            genome_flat, reads_c, rc_c, lengths_c, matrices, gopen_q,
+            gopen_r, gext, min_identity, min_residues, corr_c, strand_c,
+            valid_c, n_cands_c, ovf, band=band, slot_cap=slot_cap,
+            end_to_end=end_to_end, simple_matrix=simple_matrix,
+        )
+    # back to shard-local positions (the merge adds each shard's base)
+    res_c = res_c._replace(
+        pos=torch.where(row_valid, res_c.pos - row_base, 0))
+
+    # scatter the rows back to [S, B]; rows no group filled keep zeroed
+    # fields (score 0: the merge never takes them)
+    scat_idx = torch.where(row_valid, sid * B + rows_b, S * B)
+
+    def scat(x):
+        buf = torch.zeros((S * B + 1,) + x.shape[1:], dtype=x.dtype,
+                          device=dev)
+        buf[scat_idx] = x
+        return buf[:S * B].reshape((S, B) + x.shape[1:])
+
+    fields = {}
+    for name in MapResult._fields:
+        v = getattr(res_c, name)
+        if name in ("fanout_overflow", "cmr_overflow"):
+            # the merge sums over the shard axis: totals ride shard 0
+            fields[name] = torch.zeros(S, dtype=v.dtype, device=dev)
+            fields[name][0] = v
+        else:
+            fields[name] = scat(v)
+    return MapResult(**fields)
+
+
+def _stack(items, cls):
+    """A list of NamedTuples -> one of the same type, fields stacked on a
+    new leading axis."""
+    return cls(*(torch.stack([getattr(x, f) for x in items])
+                 for f in cls._fields))
+
+
+def shard_tail_cap(batch: int, n_shards: int) -> int:
+    """Rows of the cross-shard tail pool (_global_shard_tail), 0 = full
+    per-shard tails: 2B rows, at least 1024, rounded up to 256, and 0 once
+    that reaches S * B.  Under the global threshold a read has candidates
+    in about one shard, so 2B rows give 2x headroom whatever the reads'
+    spread over the shards."""
+    cap = -(-max(1024, 2 * batch) // 256) * 256
+    return 0 if cap >= n_shards * batch else cap
+
+
+def _shard_phase1(genome_s, off_s, pos_s, reads, lengths, sensitivity,
+                  max_freq, cand_statics):
+    """(stacked CandState [S, ...], global best [B], the batch's rc): the
+    reads' k-mers are extracted once and every shard's CS runs on them."""
+    pre = _pre_extract(reads, lengths, k=cand_statics["k"],
+                       read_stride=cand_statics["read_stride"],
+                       bs=cand_statics["bs"],
+                       bs_cutoff=cand_statics["bs_cutoff"],
+                       canonical=cand_statics["canonical"])
+    cands = _stack([
+        cs_cands_step(genome_s[s], off_s[s], pos_s[s], reads, lengths,
+                      sensitivity, max_freq, pre, **cand_statics)
+        for s in range(genome_s.shape[0])
+    ], CandState)
+    return cands, cands.best.max(dim=0).values, pre[0]
+
+
+def map_step_sharded(
+    genome_s, off_s, pos_s, base, core_lo, core_hi,
+    reads, lengths, matrices, gopen_q, gopen_r, gext,
+    sensitivity, max_freq, min_identity, min_residues,
+    min_insert=None, max_insert=None, pair_cutoff=None,
+    *, paired=False, read_len=0, compact_cap=0,
+    k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
+    min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
+    simple_matrix=False, bs=False, bs_cutoff=0, end_to_end=False,
+    canonical=True,
+) -> MapResult:
+    """The shard loop on one device (--index-shards S): phase 1 runs the CS
+    of every shard (the stacked tables [S, ...] of parallel/index_shard.py's
+    ShardTables), the cross-shard maximum of the best bucket counts sets the
+    global adaptive threshold, phase 2 runs the tails, and the merge
+    (parallel/index_shard.py::merge_sharded_results) picks each read's (or
+    pair's) winner.  The merged `pos` is the int64 global position.
+
+    Phase 2 is one cross-shard pool (_global_shard_tail) when
+    0 < compact_cap < S * B and S * Gs < 2^31, else the full tail of each
+    shard.  The two agree unless a cap overflows: the pool's lazy slot cap
+    is max(512, compact_cap // 2) over the pool, a shard tail's
+    max(512, B // 2) per shard.
+    """
+    dev = reads.device
+    lengths = lengths.to(I32)
+    go_q, go_r, ge, sens, min_id, min_res = _scalars(
+        dev, gopen_q, gopen_r, gext, sensitivity, min_identity, min_residues)
+    cand_statics = dict(
+        k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
+        diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
+        read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
+        bs_cutoff=bs_cutoff, canonical=canonical,
+    )
+    tail = dict(band=band, min_kmer_hits=min_kmer_hits, slot_cap=slot_cap,
+                end_to_end=end_to_end, simple_matrix=simple_matrix)
+    cands, best_g, rc = _shard_phase1(genome_s, off_s, pos_s, reads, lengths,
+                                      sens, max_freq, cand_statics)
+    S, B = genome_s.shape[0], reads.shape[0]
+    pair_args = (_pair_args(dev, min_insert, max_insert, pair_cutoff)
+                 if paired else None)
+    if compact_cap and compact_cap < S * B and S * genome_s.shape[1] < 2**31:
+        stk = _global_shard_tail(
+            genome_s, reads, rc, lengths, matrices, go_q, go_r, ge, min_id,
+            min_res, cands, best_g, pair_args, sensitivity=sens,
+            min_kmer_hits=min_kmer_hits, band=band,
+            slot_cap=slot_cap or max(512, compact_cap // 2),
+            diag_bin_log2=diag_bin_log2, end_to_end=end_to_end,
+            simple_matrix=simple_matrix, compact_cap=compact_cap,
+        )
+    else:
+        per_shard = []
+        for s in range(S):
+            c = CandState(*(f[s] for f in cands))
+            if paired:
+                r = map_step_paired_from_cands(
+                    genome_s[s], reads, lengths, matrices, go_q, go_r, ge,
+                    sens, min_id, min_res, *pair_args, c, best_g, rc,
+                    diag_bin_log2=diag_bin_log2, **tail)
+            else:
+                r = map_step_from_cands(
+                    genome_s[s], reads, lengths, matrices, go_q, go_r, ge,
+                    sens, min_id, min_res, c, best_g, rc, **tail)
+            per_shard.append(r)
+        stk = _stack(per_shard, MapResult)
+    return merge_sharded_results(stk, base, core_lo, core_hi, paired=paired,
+                                 read_len=read_len)
+
+
+def map_step_sharded_topn(
+    genome_s, off_s, pos_s, base, core_lo, core_hi,
+    reads, lengths, matrices, gopen_q, gopen_r, gext,
+    sensitivity, max_freq, min_identity, min_residues,
+    *, read_len=0, topn=2,
+    k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
+    min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
+    simple_matrix=False, bs=False, bs_cutoff=0, end_to_end=False,
+    canonical=True,
+) -> tuple:
+    """-n with --index-shards: the shard loop of map_step_sharded with each
+    shard's top-n tail, then the rank merge
+    (parallel/index_shard.py::merge_sharded_topn).  Returns `topn`
+    MapResults, rank 0 first."""
+    dev = reads.device
+    lengths = lengths.to(I32)
+    go_q, go_r, ge, sens, min_id, min_res = _scalars(
+        dev, gopen_q, gopen_r, gext, sensitivity, min_identity, min_residues)
+    cands, best_g, rc = _shard_phase1(
+        genome_s, off_s, pos_s, reads, lengths, sens, max_freq,
+        dict(k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
+             diag_bin_log2=diag_bin_log2, band=band,
+             min_kmer_hits=min_kmer_hits, read_stride=read_stride,
+             packed_offsets=packed_offsets, bs=bs, bs_cutoff=bs_cutoff,
+             canonical=canonical))
+    per_shard = [
+        _stack(map_step_topn_from_cands(
+            genome_s[s], reads, lengths, matrices, go_q, go_r, ge, sens,
+            min_id, min_res, CandState(*(f[s] for f in cands)), best_g, rc,
+            band=band, topn=topn, min_kmer_hits=min_kmer_hits,
+            slot_cap=slot_cap, end_to_end=end_to_end,
+            simple_matrix=simple_matrix), MapResult)
+        for s in range(genome_s.shape[0])
+    ]                                       # [S] of MapResult fields [R, ...]
+    return merge_sharded_topn(_stack(per_shard, MapResult), base, core_lo,
+                              core_hi, topn=topn, read_len=read_len)
+
+
 def score_matrices(cfg: NgmConfig) -> np.ndarray:
     """[2, 8, 8] int32 substitution matrices, selected per candidate by
     strand (they differ only in bisulfite mode)."""
@@ -657,9 +1070,8 @@ def check_slice(cfg: NgmConfig) -> None:
     slice, naming the ROADMAP item that will bring it."""
     unported = [
         (cfg.megabatch > 1, "--megabatch waits for ROADMAP A12"),
-        (cfg.index_shards > 1, "--index-shards > 1 waits for ROADMAP A13"),
         (cfg.devices != 1, "--devices/-g other than one device waits for "
-                           "ROADMAP A13"),
+                           "ROADMAP A13b"),
     ]
     for bad, what in unported:
         if bad:
@@ -675,18 +1087,30 @@ class Mapper:
     (canonical or not), a (CT, GA) pair of KmerIndexes in bisulfite mode, or
     an (offsets, positions) pair of arrays (in bisulfite mode, the tables
     already concatenated).
+
+    With cfg.index_shards = S > 1 the index is position-range sharded
+    (parallel/index_shard.py): `index` is then a ShardedIndex, or the host
+    KmerIndex (bisulfite: the (CT, GA) pair) to split.  The device holds one
+    stacked copy of the shards (`shards`, a ShardTables; `state` is None),
+    and every batch runs the shard loop of map_step_sharded.
     """
 
     def __init__(self, cfg: NgmConfig, genome, read_len: int,
-                 index: KmerIndex | tuple | None = None, *,
+                 index: KmerIndex | ShardedIndex | tuple | None = None, *,
                  device: torch.device | str):
         check_slice(cfg)
         self.cfg = cfg
         self.genome = genome
         self.read_len = read_len
         self.device = resolve_device(device)
-        codes = np.asarray(genome.codes)
         mats = score_matrices(cfg)
+        self.simple_matrix = matrices_are_simple(mats)
+        self.band = cfg.corridor_for(read_len)
+        self.shards = None
+        if cfg.index_shards > 1:
+            self._init_sharded(index, mats)
+            return
+        codes = np.asarray(genome.codes)
         # canonical k-mers (one lookup serves both strands) unless the
         # strands need tables of their own: bisulfite, or a host index
         # built without canonical entries
@@ -695,8 +1119,8 @@ class Mapper:
         if index is None:
             if codes.shape[0] >= 2**30:
                 raise NotImplementedError(
-                    "genomes of 2^30 bases or more need index sharding "
-                    "(ROADMAP A13)"
+                    "a genome of 2^30 bases or more maps with "
+                    "--index-shards N (a host index split into N shards)"
                 )
             g = torch.from_numpy(codes).to(self.device)
             build = dict(k=cfg.kmer, skip=cfg.kmer_skip)
@@ -720,12 +1144,47 @@ class Mapper:
                               cfg.max_kmer_fanout)
         self.packed_offsets = packed is not None
         self._offsets = packed if packed is not None else self.state.offsets
-        self.simple_matrix = matrices_are_simple(mats)
-        self.band = cfg.corridor_for(read_len)
         # from one table's positions: a bisulfite table is sized by the
         # collapsed 3^k estimate
         n_pos = self.state.positions.shape[0] // (2 if cfg.bs_mapping else 1)
         self.hit_cap = cfg.resolved_read_hits(n_pos, read_len)
+
+    def _init_sharded(self, index, mats) -> None:
+        """Split (or take) the ShardedIndex and place one stacked copy of it
+        on the device.  Offsets stay unpacked, as in the reference."""
+        cfg = self.cfg
+        S = cfg.index_shards
+        codes = np.asarray(self.genome.codes)
+        halo = ShardedIndex.halo_for(cfg)
+        if isinstance(index, ShardedIndex):
+            sidx = index
+            if sidx.n_shards != S:
+                raise ValueError(
+                    f"sharded index has {sidx.n_shards} shards, want {S}")
+            if sidx.dual != cfg.bs_mapping:
+                raise ValueError("sharded index dual-table layout does not "
+                                 "match --bs-mapping")
+        elif cfg.bs_mapping:
+            if not (isinstance(index, tuple) and len(index) == 2
+                    and all(isinstance(x, KmerIndex) for x in index)):
+                raise ValueError("bisulfite index sharding requires a "
+                                 "(CT, GA) host-built KmerIndex pair")
+            sidx = ShardedIndex.build_dual(*index, codes, S, halo)
+        elif isinstance(index, KmerIndex):
+            sidx = ShardedIndex.build(index, codes, S, halo)
+        else:
+            raise ValueError("index sharding requires a host-built KmerIndex")
+        self.state = None
+        self.canonical = sidx.canonical
+        self.packed_offsets = False
+        self.shards = ShardTables.from_index(sidx, self.device)
+        self.matrices = torch.from_numpy(mats).to(self.device)
+        # the reference sizes the per-shard hit cap from the positions width
+        # rounded up to whole 8-entry words (its TPU word-gather layout); a
+        # dual table's width spans both collapsed tables
+        width = -(-sidx.positions.shape[1] // 8) * 8
+        self.hit_cap = cfg.resolved_read_hits(
+            width // (2 if sidx.dual else 1), self.read_len)
 
     def _host_tables(self, index) -> tuple:
         """(offsets, positions) arrays of a host index (see the class)."""
@@ -753,25 +1212,55 @@ class Mapper:
         )
 
     def _common_args(self, codes: np.ndarray, lengths: np.ndarray) -> tuple:
-        """The positional arguments every step shares, for one [B, L] batch."""
+        """The positional arguments every step shares, for one [B, L] batch:
+        the tables (the six stacked ones when sharded), the reads, the
+        matrices and the scalars."""
         cfg = self.cfg
-        st = self.state
         reads = torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(self.device)
         lens = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(self.device)
+        if self.shards is not None:
+            tables, mats = tuple(self.shards), self.matrices
+        else:
+            st = self.state
+            tables = (st.genome, self._offsets, st.positions)
+            mats = st.matrices
         return (
-            st.genome, self._offsets, st.positions, reads, lens, st.matrices,
+            *tables, reads, lens, mats,
             cfg.gap_read_penalty, cfg.gap_ref_penalty, cfg.gap_extend_penalty,
             cfg.sensitivity, cfg.max_kmer_freq, cfg.min_identity,
             cfg.min_residues,
         )
 
+    def tail_cap(self, batch: int) -> int:
+        """Rows of the cross-shard tail pool for a batch (0: full per-shard
+        tails).  Without --bs-mapping the reference's default shard loop
+        takes shard_tail_cap's pool; with it, the reference's default loop
+        runs full per-shard tails."""
+        if self.cfg.bs_mapping:
+            return 0
+        return shard_tail_cap(batch, self.cfg.index_shards)
+
+    def _map_sharded(self, codes, lengths, paired: bool) -> MapResult:
+        cfg = self.cfg
+        pair_args = ((cfg.min_insert_size, cfg.max_insert_size,
+                      cfg.pair_score_cutoff) if paired else ())
+        return map_step_sharded(
+            *self._common_args(codes, lengths), *pair_args, paired=paired,
+            read_len=self.read_len, compact_cap=self.tail_cap(codes.shape[0]),
+            **self.statics(),
+        )
+
     def map_batch(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
         """Map one [B, L] batch; the result stays on the mapper's device."""
+        if self.shards is not None:
+            return self._map_sharded(codes, lengths, paired=False)
         return map_step(*self._common_args(codes, lengths), **self.statics())
 
     def map_batch_paired(self, codes: np.ndarray,
                          lengths: np.ndarray) -> MapResult:
         """Map one batch of pairs (rows 2i / 2i+1 are mates)."""
+        if self.shards is not None:
+            return self._map_sharded(codes, lengths, paired=True)
         cfg = self.cfg
         return map_step_paired(
             *self._common_args(codes, lengths), cfg.min_insert_size,
@@ -784,5 +1273,9 @@ class Mapper:
 
     def map_batch_topn(self, codes: np.ndarray, lengths: np.ndarray) -> tuple:
         """Map one batch with up to topn() ranked alignments per read."""
+        if self.shards is not None:
+            return map_step_sharded_topn(
+                *self._common_args(codes, lengths), read_len=self.read_len,
+                topn=self.topn(), **self.statics())
         return map_step_topn(*self._common_args(codes, lengths),
                              topn=self.topn(), **self.statics())

@@ -1,5 +1,5 @@
-"""Native host IO of the port: FASTQ/FASTA chunk parsing, SAM formatting
-and the k-mer index build passes (``ngmio.cpp``).
+"""Native host IO of the port: FASTQ/FASTA chunk parsing, SAM formatting,
+the k-mer index build passes and the CSR shard passes (``ngmio.cpp``).
 
 Copy of ``nextgenmap_tpu/native/__init__.py``.  ``lib()`` compiles
 ``ngmio.cpp`` with g++ at first use into ``nextgenmap_tpu_torch/_build/``
@@ -63,6 +63,8 @@ def lib():
         L.ngm_format_sam.restype = ctypes.c_int64
         L.ngm_index_count.restype = None
         L.ngm_index_fill.restype = None
+        L.ngm_shard_count.restype = None
+        L.ngm_shard_fill.restype = None
         _LIB = L
     except (OSError, subprocess.CalledProcessError) as e:
         log.warning("native IO unavailable (%s); using Python paths", e)
@@ -147,6 +149,30 @@ def index_fill(codes: np.ndarray, k: int, skip: int, collapse: str,
     )
     assert np.array_equal(cursor, offsets[1:]), "native CSR fill mismatch"
     return positions
+
+
+def shard_csr(offsets: np.ndarray, positions: np.ndarray,
+              lo: int, hi: int) -> tuple[np.ndarray, np.ndarray]:
+    """Slice one position-range shard out of a global CSR: returns
+    (offsets int64 [nb+1], local positions int32 rebased to lo)."""
+    L = lib()
+    assert L is not None
+    nb = offsets.shape[0] - 1
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    positions = np.ascontiguousarray(positions, np.uint32)
+    counts = np.empty(nb, np.int64)
+    L.ngm_shard_count(
+        _ptr(offsets), ctypes.c_int64(nb), _ptr(positions),
+        ctypes.c_int64(lo), ctypes.c_int64(hi), _ptr(counts),
+    )
+    out_off = np.zeros(nb + 1, np.int64)
+    np.cumsum(counts, out=out_off[1:])
+    out_pos = np.empty(int(out_off[-1]), np.int32)
+    L.ngm_shard_fill(
+        _ptr(offsets), ctypes.c_int64(nb), _ptr(positions),
+        ctypes.c_int64(lo), ctypes.c_int64(hi), _ptr(out_off), _ptr(out_pos),
+    )
+    return out_off, out_pos
 
 
 def format_sam(

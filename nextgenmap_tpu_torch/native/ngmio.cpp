@@ -1,15 +1,16 @@
 // Native host-side IO hot paths of the PyTorch port.
 //
-// Copy of nextgenmap_tpu/native/ngmio.cpp (without its index-sharding
-// passes): (1) FASTQ/FASTA chunk parsing and encoding into the fixed-shape
-// [B, L] batch buffers the device step consumes, (2) SAM record formatting
-// (CIGAR RLE, MD/NM walk, line assembly) from the device results, and (3)
-// the two passes of the host k-mer index build.
+// Copy of nextgenmap_tpu/native/ngmio.cpp: (1) FASTQ/FASTA chunk parsing
+// and encoding into the fixed-shape [B, L] batch buffers the device step
+// consumes, (2) SAM record formatting (CIGAR RLE, MD/NM walk, line assembly)
+// from the device results, (3) the two passes of the host k-mer index
+// build, and (4) the two passes that slice one position-range shard out of
+// the host CSR.
 //
 // Compiled at first use by nextgenmap_tpu_torch/native/hostio.py (g++ -O3
 // -shared) and called through ctypes.  Pure-Python paths remain in
-// io/fastq.py, io/sam.py and index/kmer_index.py, and the tests assert byte
-// equality between the two.
+// io/fastq.py, io/sam.py, index/kmer_index.py and parallel/index_shard.py,
+// and the tests assert byte equality between the two.
 
 #include <cstdint>
 #include <cstdio>
@@ -342,7 +343,10 @@ void ngm_index_count(
     const uint64_t mask = (1ULL << (2 * k)) - 1;
     const int rshift = 2 * (k - 1);
     uint64_t v = 0, rv = 0;
-    int valid = 0;  // consecutive ACGT codes ending at i
+    // consecutive ACGT codes ending at i: 64 bits, because a genome with
+    // no N can run past 2^31 bases, where an int would wrap negative and
+    // drop every later k-mer
+    int64_t valid = 0;
     for (int64_t i = 0; i < n; i++) {
         uint8_t c = collapse_code(codes[i], collapse);
         if (c < 4) {
@@ -368,7 +372,7 @@ void ngm_index_fill(
     const uint64_t mask = (1ULL << (2 * k)) - 1;
     const int rshift = 2 * (k - 1);
     uint64_t v = 0, rv = 0;
-    int valid = 0;
+    int64_t valid = 0;  // as in ngm_index_count
     for (int64_t i = 0; i < n; i++) {
         uint8_t c = collapse_code(codes[i], collapse);
         if (c < 4) {
@@ -387,6 +391,39 @@ void ngm_index_fill(
                 ? (((uint32_t)start << 1) | (uint32_t)flip)
                 : (uint32_t)start;
             positions[cursor[key]++] = pos;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// CSR position-range sharding passes (parallel/index_shard.py::ShardedIndex).
+// The numpy route builds temporaries the size of the whole CSR; these two
+// passes stream the CSR once per shard and allocate only the shard's own.
+
+void ngm_shard_count(
+    const int64_t* offsets, int64_t nb, const uint32_t* positions,
+    int64_t lo, int64_t hi, int64_t* counts /* [nb] */)
+{
+    for (int64_t r = 0; r < nb; r++) {
+        int64_t c = 0;
+        for (int64_t i = offsets[r]; i < offsets[r + 1]; i++) {
+            uint32_t p = positions[i];
+            if (p >= lo && p < hi) c++;
+        }
+        counts[r] = c;
+    }
+}
+
+void ngm_shard_fill(
+    const int64_t* offsets, int64_t nb, const uint32_t* positions,
+    int64_t lo, int64_t hi, const int64_t* out_off /* [nb+1] */,
+    int32_t* out_pos /* rebased to lo */)
+{
+    for (int64_t r = 0; r < nb; r++) {
+        int64_t w = out_off[r];
+        for (int64_t i = offsets[r]; i < offsets[r + 1]; i++) {
+            uint32_t p = positions[i];
+            if (p >= lo && p < hi) out_pos[w++] = (int32_t)(p - lo);
         }
     }
 }

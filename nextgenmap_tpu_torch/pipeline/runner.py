@@ -2,8 +2,8 @@
 
 Port of ``nextgenmap_tpu/pipeline/runner.py`` on one device
 (``run_mapping`` with its single-end, top-n and paired branches and its
-long-read batch size, ``load_reference`` with its bisulfite branch,
-``emit_single``, ``emit_single_topn``).  The loop is
+long-read batch size, ``load_reference`` with its bisulfite and
+index-shard branches, ``emit_single``, ``emit_single_topn``).  The loop is
 serial: parse a batch, map it on the device, fetch its result to the host,
 format and write its records.  Records are formatted by the port's native
 formatter (``native/hostio.py::format_sam``) when g++ could build it, else by
@@ -35,6 +35,7 @@ from nextgenmap_tpu_torch.models.mapper import (
 )
 from nextgenmap_tpu_torch.native import hostio as native
 from nextgenmap_tpu_torch.pair.resolve import emit_paired
+from nextgenmap_tpu_torch.parallel.index_shard import open_sharded
 from nextgenmap_tpu_torch.utils.logging import get_logger
 from nextgenmap_tpu_torch.utils.stats import MappingStats
 
@@ -49,9 +50,12 @@ class RunStats(MappingStats):
 
 
 def load_reference(cfg: NgmConfig, ref_path: str):
-    """(genome, index): index is a memoized host KmerIndex when one matches
-    the genome (in bisulfite mode a (CT, GA) pair, when both do), a fresh
-    host build for genomes over 2^28 bases (not bisulfite), else None (the
+    """(genome, index): with --index-shards N > 1 the memoized ShardedIndex
+    (parallel/index_shard.py::open_sharded), split from a host KmerIndex
+    (in bisulfite mode the (CT, GA) pair), each built or loaded here.
+    Unsharded, index is a memoized host KmerIndex when one matches the
+    genome (in bisulfite mode a (CT, GA) pair, when both do), a fresh host
+    build for genomes over 2^28 bases (not bisulfite), else None (the
     Mapper builds the index on the device)."""
     genome = Genome.open(ref_path, skip_save=cfg.skip_save)
 
@@ -65,6 +69,22 @@ def load_reference(cfg: NgmConfig, ref_path: str):
                 return index
         return None
 
+    def host_index(collapse: str = "none", **kw) -> KmerIndex:
+        return KmerIndex.open(
+            ref_path, genome.codes, genome.sha1(), k=cfg.kmer,
+            skip=cfg.kmer_skip, max_freq=cfg.max_kmer_freq, collapse=collapse,
+            skip_save=cfg.skip_save, **kw)
+
+    if cfg.index_shards > 1:
+        # the shards slice host CSRs by position range.  Canonical entries
+        # ((pos << 1) | flip, monotone in pos) slice as well with doubled
+        # bounds and rebase into int32 per shard; past 2^31 bases the
+        # build falls back to raw positions
+        if cfg.bs_mapping:
+            index = (host_index("ct"), host_index("ga"))
+        else:
+            index = host_index(canonical=True, allow_u32=True)
+        return genome, open_sharded(cfg, ref_path, genome, index)
     if cfg.bs_mapping:
         ct, ga = try_load("ct"), try_load("ga")
         return genome, (ct, ga) if ct and ga else None
@@ -73,12 +93,7 @@ def load_reference(cfg: NgmConfig, ref_path: str):
         return genome, index
     if genome.codes.shape[0] > (1 << 28):
         log.info("large genome: building k-mer index on host (one-time)")
-        index = KmerIndex.open(
-            ref_path, genome.codes, genome.sha1(),
-            k=cfg.kmer, skip=cfg.kmer_skip, max_freq=cfg.max_kmer_freq,
-            skip_save=cfg.skip_save, canonical=genome.codes.shape[0] < 2**30,
-        )
-        return genome, index
+        return genome, host_index(canonical=genome.codes.shape[0] < 2**30)
     return genome, None
 
 

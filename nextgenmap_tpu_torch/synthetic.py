@@ -4,8 +4,9 @@ A random genome gives every read exactly one candidate, so the score pass
 (and its kernel) would only ever see empty slots.  ``repeat_genome`` copies
 segments of the genome elsewhere, half of them exact and half mutated at
 ~1%, so reads from those regions have two or more candidates and reach the
-banded SW score.  Reads: SNP-only short reads, FR pairs, bisulfite-converted
-reads (original top and bottom strands) and long reads with SNPs and 1 bp
+banded SW score; ``repeat_genome_large`` does the same at gigabase
+sizes.  Reads: SNP-only short reads, FR pairs, bisulfite-converted reads
+(original top and bottom strands) and long reads with SNPs and 1 bp
 indels.  Read names follow the repo's truth convention
 ``<prefix>_<i>_<pos>_<strand>`` (0-based forward position, strand 0/1); the
 two mates of a pair carry their own truth each.
@@ -22,12 +23,12 @@ from nextgenmap_tpu_torch.io.encode import CODE_C, CODE_T
 _BASES = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
 
-def repeat_genome(size: int, *, n_repeats: int, min_len: int, max_len: int,
-                  mutation_rate: float = 0.01, seed: int = 0) -> np.ndarray:
-    """[size] uint8 codes 0..3; odd-numbered copies carry SNPs at
-    `mutation_rate`, even-numbered ones are exact."""
-    rng = np.random.default_rng(seed)
-    g = rng.integers(0, 4, size, dtype=np.int64).astype(np.uint8)
+def _plant_repeats(g: np.ndarray, rng, n_repeats: int, min_len: int,
+                   max_len: int, mutation_rate: float) -> np.ndarray:
+    """Copy n_repeats random segments of g elsewhere in g, in place; odd-
+    numbered copies carry SNPs at `mutation_rate`, even-numbered ones are
+    exact."""
+    size = g.shape[0]
     for r in range(n_repeats):
         n = int(rng.integers(min_len, max_len + 1))
         src, dst = rng.integers(0, size - n, 2)
@@ -37,6 +38,30 @@ def repeat_genome(size: int, *, n_repeats: int, min_len: int, max_len: int,
             seg[hit] = (seg[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
         g[dst:dst + n] = seg
     return g
+
+
+def repeat_genome(size: int, *, n_repeats: int, min_len: int, max_len: int,
+                  mutation_rate: float = 0.01, seed: int = 0) -> np.ndarray:
+    """[size] uint8 codes 0..3 with planted repeats (_plant_repeats)."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, size, dtype=np.int64).astype(np.uint8)
+    return _plant_repeats(g, rng, n_repeats, min_len, max_len, mutation_rate)
+
+
+def repeat_genome_large(size: int, *, n_repeats: int, min_len: int,
+                        max_len: int, mutation_rate: float = 0.01,
+                        seed: int = 0) -> np.ndarray:
+    """repeat_genome's kind of genome for gigabase sizes: the bases are
+    drawn as uint8 in chunks of 2^26, so no int64 temporary of the whole
+    genome exists (8 bytes a base).  Other bytes than repeat_genome's for
+    the same seed."""
+    rng = np.random.default_rng(seed)
+    g = np.empty(size, np.uint8)
+    chunk = 1 << 26
+    for i in range(0, size, chunk):
+        g[i:i + chunk] = rng.integers(0, 4, min(chunk, size - i),
+                                      dtype=np.uint8)
+    return _plant_repeats(g, rng, n_repeats, min_len, max_len, mutation_rate)
 
 
 def _acgt_windows(genome: np.ndarray, n: int, width: int, rng):

@@ -8,7 +8,11 @@ inputs:
   * build_parser + config_from_args: the same NgmConfig for every argv;
   * score_matrix / matrices_are_simple for every scoring mode;
   * Genome from one FASTA (two chromosomes, lowercase, N) and its cache;
-  * the host KmerIndex arrays, native and numpy builds, every collapse;
+  * the host KmerIndex arrays, native and numpy builds, every collapse,
+    and with allow_u32 (the sharded build);
+  * the native CSR shard passes (ngm_shard_count / ngm_shard_fill through
+    hostio.shard_csr), raw and canonical, and the .ngmt-shards artifacts:
+    each package loads what the other saves, under the same paths;
   * ReadBatch from batch_single / batch_paired on plain and gzipped FASTQ,
     FASTA reads and SAM input, native and Python parsers;
   * format_sam bytes of the native writer, and the port's Python emit path
@@ -29,6 +33,7 @@ from nextgenmap_tpu.index import genome as jgenome
 from nextgenmap_tpu.index import kmer_index as jkmer
 from nextgenmap_tpu.io import fastq as jfastq
 from nextgenmap_tpu.ops import scoring as jscoring
+from nextgenmap_tpu.parallel import index_shard as jshard
 from nextgenmap_tpu_torch import cli as tcli
 from nextgenmap_tpu_torch import config as tconfig
 from nextgenmap_tpu_torch import synthetic
@@ -40,6 +45,7 @@ from nextgenmap_tpu_torch.index import kmer_index as tkmer
 from nextgenmap_tpu_torch.io import fastq as tfastq
 from nextgenmap_tpu_torch.native import hostio
 from nextgenmap_tpu_torch.ops import scoring as tscoring
+from nextgenmap_tpu_torch.parallel import index_shard as tshard
 
 
 def test_config_fields_and_defaults():
@@ -186,6 +192,79 @@ def test_host_kmer_index_arrays(fasta, monkeypatch, native, collapse,
     assert (jkmer.KmerIndex.cache_path("r.fa", 10, skip, collapse, canonical)
             == tkmer.KmerIndex.cache_path("r.fa", 10, skip, collapse,
                                           canonical))
+
+
+@pytest.mark.parametrize("canonical", [True, False])
+def test_host_kmer_index_allow_u32(fasta, canonical):
+    """allow_u32 (the sharded build) keeps canonical entries in both."""
+    codes = tgenome.Genome.from_fasta(str(fasta / "ref.fa")).codes
+    ref = jkmer.KmerIndex.build(codes, 11, 2, 50, canonical=canonical,
+                                allow_u32=True)
+    port = tkmer.KmerIndex.build(codes, 11, 2, 50, canonical=canonical,
+                                 allow_u32=True)
+    assert ref.canonical == port.canonical == canonical
+    assert ref.n_buckets == port.n_buckets == 4**11
+    for f in ("offsets", "positions"):
+        np.testing.assert_array_equal(getattr(ref, f), getattr(port, f))
+
+
+@pytest.mark.parametrize("canonical", [True, False])
+def test_shard_csr_native(fasta, canonical):
+    """hostio.shard_csr (the port's ngm_shard_count / ngm_shard_fill) ==
+    the JAX package's native passes, at ranges that cut rows apart."""
+    assert hostio.lib() is not None and jnative.lib() is not None
+    codes = tgenome.Genome.from_fasta(str(fasta / "ref.fa")).codes
+    idx = jkmer.KmerIndex.build(codes, 10, 1, 20, canonical=canonical)
+    mul = 2 if canonical else 1
+    for lo, hi in ((0, 9_000), (7_500, 21_000), (20_000, 31_000), (5, 6)):
+        ref = jnative.shard_csr(idx.offsets, idx.positions, lo * mul,
+                                hi * mul)
+        port = hostio.shard_csr(idx.offsets, idx.positions, lo * mul,
+                                hi * mul)
+        for a, b in zip(ref, port):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_shard_artifacts_cross_load(fasta, tmp_path, dual):
+    """The .ngmt-shards artifact and the per-shard ones: the same paths,
+    and each package loads what the other saved, array for array."""
+    codes = tgenome.Genome.from_fasta(str(fasta / "ref.fa")).codes
+    if dual:
+        index = tuple(jkmer.KmerIndex.build(codes, 10, 2, 50, c)
+                      for c in ("ct", "ga"))
+        ref = jshard.ShardedIndex.build_dual(*index, codes, 3, 2_000)
+        port = tshard.ShardedIndex.build_dual(*index_from_reference(index),
+                                              codes, 3, 2_000)
+    else:
+        index = jkmer.KmerIndex.build(codes, 10, 2, 50, canonical=True)
+        ref = jshard.ShardedIndex.build(index, codes, 3, 2_000)
+        port = tshard.ShardedIndex.build(index_from_reference(index), codes,
+                                         3, 2_000)
+    args = ("r.fa", 10, 2, 3, 2_000, 50, dual, not dual)
+    assert (jshard.ShardedIndex.cache_path(*args)
+            == tshard.ShardedIndex.cache_path(*args))
+    assert (jshard.ShardedIndex.shard_cache_path("r.fa", 1, *args[1:])
+            == tshard.ShardedIndex.shard_cache_path("r.fa", 1, *args[1:]))
+    fields = ("genome", "offsets", "positions", "base", "core_lo", "core_hi")
+    for saver, loader, tag in ((port, jshard, "t"), (ref, tshard, "j")):
+        path = str(tmp_path / f"{tag}.npz")
+        saver.save(path, "sha")
+        back = loader.ShardedIndex.load(path, "sha", max_freq=50)
+        assert (back.n_shards, back.max_freq, back.dual, back.canonical) == (
+            3, 50, dual, not dual)
+        for f in fields:
+            np.testing.assert_array_equal(getattr(back, f), getattr(ref, f))
+        assert loader.ShardedIndex.load(path, "other") is None
+        assert loader.ShardedIndex.load(path, "sha", max_freq=7) is None
+        saver.save_shards(lambda s: str(tmp_path / f"{tag}{s}.npz"), "sha")
+    for s in range(3):
+        with np.load(tmp_path / f"t{s}.npz") as a, \
+                np.load(tmp_path / f"j{s}.npz") as b:
+            assert sorted(a.files) == sorted(b.files)
+            for f in a.files:
+                np.testing.assert_array_equal(a[f], b[f])
 
 
 @pytest.fixture(scope="module")

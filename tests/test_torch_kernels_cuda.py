@@ -9,7 +9,8 @@ slots, tie-heavy periodic inputs (many cells share the maximum, so the
 deferred argmax must pick the first in (i, o)), and matrices large enough
 that the kernel keeps (value, o) unpacked.  K2 is checked at T around the
 16-byte store width, at starts 0, G - T, G - 1, G and beyond, and on a
-genome of more than 2^31 bytes.
+genome of more than 2^31 bytes.  The index-shard loop (single, paired, the
+cross-shard tail pool and top-n) runs on the card against the CPU.
 
 Marked `cuda`: every test needs a CUDA card and skips without one (the
 kernels have no CPU mode).  Run on the card with
@@ -332,3 +333,57 @@ def test_modes_cuda_equal_cpu(dev, change, read_len):
             for f in ra._fields:
                 assert torch.equal(getattr(ra, f).cpu(), getattr(rb, f)), \
                     (step, j, f)
+
+
+@pytest.mark.parametrize("step,compact_cap", [
+    ("single", 0), ("single", 512), ("paired", 0), ("paired", 512),
+    ("topn", 0),
+])
+def test_sharded_step_cuda_equals_cpu(dev, step, compact_cap):
+    """The shard loop over 3 shards on the card == on the CPU, from the same
+    ShardedIndex: full per-shard tails launch K1 once and K2 twice per
+    shard, the cross-shard pool (512 rows < 3 x 256) once and twice in all,
+    top-n once and twice per shard."""
+    from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
+    from nextgenmap_tpu_torch.models.mapper import map_step_sharded
+    from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
+
+    g = repeat_genome(90_000, n_repeats=16, min_len=800, max_len=2000,
+                      seed=12)
+    cfg = NgmConfig(kmer=11, index_shards=3, topn=2)
+    # every indexed position: the reads' k-mers are taken at stride 2
+    # (read_kmer_skip), so an index at stride 2 would miss half the reads
+    idx = KmerIndex.build(g, k=11, skip=cfg.kmer_skip, max_freq=1000,
+                          canonical=True, allow_u32=True)
+    sidx = ShardedIndex.build(idx, g, 3, ShardedIndex.halo_for(cfg))
+
+    class _G:
+        codes = g
+
+    gpu, cpu = (Mapper(cfg, _G(), 100, sidx, device=d) for d in (dev, "cpu"))
+    if step == "paired":
+        codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=13)
+    else:
+        codes, _, _ = simulate_reads(g, 256, 100, 0.02, seed=13)
+    lens = np.full(256, 100, np.int32)
+    pair = ((cfg.min_insert_size, cfg.max_insert_size, cfg.pair_score_cutoff)
+            if step == "paired" else ())
+
+    def run(m):
+        if step == "topn":
+            return m.map_batch_topn(codes, lens)
+        return (map_step_sharded(
+            *m._common_args(codes, lens), *pair, paired=step == "paired",
+            read_len=100, compact_cap=compact_cap, **m.statics()),)
+
+    launches = (sw_score.launches, gather_genome_windows.launches)
+    a = run(gpu)
+    torch.cuda.synchronize()
+    n = 1 if compact_cap else 3
+    assert sw_score.launches == launches[0] + n
+    assert gather_genome_windows.launches == launches[1] + 2 * n
+    b = run(cpu)
+    for j, (ra, rb) in enumerate(zip(a, b)):
+        for f in ra._fields:
+            assert torch.equal(getattr(ra, f).cpu(), getattr(rb, f)), (j, f)
+    assert int(b[0].mapped.sum()) > 240

@@ -4,8 +4,9 @@ entry points.
 Each case runs in a fresh interpreter and asserts afterwards that no key of
 sys.modules is ``nextgenmap_tpu`` or starts with ``nextgenmap_tpu.``, and
 that ``jax`` is absent: the CLI on the CPU (single-end, ``-1/-2`` and
-``-n 2``), importing the mapper, the K3 probe tool (which exits 2
-without a card), and importing the kernel timing tools.
+``-n 2``, ``--index-shards 2``), the ``index --index-shards 2`` verb,
+importing the mapper and the index-shard module, the K3 probe tool (which
+exits 2 without a card), and importing the kernel timing tools.
 """
 
 import os
@@ -34,6 +35,7 @@ def files(tmp_path_factory):
     g = synthetic.repeat_genome(20_000, n_repeats=4, min_len=300,
                                 max_len=600, seed=51)
     synthetic.write_fasta(str(d / "ref.fa"), "chr", g)
+    synthetic.write_fasta(str(d / "idx.fa"), "chr", g)
     codes, pos, strand = synthetic.simulate_reads(g, 24, 100, 0.02, seed=52)
     synthetic.write_fastq(str(d / "r.fq"), codes, pos, strand)
     codes, pos, strand = synthetic.simulate_pairs(g, 12, 100, 0.02, seed=53)
@@ -56,7 +58,19 @@ CASES = {
                                  "-2", str(d / "r2.fq")),
     "cli_topn": lambda d: _cli(d, "cli_topn.sam", "-q", str(d / "r.fq"),
                                "-n", "2"),
+    "cli_sharded": lambda d: _cli(d, "cli_sharded.sam", "-q",
+                                  str(d / "r.fq"), "--index-shards", "2",
+                                  "--skip-save"),
+    "index_verb": lambda d: (
+        "from nextgenmap_tpu_torch import cli\n"
+        f"cli.run(['index', '-r', {str(d / 'idx.fa')!r}, '-k', '11',\n"
+        "         '--index-shards', '2'])\n"
+        "import glob\n"
+        f"assert len(glob.glob({str(d / 'idx.fa')!r} + '.ngmt-shard*')) == 3\n"
+    ),
     "import_mapper": lambda d: "import nextgenmap_tpu_torch.models.mapper\n",
+    "import_index_shard": lambda d: (
+        "import nextgenmap_tpu_torch.parallel.index_shard\n"),
     "import_kernel_ab": lambda d: "import nextgenmap_tpu_torch.tools.kernel_ab\n",
     "probe_tool": lambda d: (
         "import sys\n"
@@ -72,7 +86,10 @@ CASES = {
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_entry_point_imports_no_reference(files, case):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one intra-op thread, as the one_torch_thread fixture gives the other
+    # torch test files: a thread per core in each fresh interpreter, beside
+    # the other xdist workers, made a case ~50x slower than alone
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", CASES[case](files) + CHECK], env=env, cwd=REPO,
         capture_output=True, text=True, timeout=300,
