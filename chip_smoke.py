@@ -17,8 +17,12 @@ the repository).  Phases, one line of output each:
   4. K1       SW score kernel == its plain version on the card (exact) at
               the main path's shapes (all 2048 slots, and 650 real ones with
               the rest at length 0), the long-read bands and a tie-heavy
-              periodic input, local and glocal (--end-to-end); device time,
-              call time, bound (integer operations), share and GCUPS
+              periodic input, local and glocal (--end-to-end), and at the
+              wide bands: [2048,100]xW264 (--corridor 225), [256,1500]xW264
+              and [128,3000]xW488 (long reads), W 512 (one warp, 32 x 16
+              cells) and W 520, 1024 and 2048 (a block of warps), each
+              local, glocal and tie-heavy; device time, call time, bound
+              (integer operations), share and GCUPS
   5. K3       the dynamic-gather probe's kernel == its plain version (exact)
               at the probe's default 256 x 1024, REP 32, along dim 0 and 1,
               with its bound (bytes) and torch.gather's time at REP 1; then
@@ -67,6 +71,16 @@ the repository).  Phases, one line of output each:
               truth-correct, some global positions past 2^31, K1 and K2
               launched by every shard's tail; seconds of each stage, the
               peak device memory and the process's peak host memory
+ 15. runtime  the CLI on phase 6's reads with -t 1, -t 2 and -t 4 (SAMs
+              equal to phase 6's, the same alignment and cell counters),
+              phase 7's pairs with -t 4 (SAM equal to phase 7's), --megabatch
+              4 -t 4, --bam (records, decoded by read_bam, equal to the SAM's
+              first 11 fields), an interrupted run (one batch, its sidecar
+              marked incomplete, a partial record appended) completed by
+              --resume, --profile (the trace names K1 and K2), and
+              --corridor 225 (W 264) on 1,024 reads equal to the CPU's SAM;
+              host-inclusive and streaming reads/s, GCUPS, the device step
+              (CUDA events) and phase seconds of each run
 
 A kernel's device time (device_ms, also "ms" in the summary) comes from
 torch.profiler (nextgenmap_tpu_torch/tools/timing.py): the device time of
@@ -83,8 +97,10 @@ moved (each input byte read once, each output byte written once) over
 cell of each real slot's qlen x W) over 132 SMs x 64 INT32 lanes x the
 card's maximum SM clock (nvidia-smi).  share = bound_ms / device_ms.
 
-After the last path phase the script fails if jax or any module of the JAX
-package (nextgenmap_tpu) was imported.
+Every CLI run must launch K1 and K2, score real candidates, count
+alignments (GCUPS > 0) and time its device steps.  After the last phase
+the script fails if jax or any module of the JAX package (nextgenmap_tpu)
+was imported.
 
 Any failure raises and ends the run without the final line.  The line
 before the last is a JSON summary of the kernels; the last line is
@@ -294,6 +310,14 @@ def phase_sw(rng, cfg, card):
         (32, 1000, 184, False, "glocal", None),
         (2048, 100, 48, False, "local", "ties"),
         (2048, 100, 48, False, "glocal", "ties"),
+    ] + [  # the wide bands: --corridor 225 (W 264), 1500 and 3000 bp
+           # reads, and the block kernel (W > 512)
+        (S, L, W, False, mode, real)
+        for S, L, W in ((2048, 100, 264), (256, 1500, 264), (128, 3000, 488),
+                        (64, 200, 512), (64, 200, 520), (32, 500, 1024),
+                        (16, 1000, 2048))
+        for mode, real in (("local", None), ("glocal", None),
+                           ("local", "ties"))
     ]
     err = 0
     rows = []
@@ -322,8 +346,11 @@ def phase_sw(rng, cfg, card):
         check(int(got.score.max()) > 0, f"K1 scored nothing at {shape}")
         err = max(err, max_abs_err(got, ref))
         cells = int(np.clip(lens, 0, L).astype(np.int64).sum()) * W
+        # the plain version runs a loop of torch calls per row: one timed
+        # call (after the one above) where L rows take seconds
+        long = L >= 1000
         t = {"device_ms": device_ms(k), "call_ms": call_ms(k, 20),
-             "plain_ms": call_ms(p, 3, warmup=1),
+             "plain_ms": call_ms(p, 1 if long else 3, warmup=0 if long else 1),
              "bound_ms": 1e3 * OPS_PER_CELL * cells / ops_per_s}
         t["gcups"] = cells / (t["device_ms"] * 1e-3) / 1e9
         rows.append(f"{shape}: " + timing_row(
@@ -410,15 +437,22 @@ def run_cli(path, argv):
     check(launches["gather_windows"] > 0,
           f"the {path} path never launched K2")
     check(stats.slots_scored > 0, f"K1 scored no real candidate ({path})")
+    check(stats.alignments_computed > 0 and stats.gcups() > 0,
+          f"the {path} run counted no alignment (GCUPS {stats.gcups()})")
+    check(len(stats.step_device_ms) > 0, f"no device step time ({path})")
     return stats, launches, wall
 
 
 def summary(stats, n_batches, launches, wall):
     phases = {k: round(v, 3) for k, v in sorted(stats.timing.items())}
-    return (f"{stats.reads_per_sec():.0f} reads/s after the index build; map "
-            f"{1e3 * stats.timing.get('map', 0.0) / n_batches:.1f} ms per "
-            f"batch; launches {launches}; real slots scored "
-            f"{stats.slots_scored}; phase s {phases}; wall {wall:.2f} s")
+    step = stats.step_device_ms
+    return (f"{stats.reads_per_sec():.0f} reads/s after the index build "
+            f"(streaming {stats.streaming_reads_per_sec():.0f}), "
+            f"{stats.gcups():.3f} GCUPS; device step (CUDA events) "
+            f"{sum(step) / max(1, n_batches):.1f} ms per batch over "
+            f"{len(step)} dispatch(es); launches {launches}; real slots "
+            f"scored {stats.slots_scored}; phase s {phases}; wall "
+            f"{wall:.2f} s")
 
 
 def phase_main_path(genome, workdir, device="cuda"):
@@ -807,6 +841,95 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
                          "correct": int(correct.sum()), "past_2_31": past}
 
 
+def phase_runtime(workdir, device="cuda"):
+    """The runtime of the CLI (-t, --megabatch, --bam, --resume, --profile,
+    a wide --corridor) on phases 6 and 7's inputs; returns {run: (kernel
+    launches, batches)}."""
+    from nextgenmap_tpu_torch import cli
+    from nextgenmap_tpu_torch.io.bam import read_bam
+
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+    single = sam_records(path("out.sam"))            # phase 6, -t 1
+    body = [ln.rstrip("\n").split("\t")[:11] for ln in single
+            if not ln.startswith("@")]
+    launches, rows = {}, []
+
+    def run(name, out, *flags, n_batches=N_BATCHES,
+            qry=("-q", path("reads.fq"))):
+        stats, counts, wall = run_cli(name, [
+            "map", "-r", path("ref.fa"), *qry, "-o", path(out), "--device",
+            device, "--no-progress", *flags])
+        launches[name] = (counts, n_batches)
+        rows.append(f"{name}: " + summary(stats, n_batches, counts, wall))
+        return stats
+
+    counters = set()
+    for t in ("1", "2", "4"):
+        st = run(f"single -t {t}", f"t{t}.sam", "-t", t)
+        check(sam_records(path(f"t{t}.sam")) == single,
+              f"-t {t}: SAM differs from phase 6's")
+        counters.add((st.reads_in, st.alignments_computed, st.cells_computed))
+    check(len(counters) == 1, f"the counters differ across -t: {counters}")
+    run("paired -t 4", "pe_t4.sam", "-t", "4", n_batches=N_BATCHES_NEW,
+        qry=("-1", path("r1.fq"), "-2", path("r2.fq")))
+    check(sam_records(path("pe_t4.sam")) == sam_records(path("pe.sam")),
+          "paired -t 4: SAM differs from phase 7's (-t 1)")
+    run("megabatch 4 -t 4", "mb.sam", "--megabatch", "4", "-t", "4")
+    check(sam_records(path("mb.sam")) == single,
+          "--megabatch 4 -t 4: SAM differs from -t 1")
+    run("bam -t 4", "out.bam", "--bam", "-t", "4")
+    check(read_bam(path("out.bam"))[2] == body,
+          "--bam records differ from the SAM's first 11 fields")
+
+    # an interrupted run: one batch, its checkpoint marked incomplete and a
+    # partial record after it; --resume maps the rest
+    run("resume: first batch", "res.sam", "--qry-count", str(BATCH),
+        n_batches=1)
+    prog = path("res.sam.ngmt-progress.json")
+    with open(prog) as f:
+        p = json.load(f)
+    check(p["reads_emitted"] == BATCH and p["complete"],
+          f"the first run's sidecar: {p}")
+    p["complete"] = False
+    with open(prog, "w") as f:
+        json.dump(p, f)
+    with open(path("res.sam"), "a") as f:
+        f.write("GARBAGE\ttruncated-in-flight-rec")
+    run("resume: the rest", "res.sam", "--resume",
+        n_batches=N_BATCHES - 1)
+    check(sam_records(path("res.sam")) == single,
+          "--resume: SAM differs from the uninterrupted run's")
+
+    prof = path("prof")
+    run("profile", "prof.sam", "--profile", prof, "--qry-count", str(BATCH),
+        n_batches=1)
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"--profile wrote {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        trace = f.read()
+    for kern in ("sw_score_kernel", "gather_windows_kernel"):
+        check(kern in trace, f"the trace names no {kern}")
+    rows[-1] += f"; trace {len(trace) / 2**20:.1f} MiB names K1 and K2"
+    os.remove(os.path.join(prof, traces[0]))
+
+    # W = 264: K1's warp kernel at 32 x 12 cells; the CPU runs its plain
+    # version on the same reads
+    n = min(1024, N_BATCHES * BATCH)
+    run("corridor 225", "w264.sam", "--corridor", "225", "--qry-count",
+        str(n), n_batches=1)
+    cli.run(["map", "-r", path("ref.fa"), "-q", path("reads.fq"), "-o",
+             path("w264_cpu.sam"), "--corridor", "225", "--qry-count",
+             str(n), "--device", "cpu", "--no-progress"])
+    w264 = sam_records(path("w264.sam"))
+    check(w264 == sam_records(path("w264_cpu.sam")),
+          "--corridor 225: the card's SAM differs from the CPU's")
+    check(sum(1 for ln in w264 if not ln.startswith("@")) == n,
+          "--corridor 225: wrong record count")
+    print("[15 runtime] every SAM equal to its -t 1 / CPU counterpart but "
+          "@PG; " + "; ".join(rows))
+    return launches
+
+
 def phase_cuda_equals_cpu(genome, codes, cfg, ref_path, device="cuda"):
     """codes: {path: reads}; one batch of each path is mapped on the card
     and on the CPU from the card's state (the sharded one from the same
@@ -916,8 +1039,9 @@ def main():
         sharded, k1_pool, k2_flat, (k1_sh_err, k2_sh_err) = phase_sharded_cli(
             genome, workdir, codes["single"], cfg, card)
         launches.update(sharded)
-    giga_counts, giga_batches, _ = phase_gigabase(card)
-    launches["gigabase-4"] = (giga_counts, giga_batches)
+        giga_counts, giga_batches, _ = phase_gigabase(card)
+        launches["gigabase-4"] = (giga_counts, giga_batches)
+        launches.update(phase_runtime(workdir))
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m == "nextgenmap_tpu"
                        or m.startswith("nextgenmap_tpu."))

@@ -20,6 +20,14 @@ tables and conversion-tolerant scoring), ``--slam-seq 1|2``.  Reads up to
 after the other on the device, which is how a genome of 2^31 bases or more
 maps; ``index`` builds the host index and the shard artifacts ahead of a
 mapping run.
+
+Runtime, with any of the above: ``-t N`` overlaps parsing, the device step
+and SAM formatting (a parse thread; an emitter thread at 2; N - 1 render
+threads at 3 or more), ``--megabatch K`` dispatches K batches before
+fetching them, ``--bam -o out.bam`` writes BAM, ``-q reads.bam`` reads it,
+``--resume`` continues an interrupted run from its
+``<out>.ngmt-progress.json`` sidecar, and ``--profile DIR`` writes a
+torch.profiler trace of the mapping loop into DIR.
 """
 
 from __future__ import annotations
@@ -33,9 +41,6 @@ from nextgenmap_tpu_torch.models.mapper import check_slice
 
 # (argument attribute, is set?, what) for flags the slice does not run yet
 _UNPORTED = (
-    ("bam", lambda v: v, "--bam output waits for ROADMAP A12"),
-    ("resume", lambda v: v, "--resume waits for ROADMAP A12"),
-    ("profile", lambda v: v, "--profile (a jax.profiler trace) has no port yet"),
     ("dist_nprocs", lambda v: v != 1, "--dist-nprocs waits for ROADMAP A14"),
     ("shard_across_hosts", lambda v: v,
      "--shard-across-hosts waits for ROADMAP A14"),
@@ -288,7 +293,8 @@ def run(argv: list[str]):
     return run_mapping(
         cfg, a.reference, a.qry, a.output,
         cmdline=shlex.join(["ngm-torch"] + argv), qry1=a.qry1, qry2=a.qry2,
-        paired_interleaved=a.paired, device=a.device,
+        paired_interleaved=a.paired, resume=a.resume,
+        profile_dir=a.profile, device=a.device,
     )
 
 

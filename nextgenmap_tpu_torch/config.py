@@ -2,15 +2,17 @@
 
 Copy of ``nextgenmap_tpu/config.py``: one frozen dataclass with the same
 fields and defaults, so the port's CLI maps NGM's flags onto the same
-configuration as ``ngm-tpu``.  Fields that select something the port does not
-run (the TPU SW backend, multi-host and sharding settings, megabatching) are
-kept so that a configuration converts field for field; ``check_slice``
+configuration as ``ngm-tpu``, and the same JSON (``to_json``: the resume
+sidecar's config hash).  Fields that select something the port does not run
+(the TPU SW backend, multi-host and several-device settings) are kept so
+that a configuration converts field for field; ``check_slice``
 (models/mapper.py) and the CLI refuse the unported values.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 
 
@@ -196,6 +198,13 @@ class NgmConfig:
 
     def replace(self, **kw) -> "NgmConfig":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "NgmConfig":
+        return cls(**json.loads(s))
 
     def validate(self) -> None:
         if not (10 <= self.kmer <= 14):

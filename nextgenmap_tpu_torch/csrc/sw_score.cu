@@ -56,6 +56,10 @@
 //     skips them; exact while |H| < 2^27, far beyond any read;
 //   - a group stops updating its best past its own qlen; a warp whose groups
 //     all have length 0 exits at once.
+//   - bands past 256 (--corridor 225 and more, reads of ~1500 bp and more):
+//     32 lanes x 12 or 16 cells up to W = 512, then a block of
+//     32 * ceil(W / 256) threads per alignment, 8 cells each (see
+//     sw_score_block_kernel), up to kMaxBand.
 // Exact int32 arithmetic throughout; no narrower type.
 
 #include <cstdint>
@@ -69,7 +73,12 @@ namespace {
 constexpr int kWarpsPerBlock = 1;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kMaxMats = 8;
-constexpr int kMaxBand = 256;
+// 1024 threads x kBlockNPL cells.  The band could go further, but past it
+// the plain traceback's [L, B, W] direction bytes exhaust the card first
+constexpr int kBlockNPL = 8;
+constexpr int kMaxBlockThreads = 1024;
+constexpr int kMaxBand = kMaxBlockThreads * kBlockNPL;
+constexpr int kMaxWarpBand = 512;      // one warp per alignment up to here
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPadCode = 5;            // staged N/pad: scores 0 against all
 constexpr int kNeg = -(1 << 29);       // E and F from outside the band
@@ -193,9 +202,9 @@ sw_score_kernel(const uint8_t* __restrict__ query,
     ngq[k] = valid ? -gq : -kInert;
     nck[k] = valid ? -(gr + (o - 1) * ge) : -kFar;
     oge[k] = o * ge;
-    // >= 0 exactly for the valid cells; an int per cell tested in the loop
-    // timed ~8% faster on an H100 than testing o < W there
-    kk[k] = valid ? 255 - o : -kFar;
+    // >= 0 exactly for the valid cells, whatever W; an int per cell tested
+    // in the loop timed ~8% faster on an H100 than testing o < W there
+    kk[k] = valid ? W - 1 - o : -kFar;
   }
   // the lane's first maximum (value, row, o); none while the value is 0
   int lb = 0, li = 0, lo = 0;
@@ -279,6 +288,223 @@ sw_score_kernel(const uint8_t* __restrict__ query,
   }
 }
 
+// One alignment per block, for W > kMaxWarpBand: blockDim.x = 32 * nw
+// threads, thread t owning cells o = 8t .. 8t+7; the cells past W are inert
+// as above.  A row crosses warps at two places, both through shared memory
+// behind ONE barrier per row (double-buffered, so a row's writes never race
+// the previous row's reads):
+//   - E: the last lane of warp w takes the E that lane 0 of warp w+1 hands
+//     down.  It scores its last cell without it first, and adds it after
+//     the barrier: max(a, b, E) = max(max(a, b), E), in both modes;
+//   - the exclusive F max-scan: each warp scans its lane totals with
+//     shuffles (the last lane's total still without that E) and publishes
+//     the warp total; after the barrier, warp w takes the max of the totals
+//     of warps < w, each raised by its last cell's missing term E + o*ge.
+// Per thread two [8] int arrays stay live (H, E), so that 1024 threads fit
+// the 64 registers a thread has at that size; the per-cell constants are
+// computed where used.  The argmax is the warp kernel's: each thread keeps
+// its first maximum, then a lexicographic reduction within each warp and
+// across the warps (largest value, smallest i, smallest o).
+template <bool LOCAL>
+__global__ void __launch_bounds__(kMaxBlockThreads)
+sw_score_block_kernel(const uint8_t* __restrict__ query,
+                      const int32_t* __restrict__ qlen,
+                      const uint8_t* __restrict__ corr,
+                      const int32_t* __restrict__ mats,
+                      const int32_t* __restrict__ msel,
+                      int L, int W, int n_mats, int gq, int gr, int ge,
+                      int stage_q, int32_t* __restrict__ out_score,
+                      int32_t* __restrict__ out_i,
+                      int32_t* __restrict__ out_o) {
+  constexpr int NPL = kBlockNPL;
+  __shared__ int32_t smat[kMaxMats * 64];
+  __shared__ int32_t wtot[2][32];     // warp totals of the F scan
+  __shared__ int32_t efirst[2][32];   // E handed down by each warp's lane 0
+  __shared__ int32_t red[3][32];      // the argmax across warps
+  extern __shared__ __align__(16) uint8_t stage[];
+
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nt >> 5;
+  const int slot = blockIdx.x;
+  const int len = qlen[slot];
+  const int rows = len < 0 ? 0 : (len > L ? L : len);
+  if (rows == 0) {   // block-uniform, before any barrier
+    if (tid == 0) {
+      out_score[slot] = 0;
+      out_i[slot] = 0;
+      out_o[slot] = 0;
+    }
+    return;
+  }
+  for (int t = tid; t < n_mats * 64; t += nt) {
+    const bool in = ((t >> 3) & 7) < kPadCode && (t & 7) < kPadCode;
+    smat[t] = in ? mats[t] : 0;
+  }
+  uint8_t* qs = stage;
+  uint8_t* rs = stage + stage_q;
+  const int nr = rows + nt * NPL - 1;
+  stage_codes(query + static_cast<long long>(slot) * L, rows, qs, rows, tid,
+              nt);
+  stage_codes(corr + static_cast<long long>(slot) * (L + W), min(nr, L + W),
+              rs, nr, tid, nt);
+  __syncthreads();
+
+  int m = n_mats == 1 ? 0 : msel[slot];
+  m = m < 0 ? 0 : (m >= n_mats ? n_mats - 1 : m);
+  const int32_t* sm = smat + m * 64;
+  const int o0 = tid * NPL;
+  const int last = len - 1;   // glocal: the one row that competes
+  int h[NPL], e[NPL];
+#pragma unroll
+  for (int k = 0; k < NPL; ++k) {
+    h[k] = 0;
+    e[k] = kNeg;
+  }
+  int lb = 0, li = 0, lo = 0;
+
+  for (int i = 0; i < rows; ++i) {
+    const int buf = i & 1;
+    const int32_t* srow = sm + 8 * qs[i];
+    const uint8_t* rr = rs + i + o0;
+    const int eo0 = __viaddmax_s32(h[0], o0 < W ? -gq : -kInert, e[0] - ge);
+    if (lane == 0) efirst[buf][warp] = eo0;
+    int feed = __shfl_down_sync(kFull, eo0, 1);
+    if (lane == 31) feed = kNeg;   // from the next warp, after the barrier
+    int run = kNeg;
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      const int o = o0 + k;
+      const int en = k + 1 < NPL
+          ? __viaddmax_s32(h[k + 1], o + 1 < W ? -gq : -kInert, e[k + 1] - ge)
+          : feed;
+      const int s = srow[rr[k]];
+      const int ht = LOCAL ? __viaddmax_s32_relu(h[k], s, en)
+                           : __viaddmax_s32(h[k], s, en);
+      run = __viaddmax_s32(ht, o * ge, run);
+      h[k] = ht;   // H before F, until the scan below
+      e[k] = en;
+    }
+    int v = run;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, v, d);
+      if (lane >= d) v = max(v, t);
+    }
+    int excl = __shfl_up_sync(kFull, v, 1);
+    if (lane == 0) excl = kNeg;
+    if (lane == 31) wtot[buf][warp] = v;
+    __syncthreads();
+
+    if (lane == 31) {
+      const int f = warp + 1 < nw ? efirst[buf][warp + 1] : kNeg;
+      h[NPL - 1] = max(h[NPL - 1], f);
+      e[NPL - 1] = f;
+    }
+    // the max over the totals of warps < this one
+    int c = kNeg;
+    if (lane < nw) {
+      const int f = lane + 1 < nw ? efirst[buf][lane + 1] : kNeg;
+      c = max(wtot[buf][lane], f + ((lane + 1) * 32 * NPL - 1) * ge);
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, c, d);
+      if (lane >= d) c = max(c, t);
+    }
+    const int carry = __shfl_sync(kFull, c, (warp + 31) & 31);
+    if (warp > 0) excl = max(excl, carry);
+
+    int cm = excl;
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      const int o = o0 + k;
+      const int ht = h[k];
+      h[k] = __viaddmax_s32(cm, o < W ? -(gr + (o - 1) * ge) : -kFar, ht);
+      cm = __viaddmax_s32(ht, o * ge, cm);
+    }
+    if (LOCAL || i == last) {
+#pragma unroll
+      for (int k = 0; k < NPL; ++k) {   // strict >: ties keep the earlier
+        if (o0 + k < W && h[k] > lb) {
+          lb = h[k];
+          lo = o0 + k;
+          li = i;
+        }
+      }
+    }
+  }
+
+  int bv = lb, bi = li, bo = lo;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const int ov = __shfl_xor_sync(kFull, bv, d);
+    const int oi = __shfl_xor_sync(kFull, bi, d);
+    const int oo = __shfl_xor_sync(kFull, bo, d);
+    if (ov > bv || (ov == bv && (oi < bi || (oi == bi && oo < bo)))) {
+      bv = ov;
+      bi = oi;
+      bo = oo;
+    }
+  }
+  if (lane == 0) {
+    red[0][warp] = bv;
+    red[1][warp] = bi;
+    red[2][warp] = bo;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    bv = lane < nw ? red[0][lane] : 0;
+    bi = lane < nw ? red[1][lane] : 0;
+    bo = lane < nw ? red[2][lane] : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const int ov = __shfl_xor_sync(kFull, bv, d);
+      const int oi = __shfl_xor_sync(kFull, bi, d);
+      const int oo = __shfl_xor_sync(kFull, bo, d);
+      if (ov > bv || (ov == bv && (oi < bi || (oi == bi && oo < bo)))) {
+        bv = ov;
+        bi = oi;
+        bo = oo;
+      }
+    }
+    if (lane == 0) {
+      out_score[slot] = bv;
+      out_i[slot] = bi;
+      out_o[slot] = bo;
+    }
+  }
+}
+
+template <bool LOCAL>
+cudaError_t launch_block(const void* query, const void* qlen, const void* corr,
+                         const void* mats, const void* msel, int S, int L,
+                         int W, int n_mats, int gq, int gr, int ge,
+                         void* score, void* end_i, void* end_o,
+                         cudaStream_t stream) {
+  const int threads = 32 * ((W + 32 * kBlockNPL - 1) / (32 * kBlockNPL));
+  const int stage_q = (L + 3) & ~3;
+  const long long smem =
+      stage_q + ((static_cast<long long>(L) + threads * kBlockNPL + 3) & ~3);
+  if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
+  auto kern = sw_score_block_kernel<LOCAL>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<S, threads, static_cast<size_t>(smem), stream>>>(
+      static_cast<const uint8_t*>(query), static_cast<const int32_t*>(qlen),
+      static_cast<const uint8_t*>(corr), static_cast<const int32_t*>(mats),
+      static_cast<const int32_t*>(msel), L, W, n_mats, gq, gr, ge, stage_q,
+      static_cast<int32_t*>(score), static_cast<int32_t*>(end_i),
+      static_cast<int32_t*>(end_o));
+  return cudaGetLastError();
+}
+
 template <int LPA, int NPL, bool LOCAL>
 cudaError_t launch(const void* query, const void* qlen, const void* corr,
                    const void* mats, const void* msel, int S, int L, int W,
@@ -317,7 +543,7 @@ cudaError_t launch_band(const void* query, const void* qlen, const void* corr,
   // (lanes per alignment, cells per lane): at W = 48, 16 lanes x 3 cells
   // timed faster than 8 x 6, and 4 x 12 slower, in a side-by-side build on
   // the card (a shorter in-lane chain against one shuffle more); a warp per
-  // alignment past W = 128
+  // alignment from W = 129 to 512, a block of warps past it
   if (W <= 16) NGM_SW_LAUNCH(8, 2);
   if (W <= 32) NGM_SW_LAUNCH(8, 4);
   if (W <= 48) NGM_SW_LAUNCH(16, 3);
@@ -325,8 +551,12 @@ cudaError_t launch_band(const void* query, const void* qlen, const void* corr,
   if (W <= 96) NGM_SW_LAUNCH(16, 6);
   if (W <= 128) NGM_SW_LAUNCH(16, 8);
   if (W <= 192) NGM_SW_LAUNCH(32, 6);
-  NGM_SW_LAUNCH(32, 8);
+  if (W <= 256) NGM_SW_LAUNCH(32, 8);
+  if (W <= 384) NGM_SW_LAUNCH(32, 12);
+  if (W <= kMaxWarpBand) NGM_SW_LAUNCH(32, 16);
 #undef NGM_SW_LAUNCH
+  return launch_block<LOCAL>(query, qlen, corr, mats, msel, S, L, W, n_mats,
+                             gq, gr, ge, score, end_i, end_o, st);
 }
 
 }  // namespace
@@ -334,7 +564,7 @@ cudaError_t launch_band(const void* query, const void* qlen, const void* corr,
 // query [S, L] uint8, qlen [S] int32, corr [S, L + W] uint8,
 // mats [n_mats, 8, 8] int32, msel [S] int32 (clamped to [0, n_mats)); local
 // != 0 for local mode, 0 for glocal; outputs three [S] int32.
-// 1 <= W <= 256, 1 <= n_mats <= 8.
+// 1 <= W <= kMaxBand (8192), 1 <= n_mats <= 8.
 extern "C" int ngm_sw_score(const void* query, const void* qlen,
                             const void* corr, const void* mats,
                             const void* msel, int S, int L, int W, int n_mats,

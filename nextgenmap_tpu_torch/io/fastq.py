@@ -2,7 +2,7 @@
 
 Copy of ``nextgenmap_tpu/io/fastq.py``: struct-of-arrays batches with static
 shapes (`[B, L]` uint8 code matrices plus lengths), which is what the device
-step consumes.  BAM input is not carried over: it raises (ROADMAP A12).
+step consumes.  BAM input is decoded by the port's ``io/bam.py`` reader.
 
 Mates are interleaved within a batch: for paired input, batch rows 2i / 2i+1
 are mate1 / mate2 of pair i.  This keeps pair resolution a pure reshape on
@@ -94,15 +94,20 @@ def _is_bam_input(path: str) -> bool:
         return False
 
 
-def _refuse_bam(path: str) -> None:
-    if _is_bam_input(path):
-        raise NotImplementedError(
-            f"{path}: BAM input is not in the PyTorch port yet (ROADMAP A12)")
+def _iter_bam_reads(path: str) -> Iterator[ReadRecord]:
+    """BAM input: decode the records with io/bam.py's reader and reuse the
+    SAM-record read extraction."""
+    from nextgenmap_tpu_torch.io.bam import read_bam
+
+    _, _, recs = read_bam(path)
+    yield from _iter_sam_reads("\t".join(r).encode() for r in recs)
 
 
 def iter_reads(path: str) -> Iterator[ReadRecord]:
     """Stream FASTQ, FASTA, SAM, or BAM records (auto-detected, gz ok)."""
-    _refuse_bam(path)
+    if _is_bam_input(path):
+        yield from _iter_bam_reads(path)
+        return
     with _open_text(path) as f:
         first = f.peek(1)[:1] if hasattr(f, "peek") else b""
         if not first:
@@ -260,8 +265,8 @@ def batch_single(
     path: str, batch_size: int, read_len: int, skip: int = 0, count: int = 0
 ) -> Iterator[ReadBatch]:
     """Single-end: pack reads into [B, L] batches (last one padded)."""
-    _refuse_bam(path)
-    if native.lib() is not None and not _is_sam_input(path):
+    if (native.lib() is not None and not _is_sam_input(path)
+            and not _is_bam_input(path)):
         yield from _batch_single_native(path, batch_size, read_len, skip, count)
         return
     buf: list[ReadRecord] = []
@@ -301,8 +306,8 @@ def _iter_reads_native(path: str, read_len: int) -> Iterator[ReadRecord]:
 
 
 def _reads_for_pairing(path: str, read_len: int) -> Iterator[ReadRecord]:
-    _refuse_bam(path)
-    if native.lib() is not None and not _is_sam_input(path):
+    if (native.lib() is not None and not _is_sam_input(path)
+            and not _is_bam_input(path)):
         return _iter_reads_native(path, read_len)
     return iter_reads(path)
 

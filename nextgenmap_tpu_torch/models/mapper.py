@@ -1069,7 +1069,6 @@ def check_slice(cfg: NgmConfig) -> None:
     """Raise NotImplementedError for a configuration outside the ported
     slice, naming the ROADMAP item that will bring it."""
     unported = [
-        (cfg.megabatch > 1, "--megabatch waits for ROADMAP A12"),
         (cfg.devices != 1, "--devices/-g other than one device waits for "
                            "ROADMAP A13b"),
     ]
@@ -1266,6 +1265,14 @@ class Mapper:
             *self._common_args(codes, lengths), cfg.min_insert_size,
             cfg.max_insert_size, cfg.pair_score_cutoff, **self.statics(),
         )
+
+    def supports_megabatch(self) -> bool:
+        """--megabatch applies where the reference's does: unsharded, and on
+        the sequential shard loop without --bs-mapping (the runner also
+        leaves -n > 1 out).  The port dispatches a group's batches back to
+        back with map_batch / map_batch_paired, so the results are the
+        per-batch ones."""
+        return self.shards is None or not self.cfg.bs_mapping
 
     def topn(self) -> int:
         """Ranks per read of map_batch_topn: -n, at most max_cmrs."""

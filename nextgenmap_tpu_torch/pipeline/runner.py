@@ -1,20 +1,36 @@
 """Mapping run: reads -> device step -> SAM, in input order.
 
-Port of ``nextgenmap_tpu/pipeline/runner.py`` on one device
-(``run_mapping`` with its single-end, top-n and paired branches and its
-long-read batch size, ``load_reference`` with its bisulfite and
-index-shard branches, ``emit_single``, ``emit_single_topn``).  The loop is
-serial: parse a batch, map it on the device, fetch its result to the host,
-format and write its records.  Records are formatted by the port's native
-formatter (``native/hostio.py::format_sam``) when g++ could build it, else by
-the Python SamWriter; both give the same bytes.
+Port of ``nextgenmap_tpu/pipeline/runner.py`` on one device: ``run_mapping``
+with its single-end, top-n and paired branches, its long-read batch size,
+its software pipeline (``_prefetch``, ``_Emitter``, ``_PoolEmitter``),
+``--megabatch``, the progress sidecar and ``--resume``, ``--bam`` and
+``--profile``; ``load_reference`` with its bisulfite and index-shard
+branches; ``emit_single`` and ``emit_single_topn``.  Records are formatted by
+the port's native formatter (``native/hostio.py::format_sam``) when g++ could
+build it, else by the Python SamWriter; both give the same bytes.
+
+The pipeline is the reference's: a parse thread stays max(2, -t) batches
+ahead, and batch i+1 is dispatched to the device before batch i is emitted.
+Each dispatch ends with a ``Fetch``: one non-blocking copy of every result
+field into pinned host memory behind one CUDA event, which the emitter waits
+on before it reads the fields.  -t 1 emits on the main thread, -t 2 on a
+thread of its own, -t >= 3 renders in -t - 1 workers and writes from one
+committer thread in submit order.  The output bytes are the same for every
+-t and --megabatch.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import io
+import json
 import os
+import queue
+import threading
 import time
-from dataclasses import dataclass
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -23,6 +39,7 @@ from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.device import resolve_device
 from nextgenmap_tpu_torch.index.genome import Genome
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
+from nextgenmap_tpu_torch.io.bam import BamTextWriter
 from nextgenmap_tpu_torch.io.encode import revcomp_codes
 from nextgenmap_tpu_torch.io.fastq import (
     ReadBatch, batch_paired, batch_single, peek_read_len,
@@ -47,6 +64,16 @@ class RunStats(MappingStats):
     # score-pass slots that held a real candidate, summed over batches
     # (see slots_scored())
     slots_scored: int = 0
+    # device time of each dispatch (a batch, or a --megabatch group) in ms,
+    # from CUDA events around its step; empty on the CPU
+    step_device_ms: list = field(default_factory=list)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+
+    def add_time(self, phase: str, dt: float) -> None:
+        # phases arrive from the main, parse, emitter and committer threads
+        with self._lock:
+            super().add_time(phase, dt)
 
 
 def load_reference(cfg: NgmConfig, ref_path: str):
@@ -95,11 +122,6 @@ def load_reference(cfg: NgmConfig, ref_path: str):
         log.info("large genome: building k-mer index on host (one-time)")
         return genome, host_index(canonical=genome.codes.shape[0] < 2**30)
     return genome, None
-
-
-def to_host(res: MapResult) -> MapResult:
-    """The batch's result as numpy arrays (one device-to-host fetch)."""
-    return MapResult(*(t.cpu().numpy() for t in res))
 
 
 def _count(stats: MappingStats, res: MapResult, n: int) -> np.ndarray:
@@ -345,29 +367,310 @@ def long_read_batch_size(cfg: NgmConfig, read_len: int) -> int:
     return cfg.batch_size
 
 
-def _sync(device: torch.device) -> None:
+class Fetch:
+    """The results of one dispatch (one batch, or a --megabatch group) on
+    their way to the host.  On a card: one non-blocking copy of every result
+    field into pinned host tensors, then one CUDA event recorded after the
+    copies; the step is bracketed by two timing events.  On the CPU: the
+    fields themselves.  `wait` is all the emitter calls: it waits on the
+    event (no CUDA work of its own) and reads the pinned memory."""
+
+    def __init__(self, results: list, device: torch.device,
+                 start: torch.cuda.Event | None):
+        self.start = start
+        self.end = self.done = None
+        if device.type != "cuda":
+            self.host = results
+            return
+        stream = torch.cuda.current_stream(device)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.end.record(stream)
+        self.host = [_map_fields(_pinned_copy, r) for r in results]
+        self.done = torch.cuda.Event()
+        self.done.record(stream)
+
+    def wait(self, stats: MappingStats) -> list:
+        """The results as numpy arrays, once their copies have landed (the
+        wait is phase `fetch`)."""
+        t0 = time.perf_counter()
+        if self.done is not None:
+            self.done.synchronize()
+        stats.add_time("fetch", time.perf_counter() - t0)
+        return [_map_fields(lambda t: t.numpy(), r) for r in self.host]
+
+    def device_ms(self) -> float | None:
+        """The step's device time (after `wait`), None on the CPU."""
+        return None if self.end is None else self.start.elapsed_time(self.end)
+
+
+def _map_fields(fn, res):
+    """fn over the fields of a MapResult, or of each rank of a top-n tuple."""
+    if isinstance(res, MapResult):
+        return MapResult(*map(fn, res))
+    return tuple(_map_fields(fn, r) for r in res)
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    if t.device.type == "cpu":
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
+
+
+def _mark(device: torch.device) -> torch.cuda.Event | None:
+    """A timing event recorded before a dispatch (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _prefetch(it, depth: int, stats: MappingStats):
+    """Run the batch generator on a parse thread, `depth` batches ahead (the
+    reference's ReadProvider analog).  The wait for each batch is phase
+    `parse_wait`; an error in the thread is raised here, and closing this
+    generator ends the thread."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        try:
+            for item in it:
+                if not put(item):
+                    return
+            put(done)
+        except BaseException as e:   # raised in the consumer
+            put(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            item = q.get()
+            stats.add_time("parse_wait", time.perf_counter() - t0)
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()
+
+
+class _Emitter:
+    """The emission stage (the reference's writer-thread analog): -t 1
+    emits each item on the main thread one dispatch late, so that the next
+    dispatch is on the device while this one is formatted; -t 2 emits on a
+    thread of its own from a bounded FIFO queue.  Either way items are
+    emitted in submit order, and an error in the thread is raised by the
+    next submit or by close."""
+
+    def __init__(self, emit, threaded: bool):
+        self.emit, self.threaded = emit, threaded
+        self.pending = None
+        self.err: BaseException | None = None
+        self.stopped = False
+        if threaded:
+            self.q: queue.Queue = queue.Queue(maxsize=3)
+            self.t = threading.Thread(target=self._run, daemon=True)
+            self.t.start()
+
+    def _run(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            if self.err is not None or self.stopped:
+                continue   # drain, so that a producer blocked in put() goes on
+            try:
+                self.emit(item)
+            except BaseException as e:
+                self.err = e
+
+    def submit(self, item) -> None:
+        if not self.threaded:
+            prev, self.pending = self.pending, item
+            if prev is not None:
+                self.emit(prev)
+            return
+        if self.err is not None:
+            raise self.err
+        self.q.put(item)
+
+    def close(self) -> None:
+        """Emit what is left; raise the thread's error."""
+        if not self.threaded:
+            prev, self.pending = self.pending, None
+            if prev is not None:
+                self.emit(prev)
+            return
+        if self.t.is_alive():
+            self.q.put(None)
+            self.t.join()
+        if self.err is not None:
+            raise self.err
+
+    def abort(self) -> None:
+        """End the thread without emitting what is queued (after an error
+        elsewhere; nothing to do after close)."""
+        self.pending = None
+        if self.threaded and self.t.is_alive():
+            self.stopped = True
+            self.q.put(None)
+            self.t.join()
+
+
+class _PoolEmitter:
+    """-t >= 3: `workers` threads render items concurrently (the native
+    formatter releases the GIL), and one committer thread applies `commit`
+    strictly in submit order, so the output bytes and the progress
+    bookkeeping are the serial emitter's.  An error in a worker or in the
+    committer is raised by the next submit or by close."""
+
+    def __init__(self, workers: int, render, commit):
+        self.pool = ThreadPoolExecutor(max_workers=workers)
+        self.q: queue.Queue = queue.Queue(maxsize=workers + 2)
+        self.render, self.commit = render, commit
+        self.err: BaseException | None = None
+        self.stopped = False
+        self.t = threading.Thread(target=self._run, daemon=True)
+        self.t.start()
+
+    def _run(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            fut, args = item
+            if self.err is not None or self.stopped:
+                fut.cancel()
+                continue
+            try:
+                self.commit(fut.result(), args)
+            except BaseException as e:
+                self.err = e
+
+    def submit(self, item) -> None:
+        if self.err is not None:
+            raise self.err
+        self.q.put((self.pool.submit(self.render, item), item))
+
+    def close(self) -> None:
+        if self.t.is_alive():
+            self.q.put(None)
+            self.t.join()
+        self.pool.shutdown(wait=True)
+        if self.err is not None:
+            raise self.err
+
+    def abort(self) -> None:
+        if self.t.is_alive():
+            self.stopped = True
+            self.q.put(None)
+            self.t.join()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def config_sha(cfg: NgmConfig) -> str:
+    """The progress sidecar's hash of the mapping semantics, the
+    reference's: the input window (which resume adjusts) and the flags that
+    change no record byte are left out."""
+    return hashlib.sha1(cfg.replace(
+        qry_start=0, qry_count=0, no_merge=False, no_progress=False,
+        threads=1, skip_save=False,
+    ).to_json().encode()).hexdigest()
+
+
+def _resume_point(progress_path: str | None, out_path: str, sha: str,
+                  bam: bool) -> int:
+    """Reads an interrupted run of the same configuration already emitted
+    into `out_path` (0: start fresh); drops the partial records past its
+    checkpoint.  BGZF cannot be appended record-wise, so --bam never
+    resumes."""
+    if progress_path is None or bam or not os.path.exists(progress_path):
+        return 0
+    try:
+        with open(progress_path) as f:
+            p = json.load(f)
+    except (OSError, ValueError):
+        return 0
+    if (p.get("config_sha") != sha or p.get("complete")
+            or not os.path.exists(out_path)):
+        return 0
+    prior = int(p.get("reads_emitted", 0))
+    ob = p.get("out_bytes")
+    if prior > 0 and ob is not None and os.path.getsize(out_path) > ob:
+        with open(out_path, "r+") as f:
+            f.truncate(ob)
+        log.info("truncated %s to checkpointed %d bytes", out_path, ob)
+    log.info("resuming after %d already-emitted reads", prior)
+    return prior
+
+
+def runs_megabatched(cfg: NgmConfig, mode: str, mapper: Mapper) -> bool:
+    """The one predicate for --megabatch K: K batches per dispatch (and K per
+    item of the emitter pool) on the single-end and paired paths of a mapper
+    that supports it; top-n never."""
+    return cfg.megabatch > 1 and mode != "topn" and mapper.supports_megabatch()
+
+
+def _profiler(device: torch.device):
+    """torch.profiler over the mapping loop: CPU activity, and the card's
+    kernels on CUDA; no shapes, stacks or memory (a trace of a few 4096-read
+    batches is tens of MiB even so)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts, record_shapes=False, with_stack=False,
+                   profile_memory=False)
 
 
 def run_mapping(cfg: NgmConfig, ref_path: str, qry: str | None = None,
                 out_path: str | None = None, cmdline: str = "", *,
                 qry1: str | None = None, qry2: str | None = None,
-                paired_interleaved: bool = False,
+                paired_interleaved: bool = False, resume: bool = False,
+                profile_dir: str = "",
                 device: torch.device | str) -> RunStats:
-    """Map reads against `ref_path` into SAM: single-end `qry` (with -n > 1
-    up to topn ranked records per read), or pairs from `qry1`/`qry2` or
-    from the interleaved `qry` with paired_interleaved.
+    """Map reads against `ref_path` into SAM (BAM with cfg.bam): single-end
+    `qry` (with -n > 1 up to topn ranked records per read), or pairs from
+    `qry1`/`qry2` or from the interleaved `qry` with paired_interleaved.
+
+    After every emitted batch the sidecar `<out>.ngmt-progress.json`
+    records the reads emitted, the output's byte count and the config hash
+    (not for `-o -`); with resume=True a matching incomplete sidecar skips
+    the reads already emitted, truncates the output to its checkpoint and
+    appends.  profile_dir: write a torch.profiler trace of the mapping loop
+    there (Perfetto reads it).
 
     Phase seconds land in stats.timing: reference (native formatter and
-    genome load), index (device index build), parse, map (device step),
-    fetch, format, write.
-    stats.start_time is set after the index build, so reads_per_sec() is
-    host-inclusive mapping throughput.
+    genome load), index (device index build), then from the main thread
+    parse_wait, dispatch (the device step's host side, and the fetch's
+    start) and emit_wait, and from the emitter fetch (the wait for the
+    copies), format and write.  stats.step_device_ms holds each dispatch's
+    device time (CUDA events).  stats.start_time is set after the index
+    build, so reads_per_sec() is host-inclusive mapping throughput.
     """
     cfg.validate()
     device = resolve_device(device)
     paired = qry1 is not None or paired_interleaved
+    if cfg.bam and out_path in (None, "-"):
+        raise ValueError("--bam requires -o <file>")
     skip, count = max(0, cfg.qry_start), max(0, cfg.qry_count)
     if paired and (skip % 2 or count % 2):
         raise ValueError("paired qry-start/qry-count must be even")
@@ -382,57 +685,182 @@ def run_mapping(cfg: NgmConfig, ref_path: str, qry: str | None = None,
         log.info("long reads (%d bp): batch_size %d -> %d",
                  read_len, cfg.batch_size, batch)
         cfg = cfg.replace(batch_size=batch)
+
+    progress_path = (None if out_path in (None, "-")
+                     else f"{out_path}.ngmt-progress.json")
+    sha = config_sha(cfg)
+    prior = (_resume_point(progress_path, out_path, sha, cfg.bam)
+             if resume else 0)
+    skip += prior
+    if count:
+        count = max(0, count - prior)
+    if paired and (skip % 2 or count % 2):
+        raise ValueError("paired qry-start/qry-count/resume must be even")
     t1 = time.perf_counter()
     stats.add_time("reference", t1 - t0)
     mapper = Mapper(cfg, genome, read_len, index, device=device)
-    _sync(mapper.device)
+    if mapper.device.type == "cuda":
+        torch.cuda.synchronize(mapper.device)
     stats.add_time("index", time.perf_counter() - t1)
-    stats.start_time = time.time()
 
     if paired:
-        mode, step, emit = "paired", mapper.map_batch_paired, emit_paired
+        mode, step = "paired", mapper.map_batch_paired
         batches = batch_paired(qry1 or qry, qry2, cfg.batch_size, read_len,
                                skip, count)
     else:
         batches = batch_single(qry, cfg.batch_size, read_len, skip, count)
-        if cfg.topn > 1:
-            mode, step = "topn", mapper.map_batch_topn
+        mode, step = (("topn", mapper.map_batch_topn) if cfg.topn > 1
+                      else ("single", mapper.map_batch))
+    group = cfg.megabatch if runs_megabatched(cfg, mode, mapper) else 1
 
-            def emit(writer, batch, host, stats):
-                emit_single_topn(writer, batch, host, stats, cfg.strata,
-                                 read_len)
-        else:
-            mode, step, emit = "single", mapper.map_batch, emit_single
-
-    out = open_output(out_path)
-    try:
-        writer = SamWriter(genome, cfg, out, cmdline)
+    if cfg.bam:
+        out = BamTextWriter(out_path)
+    elif prior > 0:
+        out = open(out_path, "a", buffering=1 << 20)
+    else:
+        out = open_output(out_path)
+    writer = SamWriter(genome, cfg, out, cmdline)
+    if prior == 0:
         writer.write_header()
-        batches = iter(batches)
-        while True:
+
+    def save_progress(complete: bool = False) -> None:
+        if progress_path is None:
+            return
+        # the output is buffered: it must reach the OS before the sidecar
+        # counts its records as emitted, or a kill between the two loses
+        # records that resume would then skip
+        flush = getattr(out, "flush", None)
+        if flush is not None:
+            flush()
+        try:   # the checkpoint's byte offset: resume truncates back to it
+            out_bytes = out.tell()
+        except (OSError, ValueError, AttributeError):
+            out_bytes = None
+        doc = {"reads_emitted": prior + stats.reads_in, "config_sha": sha,
+               "out_bytes": out_bytes, "complete": complete}
+        tmp = progress_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, progress_path)
+
+    cells_per_aln = read_len * mapper.band   # for the GCUPS counter
+
+    def after_emit(batch: ReadBatch, res: MapResult) -> None:
+        """A batch's bookkeeping once its records are written (`res`: the
+        first rank's result with -n > 1)."""
+        nc = np.asarray(res.n_candidates)
+        n_aln = int(nc.sum(dtype=np.int64))
+        stats.alignments_computed += n_aln
+        stats.cells_computed += (n_aln + batch.n) * cells_per_aln
+        stats.slots_scored += slots_scored(mode, nc, batch.batch_size)
+        stats.mark_batch()
+        save_progress()
+        if not cfg.no_progress:
+            log.info("processed %d reads (%.0f reads/s, %.2f GCUPS)",
+                     stats.reads_in, stats.reads_per_sec(), stats.gcups())
+
+    def emit_one(w: SamWriter, batch: ReadBatch, res, st: MappingStats):
+        if mode == "paired":
+            emit_paired(w, batch, res, st)
+        elif mode == "topn":
+            emit_single_topn(w, batch, res, st, cfg.strata, read_len)
+        else:
+            emit_single(w, batch, res, st)
+
+    def first(res) -> MapResult:
+        return res[0] if mode == "topn" else res
+
+    def record_device(fetch: Fetch) -> None:
+        ms = fetch.device_ms()
+        if ms is not None:
+            stats.step_device_ms.append(ms)
+
+    def emit_item(item) -> None:
+        """-t 1 and 2: wait for an item's copies, then write its batches."""
+        group_batches, fetch = item
+        results = fetch.wait(stats)
+        record_device(fetch)
+        for b, res in zip(group_batches, results):
+            emit_one(writer, b, res, stats)
+            after_emit(b, first(res))
+
+    def render_item(item):
+        """-t >= 3, in a pool worker: each batch's text, rendered by a
+        writer clone into a buffer, with counters of its own."""
+        group_batches, fetch = item
+        st = MappingStats()
+        results = fetch.wait(st)
+        rendered = []
+        for b, res in zip(group_batches, results):
+            shim = dataclasses.replace(writer, out=io.StringIO())
+            dst = MappingStats()
+            emit_one(shim, b, res, dst)
+            rendered.append((shim.out.getvalue(), dst, first(res)))
+        return rendered, st
+
+    def commit_item(rendered, item) -> None:
+        """-t >= 3, in the committer: write, fold the counters back, and
+        keep the bookkeeping, in submit order."""
+        group_batches, fetch = item
+        per_batch, st = rendered
+        stats.merge_counters(st)
+        record_device(fetch)
+        for b, (text, dst, res) in zip(group_batches, per_batch):
             t0 = time.perf_counter()
-            batch = next(batches, None)
+            out.write(text)
+            stats.add_time("write", time.perf_counter() - t0)
+            stats.merge_counters(dst)
+            after_emit(b, res)
+
+    if cfg.threads >= 3:
+        log.info("parallel emitter pool (%d render workers)", cfg.threads - 1)
+        emitter = _PoolEmitter(cfg.threads - 1, render_item, commit_item)
+    else:
+        if cfg.threads == 2:
+            log.info("emitter thread enabled (-t 2)")
+        emitter = _Emitter(emit_item, threaded=cfg.threads == 2)
+    if group > 1:
+        log.info("megabatch: %d batches per dispatch", group)
+
+    prof = _profiler(mapper.device) if profile_dir else None
+    stats.start_time = time.time()
+    parsed = _prefetch(batches, max(2, cfg.threads), stats)
+    try:
+        if prof is not None:
+            prof.start()
+        pending, results, start = [], [], None
+        for batch in parsed:
+            t0 = time.perf_counter()
+            if not pending:
+                start = _mark(mapper.device)
+            pending.append(batch)
+            results.append(step(batch.codes, batch.lengths))
+            if len(pending) < group:
+                stats.add_time("dispatch", time.perf_counter() - t0)
+                continue
+            item = (pending, Fetch(results, mapper.device, start))
+            pending, results = [], []
             t1 = time.perf_counter()
-            stats.add_time("parse", t1 - t0)
-            if batch is None:
-                break
-            res = step(batch.codes, batch.lengths)
-            _sync(mapper.device)
-            t2 = time.perf_counter()
-            stats.add_time("map", t2 - t1)
-            host = tuple(map(to_host, res)) if mode == "topn" else to_host(res)
-            stats.add_time("fetch", time.perf_counter() - t2)
-            first = host[0] if mode == "topn" else host
-            stats.slots_scored += slots_scored(mode, first.n_candidates,
-                                               batch.batch_size)
-            emit(writer, batch, host, stats)
-            stats.mark_batch()
-            if not cfg.no_progress:
-                log.info("processed %d reads (%.0f reads/s)",
-                         stats.reads_in, stats.reads_per_sec())
+            stats.add_time("dispatch", t1 - t0)
+            emitter.submit(item)
+            stats.add_time("emit_wait", time.perf_counter() - t1)
+        if pending:   # the last, short group: no padding, no static shapes
+            emitter.submit((pending, Fetch(results, mapper.device, start)))
+        emitter.close()
+        save_progress(complete=True)
     finally:
-        if out_path not in (None, "-"):
+        emitter.abort()
+        parsed.close()
+        if prof is not None:
+            prof.stop()
+        if cfg.bam or out_path not in (None, "-"):
             out.close()
+    if prof is not None:
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir,
+                            f"ngm-torch.{os.getpid()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s", path)
     log.info("phase seconds: %s",
              {k: round(v, 3) for k, v in sorted(stats.timing.items())})
     log.info("done: %s", stats.summary())

@@ -36,6 +36,20 @@ class MappingStats:
     def add_time(self, phase: str, dt: float) -> None:
         self.timing[phase] = self.timing.get(phase, 0.0) + dt
 
+    # counter fields a parallel render worker accumulates locally and the
+    # ordered committer folds back (pipeline/runner.py::_PoolEmitter)
+    _COUNTERS = (
+        "reads_in", "reads_mapped", "reads_unmapped", "reads_multimapped",
+        "pairs_proper", "pairs_broken", "kmer_fanout_overflow",
+        "cmr_overflow", "alignments_computed", "cells_computed",
+    )
+
+    def merge_counters(self, other: "MappingStats") -> None:
+        for f in self._COUNTERS:
+            setattr(self, f, getattr(self, f) + getattr(other, f))
+        for k, v in other.timing.items():
+            self.add_time(k, v)
+
     def mark_batch(self) -> None:
         if self.first_batch_time == 0.0:
             self.first_batch_time = time.time()

@@ -104,9 +104,8 @@ def test_device_cuda_raises_without_card(workload, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume"], ["--devices", "2"], ["--dist-nprocs", "2"],
+    ["--devices", "2"], ["--dist-nprocs", "2"],
     ["--shard-across-hosts"], ["--index-shards", "2", "--devices", "2"],
-    ["--megabatch", "2"], ["--bam"],
 ])
 def test_out_of_slice_flags_raise(workload, flags):
     d = workload

@@ -106,7 +106,7 @@ def test_sharded_sam_equals_jax_and_unsharded(shard_dir, tmp_path, paired,
 @pytest.mark.parametrize("flags", [
     ["--index-shards", "2", "--devices", "2"],
     ["--index-shards", "2", "--shard-across-hosts"],
-    ["--index-shards", "2", "--megabatch", "2"],
+    ["--index-shards", "2", "--dist-nprocs", "2"],
 ])
 def test_rejected_combos(shard_dir, tmp_path, flags):
     with pytest.raises(NotImplementedError):

@@ -4,7 +4,8 @@ The port keeps its own copy of every host module it uses (config, CLI
 parser, score matrices, genome, host k-mer index, FASTA/FASTQ/SAM read
 input, native host IO).  Each is held against its original on the same
 inputs:
-  * NgmConfig: the same fields, defaults and derived sizes;
+  * NgmConfig: the same fields, defaults and derived sizes, and the same
+    to_json (the resume sidecar's hash); MappingStats.merge_counters;
   * build_parser + config_from_args: the same NgmConfig for every argv;
   * score_matrix / matrices_are_simple for every scoring mode;
   * Genome from one FASTA (two chromosomes, lowercase, N) and its cache;
@@ -14,7 +15,7 @@ inputs:
     hostio.shard_csr), raw and canonical, and the .ngmt-shards artifacts:
     each package loads what the other saves, under the same paths;
   * ReadBatch from batch_single / batch_paired on plain and gzipped FASTQ,
-    FASTA reads and SAM input, native and Python parsers;
+    FASTA reads, SAM and BAM input, native and Python parsers;
   * format_sam bytes of the native writer, and the port's Python emit path
     against its native one.
 Tolerance: exact equality (integers, bytes, strings).
@@ -97,6 +98,38 @@ def test_parser_maps_the_same_config(extra):
     ref = jcli.config_from_args(jparser.parse_args(argv))
     port = tcli.config_from_args(tparser.parse_args(argv))
     assert dataclasses.asdict(ref) == dataclasses.asdict(port)
+
+
+def test_config_json_round_trip():
+    """to_json is the reference's byte for byte (the resume sidecar hashes
+    it), and from_json inverts it."""
+    for cfg in (dict(), dict(kmer=11, corridor=40, rg_id="x", bam=True),
+                dict(megabatch=4, threads=3, sensitivity=0.3)):
+        ref, port = jconfig.NgmConfig(**cfg), tconfig.NgmConfig(**cfg)
+        assert port.to_json() == ref.to_json()
+        assert tconfig.NgmConfig.from_json(ref.to_json()) == port
+
+
+def test_stats_merge_counters():
+    """merge_counters folds the same fields and phase times as the
+    reference's."""
+    from nextgenmap_tpu.utils import stats as jstats
+    from nextgenmap_tpu_torch.utils import stats as tstats
+
+    assert tstats.MappingStats._COUNTERS == jstats.MappingStats._COUNTERS
+    out = []
+    for mod in (jstats, tstats):
+        a, b = mod.MappingStats(), mod.MappingStats()
+        for i, f in enumerate(mod.MappingStats._COUNTERS):
+            setattr(a, f, i + 1)
+            setattr(b, f, 10 * i + 3)
+        a.add_time("write", 0.5)
+        b.add_time("write", 0.25)
+        b.add_time("format", 1.0)
+        a.merge_counters(b)
+        out.append(({f: getattr(a, f) for f in mod.MappingStats._COUNTERS},
+                    a.timing))
+    assert out[0] == out[1]
 
 
 def test_parser_maps_the_same_config_paired_files():
@@ -328,11 +361,26 @@ def test_read_batches(reads, monkeypatch, native, name):
         list(tfastq.batch_paired(path, path, 10, 120)))
 
 
-def test_bam_input_refused(tmp_path):
-    p = tmp_path / "r.bam"
-    p.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="BAM"):
-        list(tfastq.batch_single(str(p), 8, 100))
+@pytest.mark.parametrize("native", [True, False])
+def test_bam_input_batches(reads, tmp_path, monkeypatch, native):
+    """BAM read input: the reads fixture's SAM written as BAM batches alike
+    in both packages (reverse records restored, the secondary one
+    skipped)."""
+    from nextgenmap_tpu.io import bam as jbam
+
+    if not native:
+        monkeypatch.setattr(jnative, "lib", lambda: None)
+        monkeypatch.setattr(hostio, "lib", lambda: None)
+    path = str(tmp_path / "r.bam")
+    w = jbam.BamTextWriter(path)
+    w.write((reads / "r.sam").read_text())
+    w.close()
+    assert jfastq.peek_read_len(path) == tfastq.peek_read_len(path)
+    _assert_batches_equal(list(jfastq.batch_single(path, 16, 130)),
+                          list(tfastq.batch_single(path, 16, 130)))
+    _assert_batches_equal(list(jfastq.batch_paired(path, None, 8, 100, 2, 30)),
+                          list(tfastq.batch_paired(path, None, 8, 100, 2,
+                                                   30)))
 
 
 def _format_args(rng, n, lmax, mo, genome):

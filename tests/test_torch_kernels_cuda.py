@@ -146,9 +146,12 @@ def test_sw_kernel_glocal_equals_plain(dev, S, L, W, general):
     assert torch.equal(got.end_i[hit], args[1][hit] - 1)   # the last row
 
 
-# every band width on each side of a template boundary of csrc/sw_score.cu
+# every band width on each side of a template boundary of csrc/sw_score.cu,
+# the warp kernel's wide templates (32 x 12, 32 x 16), the block kernel's
+# warp counts (W > 512: 8 cells a thread, 256 a warp) and its limit
 BANDS = [1, 2, 15, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64, 65, 95, 96, 97,
-         127, 128, 129, 191, 192, 193, 255, 256]
+         127, 128, 129, 191, 192, 193, 255, 256, 257, 264, 383, 384, 385,
+         488, 511, 512, 513, 520, 767, 768, 769, 1024, 2048, 8192]
 
 
 def _sw_case(rng, S, L, W, n_mats):
@@ -200,7 +203,7 @@ def test_sw_kernel_bands(dev, W, mode):
 
 
 @pytest.mark.parametrize("mode", ["local", "glocal"])
-@pytest.mark.parametrize("W", [48, 56, 184])
+@pytest.mark.parametrize("W", [48, 56, 184, 264, 488, 520, 1024, 2048])
 def test_sw_kernel_ties(dev, W, mode):
     """Periodic ACAC... queries over periodic corridors: many cells share
     the maximum, so the first one in (i, o) order must win."""
@@ -216,6 +219,48 @@ def test_sw_kernel_ties(dev, W, mode):
     got = _check_sw(dev, q, lens, r, mats, np.zeros(S, np.int32),
                     (20, 20, 20), W, mode)
     assert int(got.score.max()) > 0
+
+
+@pytest.mark.parametrize("mode", ["local", "glocal"])
+@pytest.mark.parametrize("S,L,W", [
+    (2048, 100, 264), (256, 1500, 264), (128, 3000, 488), (64, 100, 512),
+    (64, 300, 520), (32, 500, 1024), (16, 1000, 2048),
+])
+def test_sw_kernel_wide_bands(dev, S, L, W, mode):
+    """The wide bands a run reaches: --corridor 225 (W 264), reads of 1500
+    and 3000 bp, and the block kernel's widths, on reads that sit in the
+    corridor with SNPs and a short indel."""
+    rng = np.random.default_rng(S + L + W)
+    q = rng.integers(0, 4, (S, L)).astype(np.uint8)
+    r = rng.integers(0, 4, (S, L + W)).astype(np.uint8)
+    for i in range(S):
+        o = int(rng.integers(0, W))
+        seg = q[i].copy()
+        snp = rng.random(L) < 0.03
+        seg[snp] = (seg[snp] + 1) % 4
+        cut = int(rng.integers(L // 4, 3 * L // 4))
+        seg = np.concatenate([seg[:cut], seg[cut + 2:]])[:L + W - o]
+        r[i, o:o + seg.shape[0]] = seg
+    lens = np.full(S, L, np.int32)
+    lens[:3] = [0, 1, L]
+    lens[3::9] = rng.integers(2, L, len(lens[3::9]))
+    mats = np.stack([score_matrix(NgmConfig(), 0)])
+    got = _check_sw(dev, q, lens, r, mats, np.zeros(S, np.int32),
+                    (20, 20, 20), W, mode)
+    assert int(got.score[0]) == 0
+    assert int((got.score > 0).sum()) >= S // 2
+
+
+def test_sw_kernel_refuses_past_max_band(dev):
+    from nextgenmap_tpu_torch.ops.sw_kernel import MAX_BAND
+
+    S, L, W = 4, 20, MAX_BAND + 1
+    args = [torch.zeros((S, L), dtype=torch.uint8, device=dev),
+            torch.full((S,), L, dtype=torch.int32, device=dev),
+            torch.zeros((S, L + W), dtype=torch.uint8, device=dev),
+            torch.from_numpy(score_matrix(NgmConfig(), 0)).to(dev)]
+    with pytest.raises(ValueError, match="band"):
+        sw_score(*args, 20, 20, 20, band=W)
 
 
 @pytest.mark.parametrize("mode", ["local", "glocal"])

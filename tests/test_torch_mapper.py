@@ -127,8 +127,9 @@ def test_mapper_builds_same_state_and_results_as_jax(repeats):
 
 @pytest.mark.parametrize("change", [
     dict(bs_mapping=True, index_shards=2, devices=2),
-    dict(end_to_end=True, megabatch=2), dict(devices=0),
-    dict(index_shards=2, megabatch=2), dict(devices=2), dict(megabatch=2),
+    dict(end_to_end=True, devices=2), dict(devices=0),
+    dict(index_shards=2, devices=3), dict(devices=2),
+    dict(megabatch=2, devices=4),     # --megabatch maps; the devices do not
 ])
 def test_out_of_slice_config_raises(change):
     class _G:

@@ -4,7 +4,8 @@ entry points.
 Each case runs in a fresh interpreter and asserts afterwards that no key of
 sys.modules is ``nextgenmap_tpu`` or starts with ``nextgenmap_tpu.``, and
 that ``jax`` is absent: the CLI on the CPU (single-end, ``-1/-2`` and
-``-n 2``, ``--index-shards 2``), the ``index --index-shards 2`` verb,
+``-n 2``, ``--index-shards 2``; ``--bam -t 4 --megabatch 2``, then BAM
+input with ``--resume --profile``), the ``index --index-shards 2`` verb,
 importing the mapper and the index-shard module, the K3 probe tool (which
 exits 2 without a card), and importing the kernel timing tools.
 """
@@ -61,6 +62,14 @@ CASES = {
     "cli_sharded": lambda d: _cli(d, "cli_sharded.sam", "-q",
                                   str(d / "r.fq"), "--index-shards", "2",
                                   "--skip-save"),
+    "cli_runtime": lambda d: (
+        _cli(d, "cli_runtime.bam", "-q", str(d / "r.fq"), "--bam", "-t", "4",
+             "--megabatch", "2", "--batch-size", "8")
+        + _cli(d, "cli_runtime.sam", "-q", str(d / "cli_runtime.bam"),
+               "--resume", "--profile", str(d / "prof"), "--batch-size",
+               "24")
+        + "import nextgenmap_tpu_torch.io.bam\n"
+    ),
     "index_verb": lambda d: (
         "from nextgenmap_tpu_torch import cli\n"
         f"cli.run(['index', '-r', {str(d / 'idx.fa')!r}, '-k', '11',\n"
@@ -96,6 +105,8 @@ def test_entry_point_imports_no_reference(files, case):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     if case.startswith("cli"):
+        assert (case != "cli_runtime"
+                or os.listdir(files / "prof")[0].endswith(".pt.trace.json"))
         with open(files / f"{case}.sam") as f:
             body = [ln for ln in f if not ln.startswith("@")]
         assert len(body) >= 24
