@@ -81,6 +81,21 @@ the repository).  Phases, one line of output each:
               --corridor 225 (W 264) on 1,024 reads equal to the CPU's SAM;
               host-inclusive and streaming reads/s, GCUPS, the device step
               (CUDA events) and phase seconds of each run
+ 16. parallel eight CLI processes on the card at once (this script with
+              --child: the CLI, run_cli's checks, one JSON line): two of
+              --dist-nprocs 2 on phase 6's reads (merged SAM equal to
+              phase 6's), two with --bam (records equal to phase 6's SAM),
+              two on phase 7's pairs (equal to phase 7's), and two of
+              --shard-across-hosts --index-shards 2 --dist-nprocs 2 joined
+              by a gloo group on localhost (SAM equal to phase 13's
+              sharded-2, each holding only its shard); K1 once and K2 twice
+              a batch in each, and each one's peak device memory against
+              phase 13's sharded-2 run.  Then the dp step on the slots
+              [cuda:0, cuda:0] (run_mapping; the slices one after the
+              other, K1 once a slice) on phases 6 and 7's
+              inputs, SAM equal to theirs, reads/s and the device step
+              beside phase 15's -t 1; --devices 2 through the CLI where the
+              machine has two cards, else a line saying it has one
 
 A kernel's device time (device_ms, also "ms" in the summary) comes from
 torch.profiler (nextgenmap_tpu_torch/tools/timing.py): the device time of
@@ -423,13 +438,19 @@ def run_cli(path, argv):
     """The port's CLI on argv; (stats, {kernel: launches in this run}, wall s).
     The launch counts are set to 0 just before the run and read after."""
     from nextgenmap_tpu_torch import cli
+
+    return run_counted(path, lambda: cli.run(argv))
+
+
+def run_counted(path, run):
+    """run() -> RunStats of one mapping run, with run_cli's checks."""
     from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
     from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 
     sw_score.launches = 0
     gather_genome_windows.launches = 0
     t0 = time.perf_counter()
-    stats = cli.run(argv)
+    stats = run()
     wall = time.perf_counter() - t0
     launches = {"sw_score": sw_score.launches,
                 "gather_windows": gather_genome_windows.launches}
@@ -627,6 +648,12 @@ def sam_records(path):
         return [ln for ln in f if not ln.startswith("@PG")]
 
 
+def sam_body(records):
+    """The first 11 fields of each record (what read_bam gives back)."""
+    return [ln.rstrip("\n").split("\t")[:11] for ln in records
+            if not ln.startswith("@")]
+
+
 class Capture:
     """Within `with`, record the arguments of every call the mapper makes
     to the K1 and K2 wrappers (which it still calls), to rerun a kernel on
@@ -667,7 +694,7 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
     from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
 
     ref = os.path.join(workdir, "ref.fa")
-    launches, rows = {}, []
+    launches, rows, memory = {}, [], {}
     for name, kind, flags in SHARDED:
         if kind == "paired":
             qry = ["-1", os.path.join(workdir, "r1.fq"),
@@ -677,9 +704,13 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
             qry = ["-q", os.path.join(workdir, "reads.fq")]
             base, n_batches = "out.sam", N_BATCHES
         out = os.path.join(workdir, f"{name}.sam")
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         stats, counts, wall = run_cli(name, [
             "map", "-r", ref, *qry, "-o", out, *flags, "--device", device,
             "--no-progress"])
+        # this process's device memory before the run, and its peak in it
+        memory[name] = (resident, torch.cuda.max_memory_allocated())
         check(sam_records(out) == sam_records(os.path.join(workdir, base)),
               f"{name}: SAM differs from the unsharded run's")
         S = int(flags[-1])
@@ -739,7 +770,7 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
                                       f", plain call {k1['plain_ms']:.3f} ms")
           + f"; K2 exact at {k2['shape']}: " + timing_row(
               k2["device_ms"], k2["call_ms"], k2["bound_ms"]))
-    return launches, k1, k2, (err, err2)
+    return launches, k1, k2, (err, err2), memory
 
 
 def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
@@ -850,9 +881,8 @@ def phase_runtime(workdir, device="cuda"):
 
     path = lambda name: os.path.join(workdir, name)  # noqa: E731
     single = sam_records(path("out.sam"))            # phase 6, -t 1
-    body = [ln.rstrip("\n").split("\t")[:11] for ln in single
-            if not ln.startswith("@")]
-    launches, rows = {}, []
+    body = sam_body(single)
+    launches, rows, runs = {}, [], {}
 
     def run(name, out, *flags, n_batches=N_BATCHES,
             qry=("-q", path("reads.fq"))):
@@ -861,6 +891,9 @@ def phase_runtime(workdir, device="cuda"):
             device, "--no-progress", *flags])
         launches[name] = (counts, n_batches)
         rows.append(f"{name}: " + summary(stats, n_batches, counts, wall))
+        # reads/s as the run ended, and the device step a batch
+        runs[name] = (stats.reads_per_sec(),
+                      sum(stats.step_device_ms) / n_batches)
         return stats
 
     counters = set()
@@ -927,6 +960,169 @@ def phase_runtime(workdir, device="cuda"):
           "--corridor 225: wrong record count")
     print("[15 runtime] every SAM equal to its -t 1 / CPU counterpart but "
           "@PG; " + "; ".join(rows))
+    return launches, runs["single -t 1"]
+
+
+CHILD_TIMEOUT_S = 420    # one phase-16 process, set-up included
+
+
+def child(argv):
+    """One process of phase 16's multi-process runs: the CLI on argv with
+    run_cli's checks, then one JSON line of what the parent reads."""
+    import torch
+
+    stats, launches, wall = run_cli("child", argv)
+    print(json.dumps({
+        "launches": launches, "reads_in": stats.reads_in,
+        "reads_per_sec": stats.reads_per_sec(), "gcups": stats.gcups(),
+        "step_ms": stats.step_device_ms, "timing": stats.timing,
+        "wall": wall, "peak_bytes": torch.cuda.max_memory_allocated()}))
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(runs):
+    """{name: [argv of each process]}: every process of every run started
+    at once (python3 chip_smoke.py --child argv), then waited for; {name:
+    [(its JSON line, its stderr)]}.  A process that fails or outlives its
+    timeout fails the phase, and every process still running is killed."""
+    procs = {name: [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for argv in argvs] for name, argvs in runs.items()}
+    out = {}
+    try:
+        deadline = time.time() + CHILD_TIMEOUT_S
+        for name, ps in procs.items():
+            out[name] = []
+            for i, p in enumerate(ps):
+                so, se = p.communicate(
+                    timeout=max(1.0, deadline - time.time()))
+                check(p.returncode == 0, f"{name}: process {i} exited "
+                      f"{p.returncode}: {se[-3000:]}")
+                out[name].append((json.loads(so.strip().splitlines()[-1]),
+                                  se))
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return out
+
+
+def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
+    """Phase 16: --dist-nprocs 2 (a) and --shard-across-hosts with 2
+    processes (c), each a pair of CLI processes on the card, and the dp step
+    on two slots of the card (b); returns {run: (kernel launches,
+    batches)}."""
+    import torch
+
+    from nextgenmap_tpu_torch import cli
+    from nextgenmap_tpu_torch.io.bam import read_bam
+    from nextgenmap_tpu_torch.pipeline.runner import run_mapping
+
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+    se = ("-q", path("reads.fq"))
+    pe = ("-1", path("r1.fq"), "-2", path("r2.fq"))
+
+    def argv(qry, out, i, *flags):
+        return ["map", "-r", path("ref.fa"), *qry, "-o", path(out),
+                "--device", device, "--no-progress", "--dist-nprocs", "2",
+                "--dist-procid", str(i), *flags]
+
+    port = free_port()
+    runs = {
+        "dist single": [argv(se, "dist.sam", i) for i in range(2)],
+        "dist bam": [argv(se, "dist.bam", i, "--bam") for i in range(2)],
+        "dist paired": [argv(pe, "dist_pe.sam", i) for i in range(2)],
+        "shard-across-hosts": [argv(
+            se, "xh.sam", i, "--shard-across-hosts", "--index-shards", "2",
+            "--dist-coordinator", f"127.0.0.1:{port}") for i in range(2)],
+    }
+    t0 = time.perf_counter()
+    done = run_children(runs)
+    wall = time.perf_counter() - t0
+    single, paired = sam_records(path("out.sam")), sam_records(path("pe.sam"))
+    check(sam_records(path("dist.sam")) == single,
+          "--dist-nprocs 2: the merged SAM differs from phase 6's")
+    check(read_bam(path("dist.bam"))[2] == sam_body(single),
+          "--dist-nprocs 2 --bam: records differ from phase 6's SAM")
+    check(sam_records(path("dist_pe.sam")) == paired,
+          "--dist-nprocs 2 paired: the merged SAM differs from phase 7's")
+    check(sam_records(path("xh.sam")) == sam_records(path("sharded-2.sam")),
+          "--shard-across-hosts: SAM differs from phase 13's sharded-2")
+    launches, rows = {}, []
+    for name, procs in done.items():
+        parts = []
+        for i, (r, err) in enumerate(procs):
+            n_b = -(-r["reads_in"] // BATCH)     # batches it mapped
+            per = r["launches"]
+            check(per == {"sw_score": n_b, "gather_windows": 2 * n_b},
+                  f"{name} process {i}: launches {per} for {n_b} batches")
+            launches[f"{name} p{i}"] = (per, n_b)
+            if name == "shard-across-hosts":
+                check(f"this host holds shards [{i}]" in err,
+                      f"process {i} does not hold only shard {i}")
+            merge = r["timing"].get("merge")
+            parts.append(
+                f"p{i} {r['reads_in']} reads in {n_b} batch(es), "
+                f"{r['reads_per_sec']:.0f} reads/s, {r['gcups']:.3f} GCUPS, "
+                f"device step {sum(r['step_ms']) / n_b:.1f} ms per batch, "
+                f"peak {r['peak_bytes'] / 2**30:.3f} GiB, wall "
+                f"{r['wall']:.2f} s"
+                + (f", merge {merge:.3f} s" if merge is not None else ""))
+        rows.append(f"{name}: " + "; ".join(parts))
+    resident, peak = sharded_memory["sharded-2"]
+    print(f"[16 parallel a+c] 8 CLI processes on {device} at once "
+          f"({wall:.1f} s): --dist-nprocs 2 SAM, --bam and paired equal to "
+          f"phases 6 and 7, --shard-across-hosts --index-shards 2 equal to "
+          f"phase 13's sharded-2 (whose one process held {resident / 2**30:.3f}"
+          f" GiB before it and peaked at {peak / 2**30:.3f} GiB); "
+          + "; ".join(rows))
+
+    # b: the dp step on two slots of the one card, in this process
+    cfg = cli.parse(map_argv(workdir, device))[2]
+    slots = [torch.device(device, 0)] * 2
+    rows = []
+    for name, qry, out, want, n_b in (
+            ("dp-2 single", dict(qry=path("reads.fq")), "dp.sam", single,
+             N_BATCHES),
+            ("dp-2 paired", dict(qry1=path("r1.fq"), qry2=path("r2.fq")),
+             "dp_pe.sam", paired, N_BATCHES_NEW)):
+        stats, counts, wall = run_counted(name, lambda: run_mapping(
+            cfg, path("ref.fa"), out_path=path(out), device=slots, **qry))
+        check(sam_records(path(out)) == want,
+              f"{name}: SAM differs from the one-slot run's")
+        check(counts == {"sw_score": 2 * n_b, "gather_windows": 4 * n_b},
+              f"{name}: launches {counts}, expected 2 K1 and 4 K2 a batch")
+        launches[name] = (counts, n_b)
+        rows.append(f"{name}: " + summary(stats, n_b, counts, wall))
+    rows.append(f"phase 15's -t 1 on one slot: {t1[0]:.0f} reads/s, device "
+                f"step {t1[1]:.1f} ms per batch")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        stats, counts, wall = run_cli("devices 2", [
+            "map", "-r", path("ref.fa"), *se, "-o", path("dev2.sam"),
+            "--device", device, "--no-progress", "--devices", "2"])
+        check(sam_records(path("dev2.sam")) == single,
+              "--devices 2: SAM differs from phase 6's")
+        launches["devices 2"] = (counts, N_BATCHES)
+        rows.append("--devices 2 (CLI): "
+                    + summary(stats, N_BATCHES, counts, wall))
+    else:
+        rows.append(f"--devices 2 through the CLI not run: this machine has "
+                    f"{n_cards} CUDA card (it needs 2)")
+    print("[16 parallel b] the dp step on the slots [cuda:0, cuda:0], the "
+          "slices one after the other, SAM equal to phases 6 and 7: "
+          + "; ".join(rows))
     return launches
 
 
@@ -1008,6 +1204,8 @@ def main():
               "(nextgenmap_tpu_torch/ is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
+    if sys.argv[1:2] == ["--child"]:
+        return child(sys.argv[2:])
     card = phase_card()
     import torch
 
@@ -1036,12 +1234,15 @@ def main():
             launches[path] = (counts, N_BATCHES if path == "single"
                               else N_BATCHES_NEW)
         phase_cuda_equals_cpu(genome, codes, cfg, ref_path)
-        sharded, k1_pool, k2_flat, (k1_sh_err, k2_sh_err) = phase_sharded_cli(
-            genome, workdir, codes["single"], cfg, card)
+        (sharded, k1_pool, k2_flat, (k1_sh_err, k2_sh_err),
+         sharded_memory) = phase_sharded_cli(genome, workdir, codes["single"],
+                                             cfg, card)
         launches.update(sharded)
         giga_counts, giga_batches, _ = phase_gigabase(card)
         launches["gigabase-4"] = (giga_counts, giga_batches)
-        launches.update(phase_runtime(workdir))
+        runtime, t1 = phase_runtime(workdir)
+        launches.update(runtime)
+        launches.update(phase_parallel(workdir, t1, sharded_memory))
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m == "nextgenmap_tpu"
                        or m.startswith("nextgenmap_tpu."))

@@ -3,8 +3,7 @@
 ``build_parser`` and ``config_from_args`` are the port's copy of
 ``nextgenmap_tpu/cli.py``'s: the same `map` and `index` flags, mapped onto
 the same ``NgmConfig``, plus ``--device`` (default ``cuda``; ``cpu`` runs
-the plain PyTorch path).  Flags outside the ported slice raise
-NotImplementedError naming the ROADMAP item that will bring them.
+the plain PyTorch path).
 
     python -m nextgenmap_tpu_torch.cli map -r ref.fa -q reads.fq -o out.sam
     python -m nextgenmap_tpu_torch.cli map -r ref.fa -1 r1.fq -2 r2.fq -o pe.sam
@@ -28,6 +27,24 @@ fetching them, ``--bam -o out.bam`` writes BAM, ``-q reads.bam`` reads it,
 ``--resume`` continues an interrupted run from its
 ``<out>.ngmt-progress.json`` sidecar, and ``--profile DIR`` writes a
 torch.profiler trace of the mapping loop into DIR.
+
+Several devices and processes, with any of the above: ``--devices N`` (or
+``-g 0,1,..``; 0 = every card) splits each batch over N cards (with
+``--device cpu``, N slots of the CPU), and with ``--index-shards S`` forms
+the [N / S, S] grid of reads by shards.  ``--dist-nprocs N --dist-procid
+I`` runs process I of N: it maps every N-th batch into
+``<out>.partI-of-N``, and process 0 merges the parts into ``-o`` (not with
+``--no-merge``).  ``--shard-across-hosts --index-shards S --dist-nprocs N
+--dist-coordinator HOST:PORT`` splits the index over the N processes
+instead: each holds S / N shards, every process maps every batch, and
+process 0 writes the output.
+
+    python -m nextgenmap_tpu_torch.cli map -r ref.fa -q r.fq -o o.sam --devices 2
+    python -m nextgenmap_tpu_torch.cli map -r ref.fa -q r.fq -o o.sam \
+        --dist-nprocs 2 --dist-procid 0      # and --dist-procid 1 beside it
+    python -m nextgenmap_tpu_torch.cli map -r ref.fa -q r.fq -o o.sam \
+        --shard-across-hosts --index-shards 2 --dist-nprocs 2 \
+        --dist-procid 0 --dist-coordinator 127.0.0.1:29500   # and procid 1
 """
 
 from __future__ import annotations
@@ -37,14 +54,6 @@ import shlex
 import sys
 
 from nextgenmap_tpu_torch.config import NgmConfig
-from nextgenmap_tpu_torch.models.mapper import check_slice
-
-# (argument attribute, is set?, what) for flags the slice does not run yet
-_UNPORTED = (
-    ("dist_nprocs", lambda v: v != 1, "--dist-nprocs waits for ROADMAP A14"),
-    ("shard_across_hosts", lambda v: v,
-     "--shard-across-hosts waits for ROADMAP A14"),
-)
 
 
 def build_parser() -> tuple[argparse.ArgumentParser, argparse.ArgumentParser]:
@@ -215,8 +224,8 @@ def config_from_args(a) -> NgmConfig:
 
 def parse(argv: list[str]):
     """(argv with the verb, parsed arguments, NgmConfig or None) of a
-    command line: `map` (the verb may be omitted) or `index` (config None);
-    raises NotImplementedError for flags outside the ported slice."""
+    command line: `map` (the verb may be omitted) or `index` (config
+    None)."""
     argv = list(argv)
     if argv and argv[0] not in ("map", "index", "-h", "--help"):
         argv = ["map"] + argv
@@ -226,18 +235,13 @@ def parse(argv: list[str]):
         return argv, a, None
     if a.verb != "map":
         parser.error("the verb is `map` or `index`")
-    for attr, is_set, what in _UNPORTED:
-        if is_set(getattr(a, attr)):
-            raise NotImplementedError(f"not in the PyTorch port yet: {what}")
     if not (a.qry or a.qry1):
         parser.error("need -q or -1/-2 query reads")
     if a.paired and a.qry1:
         parser.error("-p (interleaved) conflicts with -1/-2")
     if bool(a.qry1) != bool(a.qry2):
         parser.error("-1 and -2 must be given together")
-    cfg = config_from_args(a)
-    check_slice(cfg)
-    return argv, a, cfg
+    return argv, a, config_from_args(a)
 
 
 def build_indexes(a) -> None:

@@ -3,10 +3,8 @@
 Copy of ``nextgenmap_tpu/config.py``: one frozen dataclass with the same
 fields and defaults, so the port's CLI maps NGM's flags onto the same
 configuration as ``ngm-tpu``, and the same JSON (``to_json``: the resume
-sidecar's config hash).  Fields that select something the port does not run
-(the TPU SW backend, multi-host and several-device settings) are kept so
-that a configuration converts field for field; ``check_slice``
-(models/mapper.py) and the CLI refuse the unported values.
+sidecar's config hash).  The TPU SW backend field is kept so that a
+configuration converts field for field; the port has one SW kernel.
 """
 
 from __future__ import annotations
@@ -118,7 +116,7 @@ class NgmConfig:
     # deterministically by process 0 (parallel/distributed.py).
     dist_nprocs: int = 1          # total processes (hosts) in the job
     dist_procid: int = 0          # this process's id [0, nprocs)
-    dist_coordinator: str = ""    # host:port for jax.distributed (only needed
+    dist_coordinator: str = ""    # host:port of the torch.distributed group (only needed
                                   # for cross-host collectives, e.g. a
                                   # pod-sharded index); empty = no global runtime
     no_merge: bool = False        # leave per-host .part files unmerged
@@ -130,7 +128,7 @@ class NgmConfig:
                                   # coordinates on a single chip)
     shard_hosts: bool = False     # --shard-across-hosts: the index shards live
                                   # on DIFFERENT hosts (global ("dp","ish")
-                                  # mesh via jax.distributed); each process
+                                  # grid over torch.distributed); each process
                                   # builds/loads ONLY its own shard(s) and
                                   # all processes map every batch together,
                                   # merging per-shard hits with cross-host
@@ -237,7 +235,7 @@ class NgmConfig:
             if self.dist_nprocs > 1 and not self.dist_coordinator:
                 raise ValueError(
                     "--shard-across-hosts with multiple processes needs "
-                    "--dist-coordinator for the global jax.distributed runtime"
+                    "--dist-coordinator for the torch.distributed group"
                 )
             if self.topn > 1:
                 raise ValueError(

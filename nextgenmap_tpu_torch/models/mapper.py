@@ -31,6 +31,12 @@ output equals the reference's steps exactly (tests/test_torch_mapper.py,
 tests/test_torch_paired.py, tests/test_torch_topn.py,
 tests/test_torch_glocal.py, tests/test_torch_bisulfite.py,
 tests/test_torch_long_reads.py).
+
+The Mapper also runs the reference's several-device steps: the dp step
+(each batch in contiguous slices, one per device slot) and the ("dp",
+"ish") step of index shards on a grid of slots, within one process or
+across processes (tests/test_torch_dp.py,
+tests/test_torch_cross_host_shard.py).
 """
 
 from __future__ import annotations
@@ -42,7 +48,6 @@ import torch
 
 from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.convert import MapperState, state_from_numpy
-from nextgenmap_tpu_torch.device import resolve_device
 from nextgenmap_tpu_torch.index.device_build import (
     build_index_device, concat_tables,
 )
@@ -57,9 +62,14 @@ from nextgenmap_tpu_torch.ops.kmer import (
 from nextgenmap_tpu_torch.ops.scoring import matrices_are_simple, score_matrix
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align
-from nextgenmap_tpu_torch.parallel.index_shard import (
-    ShardedIndex, ShardTables, merge_sharded_results, merge_sharded_topn,
+from nextgenmap_tpu_torch.parallel.dp import (
+    SliceRunner, concat_results, split_batch,
 )
+from nextgenmap_tpu_torch.parallel.index_shard import (
+    ShardedIndex, ShardExchange, ShardTables, grid_layout, log_local_shards,
+    merge_sharded_results, merge_sharded_topn,
+)
+from nextgenmap_tpu_torch.parallel.mesh import device_slots, distinct
 
 I32 = torch.int32
 
@@ -1065,16 +1075,23 @@ def score_matrices(cfg: NgmConfig) -> np.ndarray:
     return np.stack([score_matrix(cfg, 0), score_matrix(cfg, 1)])
 
 
-def check_slice(cfg: NgmConfig) -> None:
-    """Raise NotImplementedError for a configuration outside the ported
-    slice, naming the ROADMAP item that will bring it."""
-    unported = [
-        (cfg.devices != 1, "--devices/-g other than one device waits for "
-                           "ROADMAP A13b"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"not in the PyTorch port yet: {what}")
+def _on(a: np.ndarray, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+
+class ShardColumn(NamedTuple):
+    """One index shard's tables on one device of the ("dp", "ish") grid."""
+
+    genome: torch.Tensor      # [Gs] uint8
+    offsets: torch.Tensor     # [nb + 1] int32 (dual: [2 (nb + 1)])
+    positions: torch.Tensor   # [Pmax] int32
+    matrices: torch.Tensor    # [2, 8, 8] int32
+
+
+# the statics of the candidate search (phase 1 of a shard step)
+_CAND_STATICS = ("k", "fanout_cap", "hit_cap", "max_cmrs", "diag_bin_log2",
+                 "band", "min_kmer_hits", "read_stride", "packed_offsets",
+                 "bs", "bs_cutoff", "canonical")
 
 
 class Mapper:
@@ -1089,23 +1106,36 @@ class Mapper:
 
     With cfg.index_shards = S > 1 the index is position-range sharded
     (parallel/index_shard.py): `index` is then a ShardedIndex, or the host
-    KmerIndex (bisulfite: the (CT, GA) pair) to split.  The device holds one
-    stacked copy of the shards (`shards`, a ShardTables; `state` is None),
-    and every batch runs the shard loop of map_step_sharded.
+    KmerIndex (bisulfite: the (CT, GA) pair) to split.  On one device it
+    holds one stacked copy of the shards (`shards`, a ShardTables; `state`
+    is None), and every batch runs the shard loop of map_step_sharded.
+
+    `device` is one device, with cfg.devices slots of it (``--devices``:
+    that many cards, or CPU slots), or an explicit list of slots
+    (parallel/mesh.py).  With several slots each batch splits into
+    contiguous slices, one per slot, mapped in turn (parallel/dp.py)
+    from a replica of the tables on each device; with S > 1 as well, the
+    slots form the ("dp", "ish") grid [slots / S, S], each shard's tables
+    on the devices of its column.  --shard-across-hosts places the grid
+    across cfg.dist_nprocs processes, this one holding only its own
+    columns' shards (`index` is then its ShardedIndex subset).
     """
 
     def __init__(self, cfg: NgmConfig, genome, read_len: int,
                  index: KmerIndex | ShardedIndex | tuple | None = None, *,
-                 device: torch.device | str):
-        check_slice(cfg)
+                 device: torch.device | str | list):
         self.cfg = cfg
         self.genome = genome
         self.read_len = read_len
-        self.device = resolve_device(device)
+        self.slots = device_slots(device, cfg.devices)
+        self.devices = distinct(self.slots)
+        self.device = self.slots[0]
         mats = score_matrices(cfg)
         self.simple_matrix = matrices_are_simple(mats)
         self.band = cfg.corridor_for(read_len)
         self.shards = None
+        self._grid = None       # [dp][S'] ShardColumns of the grid step
+        self._runner = None     # SliceRunner of the dp slices
         if cfg.index_shards > 1:
             self._init_sharded(index, mats)
             return
@@ -1147,12 +1177,23 @@ class Mapper:
         # collapsed 3^k estimate
         n_pos = self.state.positions.shape[0] // (2 if cfg.bs_mapping else 1)
         self.hit_cap = cfg.resolved_read_hits(n_pos, read_len)
+        # one replica of the tables per device (the reference replicates
+        # them over "dp")
+        self._replicas = {self.device: (self.state, self._offsets)}
+        for dev in self.devices[1:]:
+            self._replicas[dev] = (
+                MapperState(*(t.to(dev) for t in self.state)),
+                self._offsets.to(dev))
+        if len(self.slots) > 1:
+            self._runner = SliceRunner([[d] for d in self.slots])
 
     def _init_sharded(self, index, mats) -> None:
         """Split (or take) the ShardedIndex and place one stacked copy of it
-        on the device.  Offsets stay unpacked, as in the reference."""
+        on the device, or its shards on the grid's columns.  Offsets stay
+        unpacked, as in the reference."""
         cfg = self.cfg
         S = cfg.index_shards
+        layout = grid_layout(cfg, self.slots)
         codes = np.asarray(self.genome.codes)
         halo = ShardedIndex.halo_for(cfg)
         if isinstance(index, ShardedIndex):
@@ -1176,14 +1217,55 @@ class Mapper:
         self.state = None
         self.canonical = sidx.canonical
         self.packed_offsets = False
-        self.shards = ShardTables.from_index(sidx, self.device)
-        self.matrices = torch.from_numpy(mats).to(self.device)
         # the reference sizes the per-shard hit cap from the positions width
         # rounded up to whole 8-entry words (its TPU word-gather layout); a
-        # dual table's width spans both collapsed tables
+        # dual table's width spans both collapsed tables.  The width is the
+        # global one even in a subset, so every process takes the same cap
         width = -(-sidx.positions.shape[1] // 8) * 8
         self.hit_cap = cfg.resolved_read_hits(
             width // (2 if sidx.dual else 1), self.read_len)
+        if layout is not None:
+            self._init_grid(sidx, mats, *layout)
+            return
+        self.shards = ShardTables.from_index(sidx, self.device)
+        self.matrices = torch.from_numpy(mats).to(self.device)
+
+    def _init_grid(self, sidx, mats, rows, own) -> None:
+        """Place shard s's tables on the devices of its column (once per
+        device), and the merge's range metadata where the merge runs: the
+        first device, or the host when the shards are gathered across
+        processes."""
+        cfg = self.cfg
+        have = sidx.own_ids()
+        if not set(own) <= set(have):
+            raise ValueError(
+                f"this host's devices need shards {own} but the local index "
+                f"subset holds {have}")
+        if cfg.shard_hosts:
+            log_local_shards(sidx)
+        cols: dict = {}
+
+        def column(dev, s):
+            if (dev, s) not in cols:
+                i = have.index(s)
+                cols[dev, s] = ShardColumn(*(
+                    torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+                    for a, dt in ((sidx.genome[i], np.uint8),
+                                  (sidx.offsets[i], np.int32),
+                                  (sidx.positions[i], np.int32),
+                                  (mats, np.int32))))
+            return cols[dev, s]
+
+        self._grid = [[column(dev, s) for dev, s in zip(row, own)]
+                      for row in rows]
+        self._exchange = ShardExchange(cfg.dist_nprocs if cfg.shard_hosts
+                                       else 1)
+        self._home = (torch.device("cpu") if self._exchange.nprocs > 1
+                      else self.device)
+        self._grid_meta = tuple(
+            torch.from_numpy(np.asarray(a, np.int64)).to(self._home)
+            for a in (sidx.base, sidx.core_lo, sidx.core_hi))
+        self._runner = SliceRunner(rows)
 
     def _host_tables(self, index) -> tuple:
         """(offsets, positions) arrays of a host index (see the class)."""
@@ -1210,18 +1292,20 @@ class Mapper:
             canonical=self.canonical,
         )
 
-    def _common_args(self, codes: np.ndarray, lengths: np.ndarray) -> tuple:
-        """The positional arguments every step shares, for one [B, L] batch:
-        the tables (the six stacked ones when sharded), the reads, the
-        matrices and the scalars."""
+    def _common_args(self, codes: np.ndarray, lengths: np.ndarray,
+                     device: torch.device | None = None) -> tuple:
+        """The positional arguments every step shares, for one [B, L] batch
+        on `device` (default: the first): the tables (the six stacked ones
+        when sharded), the reads, the matrices and the scalars."""
         cfg = self.cfg
-        reads = torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(self.device)
-        lens = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(self.device)
+        dev = device or self.device
+        reads = _on(codes, np.uint8, dev)
+        lens = _on(lengths, np.int32, dev)
         if self.shards is not None:
             tables, mats = tuple(self.shards), self.matrices
         else:
-            st = self.state
-            tables = (st.genome, self._offsets, st.positions)
+            st, off = self._replicas[dev]
+            tables = (st.genome, off, st.positions)
             mats = st.matrices
         return (
             *tables, reads, lens, mats,
@@ -1249,37 +1333,148 @@ class Mapper:
             **self.statics(),
         )
 
-    def map_batch(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
-        """Map one [B, L] batch; the result stays on the mapper's device."""
+    def _step(self, codes, lengths, paired: bool, device=None) -> MapResult:
+        """The unsharded step on one device's replica."""
+        args = self._common_args(codes, lengths, device)
+        if not paired:
+            return map_step(*args, **self.statics())
+        cfg = self.cfg
+        return map_step_paired(*args, cfg.min_insert_size,
+                               cfg.max_insert_size, cfg.pair_score_cutoff,
+                               **self.statics())
+
+    def _map_dp(self, codes, lengths, paired: bool) -> MapResult:
+        """The reference's dp step: one contiguous slice per slot, each
+        mapped on its slot's device (its own slot caps, as under the
+        reference's shard_map), concatenated in slice order on the first
+        device with the overflow counters summed."""
+        parts = split_batch(codes, lengths, len(self.slots), paired)
+        outs = self._runner.run(
+            lambda i: self._step(*parts[i], paired, self.slots[i]))
+        return concat_results(outs, self.device)
+
+    def _grid_phase1(self, d: int, codes, lengths):
+        """Phase 1 of grid row d's slice: the CS of each of its shards on
+        the shard's device, k-mers extracted once per device.  Returns
+        ({device: (reads, lengths, _pre_extract)}, [CandState] per shard,
+        the best bucket count over these shards on the row's first device)."""
+        cfg = self.cfg
+        st = self.statics()
+        cand_statics = {k: st[k] for k in _CAND_STATICS}
+        inputs, cands = {}, []
+        for col in self._grid[d]:
+            dev = col.genome.device
+            if dev not in inputs:
+                reads = _on(codes, np.uint8, dev)
+                lens = _on(lengths, np.int32, dev)
+                inputs[dev] = (reads, lens, _pre_extract(
+                    reads, lens, k=cfg.kmer, read_stride=st["read_stride"],
+                    bs=cfg.bs_mapping, bs_cutoff=cfg.bs_cutoff,
+                    canonical=self.canonical))
+            reads, lens, pre = inputs[dev]
+            cands.append(cs_cands_step(
+                col.genome, col.offsets, col.positions, reads, lens,
+                cfg.sensitivity, cfg.max_kmer_freq, pre, **cand_statics))
+        row_dev = self._grid[d][0].genome.device
+        best = torch.stack([c.best.to(row_dev) for c in cands])
+        return inputs, cands, best.max(dim=0).values
+
+    def _grid_tails(self, d: int, inputs, cands, best, paired: bool):
+        """Phase 2 of grid row d: each shard's FULL tail (the reference's
+        mesh step runs map_step per shard, never a pool) re-gated by the
+        cross-shard best, with slot caps from the slice; the per-shard
+        results stacked [S', B_d] on the row's first device."""
+        cfg = self.cfg
+        row_dev = self._grid[d][0].genome.device
+        tail = dict(band=self.band, min_kmer_hits=max(1, cfg.kmer_min),
+                    end_to_end=cfg.end_to_end,
+                    simple_matrix=self.simple_matrix)
+        scalars = (cfg.gap_read_penalty, cfg.gap_ref_penalty,
+                   cfg.gap_extend_penalty, cfg.sensitivity, cfg.min_identity,
+                   cfg.min_residues)
+        per_shard = []
+        for col, cand in zip(self._grid[d], cands):
+            dev = col.genome.device
+            reads, lens, pre = inputs[dev]
+            if paired:
+                r = map_step_paired_from_cands(
+                    col.genome, reads, lens, col.matrices, *scalars,
+                    cfg.min_insert_size, cfg.max_insert_size,
+                    cfg.pair_score_cutoff, cand, best.to(dev), pre[0],
+                    diag_bin_log2=cfg.diag_bin_log2, **tail)
+            else:
+                r = map_step_from_cands(
+                    col.genome, reads, lens, col.matrices, *scalars, cand,
+                    best.to(dev), pre[0], **tail)
+            per_shard.append(MapResult(*(t.to(row_dev) for t in r)))
+        return _stack(per_shard, MapResult)
+
+    def _map_grid(self, codes, lengths, paired: bool) -> MapResult:
+        """The ("dp", "ish") step (the reference's
+        make_index_sharded_map_step): phase 1 on each shard column of each
+        row's slice; the per-read best counts maxed over every shard (a
+        row's columns here, the other processes' shards through
+        ShardExchange); each shard's full tail; the rows' per-shard results
+        joined and gathered over the processes; merge_sharded_results over
+        the whole batch.  In one process this runs on the first device;
+        across processes on the host, where every process merges the same
+        batch."""
+        home = self._home
+        parts = split_batch(codes, lengths, len(self._grid), paired)
+        p1 = self._runner.run(lambda d: self._grid_phase1(d, *parts[d]))
+        best = self._exchange.max_best(
+            torch.cat([b.to(home) for *_, b in p1]))
+        bests = torch.split(best, [c.shape[0] for c, _ in parts])
+        stks = self._runner.run(lambda d: self._grid_tails(
+            d, p1[d][0], p1[d][1], bests[d], paired))
+        local = MapResult(*(
+            torch.stack([getattr(s, f).to(home) for s in stks]).sum(
+                dim=0, dtype=torch.int32) if f.endswith("overflow")
+            else torch.cat([getattr(s, f).to(home) for s in stks], dim=1)
+            for f in MapResult._fields))
+        return merge_sharded_results(self._exchange.gather_shards(local),
+                                     *self._grid_meta, paired=paired,
+                                     read_len=self.read_len)
+
+    def _map(self, codes, lengths, paired: bool) -> MapResult:
+        if self._grid is not None:
+            return self._map_grid(codes, lengths, paired)
         if self.shards is not None:
-            return self._map_sharded(codes, lengths, paired=False)
-        return map_step(*self._common_args(codes, lengths), **self.statics())
+            return self._map_sharded(codes, lengths, paired)
+        if self._runner is not None:
+            return self._map_dp(codes, lengths, paired)
+        return self._step(codes, lengths, paired)
+
+    def map_batch(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
+        """Map one [B, L] batch; the result stays on the mapper's (first)
+        device, or on the host after a cross-process merge."""
+        return self._map(codes, lengths, paired=False)
 
     def map_batch_paired(self, codes: np.ndarray,
                          lengths: np.ndarray) -> MapResult:
         """Map one batch of pairs (rows 2i / 2i+1 are mates)."""
-        if self.shards is not None:
-            return self._map_sharded(codes, lengths, paired=True)
-        cfg = self.cfg
-        return map_step_paired(
-            *self._common_args(codes, lengths), cfg.min_insert_size,
-            cfg.max_insert_size, cfg.pair_score_cutoff, **self.statics(),
-        )
+        return self._map(codes, lengths, paired=True)
 
     def supports_megabatch(self) -> bool:
-        """--megabatch applies where the reference's does: unsharded, and on
-        the sequential shard loop without --bs-mapping (the runner also
+        """--megabatch applies where the reference's does: on one device,
+        unsharded or on the shard loop without --bs-mapping (the runner also
         leaves -n > 1 out).  The port dispatches a group's batches back to
         back with map_batch / map_batch_paired, so the results are the
         per-batch ones."""
-        return self.shards is None or not self.cfg.bs_mapping
+        return (len(self.slots) == 1 and self._grid is None
+                and (self.shards is None or not self.cfg.bs_mapping))
 
     def topn(self) -> int:
         """Ranks per read of map_batch_topn: -n, at most max_cmrs."""
         return min(self.cfg.topn, self.cfg.max_cmrs)
 
     def map_batch_topn(self, codes: np.ndarray, lengths: np.ndarray) -> tuple:
-        """Map one batch with up to topn() ranked alignments per read."""
+        """Map one batch with up to topn() ranked alignments per read, on
+        the first device (the reference's, with several devices too)."""
+        if self._grid is not None:
+            raise ValueError(
+                "--index-shards with -n/--topn > 1 runs on a single device "
+                "(sequential shard loop); drop --devices")
         if self.shards is not None:
             return map_step_sharded_topn(
                 *self._common_args(codes, lengths), read_len=self.read_len,

@@ -23,6 +23,13 @@ Host part: ``shard_ranges``, ``ShardedIndex`` (build, the bisulfite
 reads, byte for byte) and ``open_sharded``.  Device part: ``ShardTables``
 (one stacked copy of the shards on the device), ``merge_sharded_results``
 and ``merge_sharded_topn``.
+
+On several devices, ``grid_layout`` places the shards on the columns of a
+("dp", "ish") grid.  Across processes (``--shard-across-hosts``):
+``global_ish_grid`` and ``local_shard_ids`` make that grid process-major,
+``open_sharded_local``
+loads (or builds) only a process's own shards from per-shard artifacts,
+and ``ShardExchange`` holds the step's two collectives.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
 from nextgenmap_tpu_torch.io.encode import PAD
 from nextgenmap_tpu_torch.native import hostio as native
+from nextgenmap_tpu_torch.parallel.mesh import make_mesh
 from nextgenmap_tpu_torch.utils.logging import get_logger
 
 log = get_logger("ngm-torch.index")
@@ -302,6 +310,44 @@ class ShardedIndex:
                 shard=np.int64(s), meta=self._meta(genome_sha1),
             )
 
+    @classmethod
+    def load_shards(cls, paths: list[str], shard_ids, genome_sha1: str,
+                    max_freq: int | None = None) -> "ShardedIndex | None":
+        """The shards `shard_ids` from their per-shard artifacts (either
+        package's), or None unless every one exists and matches."""
+        rows = []
+        for p in paths:
+            if not os.path.exists(p):
+                return None
+            with np.load(p) as z:
+                meta = bytes(z["meta"]).decode().split("|")
+                if len(meta) not in (4, 5) or meta[3] != genome_sha1:
+                    return None
+                if max_freq is not None and int(meta[1]) != max_freq:
+                    return None
+                rows.append({k: z[k] for k in z.files if k != "meta"}
+                            | {"n_shards": int(meta[0]),
+                               "max_freq": int(meta[1]),
+                               "dual": bool(int(meta[2])),
+                               "canonical": (bool(int(meta[4]))
+                                             if len(meta) == 5 else False)})
+        r0 = rows[0]
+        return cls(
+            n_shards=r0["n_shards"],
+            genome=np.stack([r["genome"] for r in rows]),
+            offsets=np.stack([r["offsets"] for r in rows]),
+            positions=np.stack([r["positions"] for r in rows]),
+            base=r0["base"], core_lo=r0["core_lo"], core_hi=r0["core_hi"],
+            max_freq=r0["max_freq"], dual=r0["dual"],
+            canonical=r0["canonical"],
+            shard_ids=np.asarray(list(shard_ids), np.int32),
+        )
+
+    def own_ids(self) -> list[int]:
+        """The global shard ids of the rows held here."""
+        return (list(range(self.n_shards)) if self.shard_ids is None
+                else [int(s) for s in self.shard_ids])
+
 
 def open_sharded(cfg: NgmConfig, ref_path: str, genome, index) -> ShardedIndex:
     """Build or load the memoized shard artifact (.ngmt-shards).
@@ -334,6 +380,165 @@ def open_sharded(cfg: NgmConfig, ref_path: str, genome, index) -> ShardedIndex:
         except OSError as e:
             log.warning("could not memoize sharded index: %s", e)
     return sidx
+
+
+def global_ish_grid(n_shards: int, nprocs: int, n_local: int) -> np.ndarray:
+    """The ("dp", "ish") grid across processes: [dp, S] global slot ranks
+    (process p's local slot i is rank p * n_local + i).
+
+    The shard axis is process-major: a process's slots cover only its own
+    S / P shard columns, so it holds only those shards, and its remaining
+    slots form the dp rows (reads in parallel).  The reference's
+    global_ish_mesh, refusals included; the merged output is the same on
+    every process."""
+    if n_shards % nprocs:
+        raise ValueError(
+            f"index_shards={n_shards} must be a multiple of the process "
+            f"count {nprocs} (each host holds the same number of shards)")
+    sph = n_shards // nprocs                 # shards per process
+    if n_local % sph:
+        raise ValueError(
+            f"local device count {n_local} not divisible by "
+            f"shards-per-host {sph}")
+    dp = n_local // sph
+    ranks = np.arange(nprocs * n_local)
+    return ranks.reshape(nprocs, sph, dp).transpose(2, 0, 1).reshape(
+        dp, n_shards)
+
+
+def local_shard_ids(grid: np.ndarray, procid: int, n_local: int) -> list[int]:
+    """Global shard ids whose column holds a slot of process `procid`."""
+    return sorted({int(s) for d in range(grid.shape[0])
+                   for s in range(grid.shape[1])
+                   if grid[d, s] // n_local == procid})
+
+
+def grid_layout(cfg: NgmConfig, slots: list) -> tuple | None:
+    """The ("dp", "ish") grid of a sharded run on `slots`: (rows [dp][S']
+    of devices, the global shard id of each column), or None for the shard
+    loop on one device.  With --shard-across-hosts the process-major grid of
+    global_ish_grid, this process's columns only; else make_mesh's [dp, S].
+    The reference's refusals, raised before any process joins another."""
+    S, n = cfg.index_shards, len(slots)
+    if cfg.shard_hosts:
+        ranks = global_ish_grid(S, cfg.dist_nprocs, n)
+        own = local_shard_ids(ranks, cfg.dist_procid, n)
+        return [[slots[ranks[d, s] % n] for s in own]
+                for d in range(ranks.shape[0])], own
+    if n == 1:
+        return None
+    if n % S:
+        raise ValueError(
+            f"index_shards={S} needs 1 device (sequential) or a device "
+            f"count divisible by {S}, got {n}")
+    return make_mesh(slots, index_shards=S).tolist(), list(range(S))
+
+
+def open_sharded_local(cfg: NgmConfig, ref_path: str, genome,
+                       shard_ids) -> ShardedIndex:
+    """Build or load ONLY this process's shards (--shard-across-hosts).
+
+    The per-shard artifacts (`index --index-shards N` of either package
+    writes every one) are loaded when they exist, so the process never
+    touches the global index.  Otherwise the global host index is built (or
+    loaded), this process's shards are sliced from it and memoized as
+    per-shard artifacts."""
+    dual = cfg.bs_mapping
+    halo = ShardedIndex.halo_for(cfg)
+    S = cfg.index_shards
+    # canonical entries need global (pos << 1) | flip to fit uint32 in the
+    # host build; past 2^31 bases it takes raw positions
+    canonical = (not dual) and genome.codes.shape[0] < 2**31
+
+    def path_for(s):
+        return ShardedIndex.shard_cache_path(
+            ref_path, s, cfg.kmer, cfg.kmer_skip, S, halo, cfg.max_kmer_freq,
+            dual=dual, canonical=canonical)
+
+    sidx = ShardedIndex.load_shards(
+        [path_for(s) for s in shard_ids], shard_ids, genome.sha1(),
+        max_freq=cfg.max_kmer_freq)
+    if sidx is not None:
+        log.info("loaded own index shards %s from per-shard artifacts",
+                 list(shard_ids))
+        return sidx
+
+    def host_index(collapse="none", **kw):
+        return KmerIndex.open(
+            ref_path, genome.codes, genome.sha1(), k=cfg.kmer,
+            skip=cfg.kmer_skip, max_freq=cfg.max_kmer_freq, collapse=collapse,
+            skip_save=cfg.skip_save, **kw)
+
+    if dual:
+        sidx = ShardedIndex.build_dual(
+            host_index("ct"), host_index("ga"), genome.codes, S, halo,
+            shard_ids=shard_ids)
+    else:
+        sidx = ShardedIndex.build(
+            host_index(canonical=True, allow_u32=True), genome.codes, S, halo,
+            shard_ids=shard_ids)
+    if not cfg.skip_save:
+        try:
+            sidx.save_shards(path_for, genome.sha1())
+            log.info("memoized own index shards %s", list(shard_ids))
+        except OSError as e:
+            log.warning("could not memoize index shards: %s", e)
+    return sidx
+
+
+def log_local_shards(sidx: ShardedIndex) -> None:
+    """The memory account of a process that holds a subset of the shards:
+    its bytes against those of all S."""
+    own = sidx.own_ids()
+    local_bytes = (sidx.genome.nbytes + sidx.offsets.nbytes
+                   + sidx.positions.nbytes)
+    full_bytes = local_bytes * sidx.n_shards // max(1, len(own))
+    log.info(
+        "cross-host index shards: this host holds shards %s = %.1f MB of "
+        "%.1f MB total (%d/%d shards)",
+        own, local_bytes / 1e6, full_bytes / 1e6, len(own), sidx.n_shards)
+
+
+class ShardExchange:
+    """The two collectives of the cross-process ("dp", "ish") step, in one
+    place: the MAX of the per-read best bucket counts over every shard, and
+    the gather of every process's per-shard results.  They run on host
+    tensors in the default torch.distributed group (gloo), one call each
+    per batch; with one process both are the identity."""
+
+    def __init__(self, nprocs: int):
+        self.nprocs = nprocs
+
+    def max_best(self, best: torch.Tensor) -> torch.Tensor:
+        """[B] int32 on the host: the maximum over all processes."""
+        if self.nprocs > 1:
+            import torch.distributed as dist
+
+            dist.all_reduce(best, op=dist.ReduceOp.MAX)
+        return best
+
+    def gather_shards(self, stk):
+        """A NamedTuple of host tensors whose leading axis is this
+        process's shards -> the same over all S shards, process-major (the
+        global shard order).  One all_gather of the fields packed as bytes."""
+        if self.nprocs == 1:
+            return stk
+        import torch.distributed as dist
+
+        fields = [t.contiguous() for t in stk]
+        flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in fields])
+        got = [torch.empty_like(flat) for _ in range(self.nprocs)]
+        dist.all_gather(got, flat)
+        out = []
+        at = 0
+        for t in fields:
+            n = t.numel() * t.element_size()
+            # a copy starts at offset 0, so any dtype can view it
+            parts = [g[at:at + n].clone().view(t.dtype).reshape(t.shape)
+                     for g in got]
+            out.append(torch.cat(parts))
+            at += n
+        return type(stk)(*out)
 
 
 class ShardTables(NamedTuple):

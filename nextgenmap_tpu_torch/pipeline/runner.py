@@ -1,11 +1,16 @@
 """Mapping run: reads -> device step -> SAM, in input order.
 
-Port of ``nextgenmap_tpu/pipeline/runner.py`` on one device: ``run_mapping``
-with its single-end, top-n and paired branches, its long-read batch size,
-its software pipeline (``_prefetch``, ``_Emitter``, ``_PoolEmitter``),
+Port of ``nextgenmap_tpu/pipeline/runner.py``: ``run_mapping`` with its
+single-end, top-n and paired branches, its long-read batch size, its
+software pipeline (``_prefetch``, ``_Emitter``, ``_PoolEmitter``),
 ``--megabatch``, the progress sidecar and ``--resume``, ``--bam`` and
-``--profile``; ``load_reference`` with its bisulfite and index-shard
-branches; ``emit_single`` and ``emit_single_topn``.  Records are formatted by
+``--profile``; several devices (``--devices``: the batch rounded to a
+multiple of 2 x devices); several processes (``--dist-nprocs``: each maps
+its round-robin share of the batches into a part file, which process 0
+merges, ``parallel/distributed.py``; with ``--shard-across-hosts`` every
+process maps every batch against its own index shards and process 0 alone
+writes); ``load_reference`` with its bisulfite and index-shard branches;
+``emit_single`` and ``emit_single_topn``.  Records are formatted by
 the port's native formatter (``native/hostio.py::format_sam``) when g++ could
 build it, else by the Python SamWriter; both give the same bytes.
 
@@ -24,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import io
+import itertools
 import json
 import os
 import queue
@@ -36,7 +42,6 @@ import numpy as np
 import torch
 
 from nextgenmap_tpu_torch.config import NgmConfig
-from nextgenmap_tpu_torch.device import resolve_device
 from nextgenmap_tpu_torch.index.genome import Genome
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
 from nextgenmap_tpu_torch.io.bam import BamTextWriter
@@ -52,7 +57,11 @@ from nextgenmap_tpu_torch.models.mapper import (
 )
 from nextgenmap_tpu_torch.native import hostio as native
 from nextgenmap_tpu_torch.pair.resolve import emit_paired
-from nextgenmap_tpu_torch.parallel.index_shard import open_sharded
+from nextgenmap_tpu_torch.parallel import distributed as dist_mod
+from nextgenmap_tpu_torch.parallel.index_shard import (
+    grid_layout, open_sharded, open_sharded_local,
+)
+from nextgenmap_tpu_torch.parallel.mesh import device_slots
 from nextgenmap_tpu_torch.utils.logging import get_logger
 from nextgenmap_tpu_torch.utils.stats import MappingStats
 
@@ -67,6 +76,11 @@ class RunStats(MappingStats):
     # device time of each dispatch (a batch, or a --megabatch group) in ms,
     # from CUDA events around its step; empty on the CPU
     step_device_ms: list = field(default_factory=list)
+    # a --dist-nprocs part's ledger: its header's lines, and each emitted
+    # batch's lines and bytes (what the merge interleaves by)
+    header_lines: int = 0
+    batch_lines: list = field(default_factory=list)
+    batch_bytes: list = field(default_factory=list)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
@@ -76,10 +90,12 @@ class RunStats(MappingStats):
             super().add_time(phase, dt)
 
 
-def load_reference(cfg: NgmConfig, ref_path: str):
+def load_reference(cfg: NgmConfig, ref_path: str, own_shards=None):
     """(genome, index): with --index-shards N > 1 the memoized ShardedIndex
     (parallel/index_shard.py::open_sharded), split from a host KmerIndex
-    (in bisulfite mode the (CT, GA) pair), each built or loaded here.
+    (in bisulfite mode the (CT, GA) pair), each built or loaded here; with
+    --shard-across-hosts only the shards `own_shards` of this process
+    (open_sharded_local).
     Unsharded, index is a memoized host KmerIndex when one matches the
     genome (in bisulfite mode a (CT, GA) pair, when both do), a fresh host
     build for genomes over 2^28 bases (not bisulfite), else None (the
@@ -102,6 +118,8 @@ def load_reference(cfg: NgmConfig, ref_path: str):
             skip=cfg.kmer_skip, max_freq=cfg.max_kmer_freq, collapse=collapse,
             skip_save=cfg.skip_save, **kw)
 
+    if cfg.shard_hosts:
+        return genome, open_sharded_local(cfg, ref_path, genome, own_shards)
     if cfg.index_shards > 1:
         # the shards slice host CSRs by position range.  Canonical entries
         # ((pos << 1) | flip, monotone in pos) slice as well with doubled
@@ -357,37 +375,43 @@ def slots_scored(mode: str, n_candidates: np.ndarray, batch_size: int) -> int:
     return min(int(nc[nc >= 2].sum()), default_slot_cap(batch_size))
 
 
-def long_read_batch_size(cfg: NgmConfig, read_len: int) -> int:
+def long_read_batch_size(cfg: NgmConfig, read_len: int,
+                         n_devices: int = 1) -> int:
     """The batch size to map `read_len` reads with: the default one shrinks
     for reads over 250 bp, so that the traceback's [L, B, W] direction
-    bytes stay near their 150 bp size (the reference runner's rule on one
-    device; a batch of pairs stays even)."""
+    bytes stay near their 150 bp size (the reference runner's rule; the
+    batch stays a multiple of 2 x devices, so pairs never straddle two
+    devices' slices)."""
     if read_len > 250 and cfg.batch_size == NgmConfig().batch_size:
-        return max(16, cfg.batch_size * 150 // read_len // 2 * 2)
+        m = 2 * max(1, n_devices)
+        return max(m * 8, cfg.batch_size * 150 // read_len // m * m)
     return cfg.batch_size
 
 
 class Fetch:
     """The results of one dispatch (one batch, or a --megabatch group) on
-    their way to the host.  On a card: one non-blocking copy of every result
-    field into pinned host tensors, then one CUDA event recorded after the
-    copies; the step is bracketed by two timing events.  On the CPU: the
-    fields themselves.  `wait` is all the emitter calls: it waits on the
+    their way to the host.  On the cards: one non-blocking copy of every
+    result field (on the first device, or already on the host) into pinned
+    host tensors, then one CUDA event recorded after the copies; the step
+    is bracketed by a pair of timing events on each device.  On the CPU:
+    the fields themselves.  `wait` is all the emitter calls: it waits on the
     event (no CUDA work of its own) and reads the pinned memory."""
 
-    def __init__(self, results: list, device: torch.device,
-                 start: torch.cuda.Event | None):
-        self.start = start
-        self.end = self.done = None
-        if device.type != "cuda":
+    def __init__(self, results: list, devices: list,
+                 starts: list | None):
+        self.starts = starts
+        self.ends = self.done = None
+        if devices[0].type != "cuda":
             self.host = results
             return
-        stream = torch.cuda.current_stream(device)
-        self.end = torch.cuda.Event(enable_timing=True)
-        self.end.record(stream)
+        self.ends = []
+        for d in devices:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(d))
+            self.ends.append(ev)
         self.host = [_map_fields(_pinned_copy, r) for r in results]
         self.done = torch.cuda.Event()
-        self.done.record(stream)
+        self.done.record(torch.cuda.current_stream(devices[0]))
 
     def wait(self, stats: MappingStats) -> list:
         """The results as numpy arrays, once their copies have landed (the
@@ -399,8 +423,11 @@ class Fetch:
         return [_map_fields(lambda t: t.numpy(), r) for r in self.host]
 
     def device_ms(self) -> float | None:
-        """The step's device time (after `wait`), None on the CPU."""
-        return None if self.end is None else self.start.elapsed_time(self.end)
+        """The step's device time (after `wait`): the longest over the
+        devices; None on the CPU."""
+        if self.ends is None:
+            return None
+        return max(s.elapsed_time(e) for s, e in zip(self.starts, self.ends))
 
 
 def _map_fields(fn, res):
@@ -418,13 +445,17 @@ def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _mark(device: torch.device) -> torch.cuda.Event | None:
-    """A timing event recorded before a dispatch (None on the CPU)."""
-    if device.type != "cuda":
+def _mark(devices: list) -> list | None:
+    """A timing event per device recorded before a dispatch (None on the
+    CPU)."""
+    if devices[0].type != "cuda":
         return None
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record(torch.cuda.current_stream(device))
-    return ev
+    evs = []
+    for d in devices:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(d))
+        evs.append(ev)
+    return evs
 
 
 def _prefetch(it, depth: int, stats: MappingStats):
@@ -596,21 +627,22 @@ def config_sha(cfg: NgmConfig) -> str:
 
 
 def _resume_point(progress_path: str | None, out_path: str, sha: str,
-                  bam: bool) -> int:
-    """Reads an interrupted run of the same configuration already emitted
-    into `out_path` (0: start fresh); drops the partial records past its
-    checkpoint.  BGZF cannot be appended record-wise, so --bam never
-    resumes."""
+                  bam: bool) -> tuple[int, dict]:
+    """(reads an interrupted run of the same configuration already emitted
+    into `out_path`, its sidecar); (0, {}) to start fresh.  Drops the
+    partial records past its checkpoint.  BGZF cannot be appended
+    record-wise, so --bam never resumes (a part of --dist-nprocs is SAM
+    text whatever the output, so the caller passes bam=False for it)."""
     if progress_path is None or bam or not os.path.exists(progress_path):
-        return 0
+        return 0, {}
     try:
         with open(progress_path) as f:
             p = json.load(f)
     except (OSError, ValueError):
-        return 0
+        return 0, {}
     if (p.get("config_sha") != sha or p.get("complete")
             or not os.path.exists(out_path)):
-        return 0
+        return 0, {}
     prior = int(p.get("reads_emitted", 0))
     ob = p.get("out_bytes")
     if prior > 0 and ob is not None and os.path.getsize(out_path) > ob:
@@ -618,7 +650,15 @@ def _resume_point(progress_path: str | None, out_path: str, sha: str,
             f.truncate(ob)
         log.info("truncated %s to checkpointed %d bytes", out_path, ob)
     log.info("resuming after %d already-emitted reads", prior)
-    return prior
+    return prior, p
+
+
+def _manifest_stats(stats: MappingStats) -> dict:
+    """The counters a part's manifest carries (the reference's keys)."""
+    return {f.name: getattr(stats, f.name)
+            for f in dataclasses.fields(MappingStats)
+            if f.name != "start_time"
+            and isinstance(getattr(stats, f.name), (int, float))}
 
 
 def runs_megabatched(cfg: NgmConfig, mode: str, mapper: Mapper) -> bool:
@@ -646,61 +686,146 @@ def run_mapping(cfg: NgmConfig, ref_path: str, qry: str | None = None,
                 qry1: str | None = None, qry2: str | None = None,
                 paired_interleaved: bool = False, resume: bool = False,
                 profile_dir: str = "",
-                device: torch.device | str) -> RunStats:
+                device: torch.device | str | list) -> RunStats:
     """Map reads against `ref_path` into SAM (BAM with cfg.bam): single-end
     `qry` (with -n > 1 up to topn ranked records per read), or pairs from
     `qry1`/`qry2` or from the interleaved `qry` with paired_interleaved.
 
+    `device` is a device, with cfg.devices slots of it, or a list of slots
+    (parallel/mesh.py::device_slots); with several, each batch splits over
+    them.  With cfg.dist_nprocs > 1 this is one of that many processes:
+    it maps batches b with b % nprocs == dist_procid into
+    `<out>.part<i>-of-<n>` and its manifest, and process 0 merges the parts
+    into `out_path` (unless no_merge); with cfg.shard_hosts every process
+    maps every batch against its own index shards, and only process 0
+    writes.  A dist_coordinator (host:port) joins the processes in one
+    torch.distributed group, which --shard-across-hosts needs.
+
     After every emitted batch the sidecar `<out>.ngmt-progress.json`
     records the reads emitted, the output's byte count and the config hash
-    (not for `-o -`); with resume=True a matching incomplete sidecar skips
-    the reads already emitted, truncates the output to its checkpoint and
-    appends.  profile_dir: write a torch.profiler trace of the mapping loop
-    there (Perfetto reads it).
+    (not for `-o -`; a part's sidecar also the per-batch line and byte
+    ledger the merge needs); with resume=True a matching incomplete sidecar
+    skips the reads (a part: its own batches) already emitted, truncates
+    the output to its checkpoint and appends.  profile_dir: write a
+    torch.profiler trace of the mapping loop there (Perfetto reads it).
 
     Phase seconds land in stats.timing: reference (native formatter and
     genome load), index (device index build), then from the main thread
     parse_wait, dispatch (the device step's host side, and the fetch's
     start) and emit_wait, and from the emitter fetch (the wait for the
-    copies), format and write.  stats.step_device_ms holds each dispatch's
-    device time (CUDA events).  stats.start_time is set after the index
-    build, so reads_per_sec() is host-inclusive mapping throughput.
+    copies), format and write; process 0's merge of the parts (the wait for
+    the others' manifests included) is phase merge.  stats.step_device_ms
+    holds each dispatch's device time (CUDA events).  stats.start_time is
+    set after the index build, so reads_per_sec() is host-inclusive mapping
+    throughput.
     """
     cfg.validate()
-    device = resolve_device(device)
+    slots = device_slots(device, cfg.devices)
     paired = qry1 is not None or paired_interleaved
+    dist = cfg.dist_nprocs > 1 and not cfg.shard_hosts
+    hosts = cfg.shard_hosts and cfg.dist_nprocs > 1
+    if dist and out_path in (None, "-"):
+        raise ValueError("multi-host mapping requires -o <file>")
     if cfg.bam and out_path in (None, "-"):
         raise ValueError("--bam requires -o <file>")
+    if hosts and resume:
+        # every process must dispatch the same batches (the collectives are
+        # lockstep); one process's rewound input would desynchronize them
+        raise ValueError("--resume is not supported with "
+                         "--shard-across-hosts; rerun the mapping")
     skip, count = max(0, cfg.qry_start), max(0, cfg.qry_count)
     if paired and (skip % 2 or count % 2):
         raise ValueError("paired qry-start/qry-count must be even")
+    own = None
+    if cfg.shard_hosts:
+        # the shards this process loads, by the layout the Mapper places;
+        # its refusals come before any process waits for another
+        own = grid_layout(cfg, slots)[1]
+    if len(slots) > 1:
+        # data parallelism: a multiple of 2 x devices, so that no pair
+        # straddles two slices; before the config hash, so resume agrees
+        m = 2 * len(slots)
+        bs = -(-cfg.batch_size // m) * m
+        if bs != cfg.batch_size:
+            log.info("batch_size %d -> %d (multiple of 2 x %d devices)",
+                     cfg.batch_size, bs, len(slots))
+            cfg = cfg.replace(batch_size=bs)
+    final_out = out_path
+    if dist:
+        # parts are always SAM text; --bam is applied by process 0's merge
+        out_path = dist_mod.part_path(final_out, cfg.dist_procid,
+                                      cfg.dist_nprocs)
+    elif hosts and cfg.dist_procid != 0:
+        # maps every batch (its shards' side of the collectives), writes
+        # nothing
+        out_path = os.devnull
+    joined = hosts or (dist and bool(cfg.dist_coordinator))
+    if joined:
+        dist_mod.init_distributed(cfg.dist_coordinator, cfg.dist_nprocs,
+                                  cfg.dist_procid)
+    try:
+        stats = _map_reads(cfg, ref_path, qry, qry1, qry2, out_path,
+                           cmdline, paired, resume, profile_dir, slots,
+                           own, skip, count, dist)
+    finally:
+        if joined:
+            dist_mod.shutdown_distributed()
+    if dist:
+        dist_mod.write_manifest(
+            final_out, cfg.dist_procid, cfg.dist_nprocs, stats.header_lines,
+            stats.batch_lines, _manifest_stats(stats), complete=True,
+            batch_bytes=stats.batch_bytes)
+        if cfg.dist_procid == 0 and not cfg.no_merge:
+            t0 = time.perf_counter()   # the wait for the other parts too
+            totals = dist_mod.merge_parts(final_out, cfg.dist_nprocs,
+                                          bam=cfg.bam)
+            stats.add_time("merge", time.perf_counter() - t0)
+            log.info("done (all %d hosts): reads: %d  mapped: %d  "
+                     "unmapped: %d", cfg.dist_nprocs,
+                     totals.get("reads_in", 0), totals.get("reads_mapped", 0),
+                     totals.get("reads_unmapped", 0))
+    return stats
+
+
+def _map_reads(cfg, ref_path, qry, qry1, qry2, out_path, cmdline, paired,
+               resume, profile_dir, slots, own, skip, count,
+               dist) -> RunStats:
+    """run_mapping's one process: load, map, write `out_path` (a part of
+    a --dist-nprocs run when `dist`, whose ledger the stats carry back)."""
     stats = RunStats()
     t0 = time.perf_counter()
     native.lib()   # builds the native formatter on first use: set-up time
-    genome, index = load_reference(cfg, ref_path)
+    genome, index = load_reference(cfg, ref_path, own)
     read_len = cfg.read_len or peek_read_len(qry1 or qry)
     log.info("read length (padded): %d", read_len)
-    batch = long_read_batch_size(cfg, read_len)
+    batch = long_read_batch_size(cfg, read_len, len(slots))
     if batch != cfg.batch_size:
         log.info("long reads (%d bp): batch_size %d -> %d",
                  read_len, cfg.batch_size, batch)
         cfg = cfg.replace(batch_size=batch)
 
-    progress_path = (None if out_path in (None, "-")
+    progress_path = (None if out_path in (None, "-", os.devnull)
                      else f"{out_path}.ngmt-progress.json")
     sha = config_sha(cfg)
-    prior = (_resume_point(progress_path, out_path, sha, cfg.bam)
-             if resume else 0)
-    skip += prior
-    if count:
-        count = max(0, count - prior)
+    prior, saved = (_resume_point(progress_path, out_path, sha,
+                                  cfg.bam and not dist)
+                    if resume else (0, {}))
+    # a part resumes by its own batches (the ledger counts them); a whole
+    # run by reads
+    ledger_lines = list(saved.get("batch_lines") or []) if dist else []
+    ledger_bytes = list(saved.get("batch_bytes") or []) if dist else []
+    if not dist:
+        skip += prior
+        if count:
+            count = max(0, count - prior)
     if paired and (skip % 2 or count % 2):
         raise ValueError("paired qry-start/qry-count/resume must be even")
     t1 = time.perf_counter()
     stats.add_time("reference", t1 - t0)
-    mapper = Mapper(cfg, genome, read_len, index, device=device)
-    if mapper.device.type == "cuda":
-        torch.cuda.synchronize(mapper.device)
+    mapper = Mapper(cfg, genome, read_len, index, device=slots)
+    for d in mapper.devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     stats.add_time("index", time.perf_counter() - t1)
 
     if paired:
@@ -711,17 +836,33 @@ def run_mapping(cfg: NgmConfig, ref_path: str, qry: str | None = None,
         batches = batch_single(qry, cfg.batch_size, read_len, skip, count)
         mode, step = (("topn", mapper.map_batch_topn) if cfg.topn > 1
                       else ("single", mapper.map_batch))
+    if dist:
+        batches = dist_mod.shard_batches(batches, cfg.dist_procid,
+                                         cfg.dist_nprocs)
+        if ledger_lines:
+            batches = itertools.islice(batches, len(ledger_lines), None)
     group = cfg.megabatch if runs_megabatched(cfg, mode, mapper) else 1
 
-    if cfg.bam:
+    if cfg.bam and not dist:
         out = BamTextWriter(out_path)
     elif prior > 0:
         out = open(out_path, "a", buffering=1 << 20)
     else:
         out = open_output(out_path)
+    if dist:
+        out = dist_mod.CountingWriter(
+            out,
+            lines=(int(saved.get("header_lines", 0)) + sum(ledger_lines)
+                   if prior else 0),
+            nbytes=int(saved.get("out_bytes") or 0) if prior else 0)
     writer = SamWriter(genome, cfg, out, cmdline)
     if prior == 0:
         writer.write_header()
+    # a part's ledger: its header, then each of its batches' lines and bytes
+    stats.header_lines = ((int(saved.get("header_lines", 0)) if prior
+                           else out.lines) if dist else 0)
+    stats.batch_lines, stats.batch_bytes = ledger_lines, ledger_bytes
+    header_bytes = out.nbytes - sum(ledger_bytes) if dist else 0
 
     def save_progress(complete: bool = False) -> None:
         if progress_path is None:
@@ -733,11 +874,15 @@ def run_mapping(cfg: NgmConfig, ref_path: str, qry: str | None = None,
         if flush is not None:
             flush()
         try:   # the checkpoint's byte offset: resume truncates back to it
-            out_bytes = out.tell()
+            out_bytes = getattr(out, "out", out).tell()
         except (OSError, ValueError, AttributeError):
             out_bytes = None
         doc = {"reads_emitted": prior + stats.reads_in, "config_sha": sha,
                "out_bytes": out_bytes, "complete": complete}
+        if dist:
+            doc.update(batch_lines=stats.batch_lines,
+                       batch_bytes=stats.batch_bytes,
+                       header_lines=stats.header_lines)
         tmp = progress_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(doc, f)
@@ -754,6 +899,11 @@ def run_mapping(cfg: NgmConfig, ref_path: str, qry: str | None = None,
         stats.cells_computed += (n_aln + batch.n) * cells_per_aln
         stats.slots_scored += slots_scored(mode, nc, batch.batch_size)
         stats.mark_batch()
+        if dist:
+            stats.batch_lines.append(out.lines - stats.header_lines
+                                     - sum(stats.batch_lines))
+            stats.batch_bytes.append(out.nbytes - header_bytes
+                                     - sum(stats.batch_bytes))
         save_progress()
         if not cfg.no_progress:
             log.info("processed %d reads (%.0f reads/s, %.2f GCUPS)",
@@ -832,20 +982,20 @@ def run_mapping(cfg: NgmConfig, ref_path: str, qry: str | None = None,
         for batch in parsed:
             t0 = time.perf_counter()
             if not pending:
-                start = _mark(mapper.device)
+                start = _mark(mapper.devices)
             pending.append(batch)
             results.append(step(batch.codes, batch.lengths))
             if len(pending) < group:
                 stats.add_time("dispatch", time.perf_counter() - t0)
                 continue
-            item = (pending, Fetch(results, mapper.device, start))
+            item = (pending, Fetch(results, mapper.devices, start))
             pending, results = [], []
             t1 = time.perf_counter()
             stats.add_time("dispatch", t1 - t0)
             emitter.submit(item)
             stats.add_time("emit_wait", time.perf_counter() - t1)
         if pending:   # the last, short group: no padding, no static shapes
-            emitter.submit((pending, Fetch(results, mapper.device, start)))
+            emitter.submit((pending, Fetch(results, mapper.devices, start)))
         emitter.close()
         save_progress(complete=True)
     finally:

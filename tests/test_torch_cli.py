@@ -1,6 +1,6 @@
 """The port's CLI: SAM byte-identical to the JAX CLI's (apart from @PG),
-a jax-free import, and clear refusals outside the ported slice (the paired
-and top-n paths are held in tests/test_torch_paired.py and
+a jax-free import, and the reference's refusals of flag combinations (the
+paired and top-n paths are held in tests/test_torch_paired.py and
 tests/test_torch_topn.py)."""
 
 import os
@@ -104,12 +104,16 @@ def test_device_cuda_raises_without_card(workload, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--dist-nprocs", "2"],
-    ["--shard-across-hosts"], ["--index-shards", "2", "--devices", "2"],
+    # combinations of the several-device and several-process flags that the
+    # reference refuses too (every one of the flags maps on its own)
+    ["--devices", "2", "--index-shards", "3"],
+    ["--dist-nprocs", "2", "--shard-across-hosts", "--index-shards", "2"],
+    ["--shard-across-hosts"], ["--index-shards", "2", "--devices", "2",
+                               "-n", "2"],
 ])
 def test_out_of_slice_flags_raise(workload, flags):
     d = workload
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         torch_main(["map", "-r", str(d / "ref.fa"), "-q", str(d / "reads.fq"),
                     "-o", str(d / "never.sam"), "-k", "11", "--device", "cpu",
                     *flags])

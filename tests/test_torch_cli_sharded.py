@@ -4,7 +4,7 @@ JAX package's (the cases of tests/test_cli_sharded.py on one device).
   * SAM of `map --index-shards 2|3` (single-end, -1/-2, --kmer-min 3, and
     -n 2) byte-identical apart from @PG to the JAX CLI's with the same
     flags, and (not for -n) to the port's own unsharded SAM;
-  * the flag combinations outside the slice are refused;
+  * the flag combinations the reference refuses are refused;
   * `index --index-shards 2` of either package writes the host index, the
     .ngmt-shards artifact and one artifact per shard, which the other
     package's `map --index-shards 2` loads without building anything;
@@ -104,12 +104,13 @@ def test_sharded_sam_equals_jax_and_unsharded(shard_dir, tmp_path, paired,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--index-shards", "2", "--devices", "2"],
+    # what the reference refuses of these flags with --index-shards
+    ["--index-shards", "2", "--devices", "3"],
     ["--index-shards", "2", "--shard-across-hosts"],
-    ["--index-shards", "2", "--dist-nprocs", "2"],
+    ["--index-shards", "2", "--dist-nprocs", "2", "--shard-across-hosts"],
 ])
 def test_rejected_combos(shard_dir, tmp_path, flags):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         torch_main(["map", "-r", str(shard_dir / "ref.fa"), "-q",
                     str(shard_dir / "reads.fq"), "-o", str(tmp_path / "x.sam"),
                     "-k", "11", "--device", "cpu", *flags])

@@ -10,7 +10,10 @@ deferred argmax must pick the first in (i, o)), and matrices large enough
 that the kernel keeps (value, o) unpacked.  K2 is checked at T around the
 16-byte store width, at starts 0, G - T, G - 1, G and beyond, and on a
 genome of more than 2^31 bytes.  The index-shard loop (single, paired, the
-cross-shard tail pool and top-n) runs on the card against the CPU.
+cross-shard tail pool and top-n) runs on the card against the CPU, and so
+do the dp step and the ("dp", "ish") grid on two and four slots of card 0;
+with two cards or more, K1 and K2 run on tensors of the last card while
+card 0 is current.
 
 Marked `cuda`: every test needs a CUDA card and skips without one (the
 kernels have no CPU mode).  Run on the card with
@@ -432,3 +435,78 @@ def test_sharded_step_cuda_equals_cpu(dev, step, compact_cap):
         for f in ra._fields:
             assert torch.equal(getattr(ra, f).cpu(), getattr(rb, f)), (j, f)
     assert int(b[0].mapped.sum()) > 240
+
+
+def test_kernels_on_the_last_card(dev):
+    """K1 and K2 on tensors of the last card while the current device is
+    card 0: each wrapper launches on its tensors' own card (the dp slices
+    of --devices call them from every card)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"{n} CUDA card: needs two to put the tensors on another")
+    last = torch.device("cuda", n - 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(7)
+    G, T = 50_000, 148
+    g = torch.from_numpy(rng.integers(0, 5, G).astype(np.uint8)).to(last)
+    starts = torch.from_numpy(
+        rng.integers(-5, G + 5, 999).astype(np.int32)).to(last)
+    got = gather_genome_windows(g, starts, T)
+    torch.cuda.synchronize(last)
+    assert got.device == last
+    assert torch.equal(got, gather_windows(pad_table(g, T, 4), starts, T))
+    S, L, W = 64, 100, 48
+    cfg = NgmConfig()
+    mats = np.stack([score_matrix(cfg, 0), score_matrix(cfg, 1)])
+    q = rng.integers(0, 4, (S, L)).astype(np.uint8)
+    r = rng.integers(0, 5, (S, L + W)).astype(np.uint8)
+    r[::2, 10:10 + L] = q[::2]
+    lens = np.full(S, L, np.int32)
+    args = [torch.from_numpy(a).to(last) for a in (q, lens, r, mats)]
+    msel = torch.zeros(S, dtype=torch.int32, device=last)
+    got = sw_score(*args, 20, 20, 20, msel, band=W)
+    torch.cuda.synchronize(last)
+    want = banded_sw_score(*args, 20, 20, 20, msel, band=W)
+    for a, b in zip(want, got):
+        assert a.device == b.device == last and torch.equal(a, b)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_two_slots_on_one_card_equal_cpu(dev, shards):
+    """--devices on the slots [cuda:0] x 2 (the dp step, the slices in
+    turn) and [cuda:0] x 4 with 2 shards (the
+    ("dp", "ish") grid) equal the CPU's one-device run, with K1 and K2
+    launched once and twice per slice and shard."""
+    from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
+    from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
+
+    cfg = NgmConfig(kmer=11, index_shards=shards)
+    g = repeat_genome(60_000, n_repeats=12, min_len=800, max_len=2000, seed=5)
+
+    class _G:
+        codes = g
+
+    index = None
+    if shards > 1:
+        host = KmerIndex.build(g, k=11, skip=1, max_freq=cfg.max_kmer_freq,
+                               canonical=True, allow_u32=True)
+        index = ShardedIndex.build(host, g, shards, ShardedIndex.halo_for(cfg))
+    slots = [torch.device("cuda", 0)] * (2 * shards)
+    gpu = Mapper(cfg, _G(), 100, index, device=slots)
+    cpu = Mapper(cfg, _G(), 100, index, device="cpu")
+    for step, seed in (("map_batch", 6), ("map_batch_paired", 8)):
+        if step == "map_batch":
+            codes, _, _ = simulate_reads(g, 256, 100, 0.02, seed=seed)
+        else:
+            codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=seed)
+        lens = np.full(256, 100, np.int32)
+        launches = (sw_score.launches, gather_genome_windows.launches)
+        a = getattr(gpu, step)(codes, lens)
+        torch.cuda.synchronize()
+        n = 2 * shards
+        assert sw_score.launches == launches[0] + n
+        assert gather_genome_windows.launches == launches[1] + 2 * n
+        b = getattr(cpu, step)(codes, lens)
+        for f in a._fields:
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (step, f)

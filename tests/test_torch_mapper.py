@@ -126,16 +126,21 @@ def test_mapper_builds_same_state_and_results_as_jax(repeats):
 
 
 @pytest.mark.parametrize("change", [
+    # the device layouts the reference's Mapper refuses (several devices
+    # map, index shards the devices do not divide do not), and index
+    # sharding without a host index
     dict(bs_mapping=True, index_shards=2, devices=2),
-    dict(end_to_end=True, devices=2), dict(devices=0),
-    dict(index_shards=2, devices=3), dict(devices=2),
-    dict(megabatch=2, devices=4),     # --megabatch maps; the devices do not
+    dict(end_to_end=True, devices=2, index_shards=4),
+    dict(devices=0, index_shards=2, shard_hosts=True),
+    dict(index_shards=2, devices=3),
+    dict(devices=2, index_shards=3, shard_hosts=True, dist_nprocs=2),
+    dict(megabatch=2, devices=4, index_shards=3),
 ])
 def test_out_of_slice_config_raises(change):
     class _G:
         codes = np.zeros(1000, np.uint8)
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tmapper.Mapper(config_from_reference(NgmConfig(kmer=11).replace(**change)), _G(), L,
                        device="cpu")
 

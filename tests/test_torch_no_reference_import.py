@@ -5,9 +5,12 @@ Each case runs in a fresh interpreter and asserts afterwards that no key of
 sys.modules is ``nextgenmap_tpu`` or starts with ``nextgenmap_tpu.``, and
 that ``jax`` is absent: the CLI on the CPU (single-end, ``-1/-2`` and
 ``-n 2``, ``--index-shards 2``; ``--bam -t 4 --megabatch 2``, then BAM
-input with ``--resume --profile``), the ``index --index-shards 2`` verb,
-importing the mapper and the index-shard module, the K3 probe tool (which
-exits 2 without a card), and importing the kernel timing tools.
+input with ``--resume --profile``; ``--devices 2``, the two processes of
+``--dist-nprocs 2`` one after the other, ``--shard-across-hosts`` in one
+process), the ``index --index-shards 2`` verb, importing the mapper, the
+index-shard module and the other parallel modules (mesh, dp,
+distributed), the K3 probe tool (which exits 2 without a card), and
+importing the kernel timing tools.
 """
 
 import os
@@ -77,10 +80,25 @@ CASES = {
         "import glob\n"
         f"assert len(glob.glob({str(d / 'idx.fa')!r} + '.ngmt-shard*')) == 3\n"
     ),
+    "cli_parallel": lambda d: (
+        _cli(d, "cli_parallel.sam", "-q", str(d / "r.fq"), "--devices", "2")
+        + "".join(
+            _cli(d, "cli_dist.sam", "-q", str(d / "r.fq"), "--dist-nprocs",
+                 "2", "--dist-procid", i, "--batch-size", "8", *extra)
+            for i, extra in (("1", ("--no-merge",)), ("0", ())))
+        + _cli(d, "cli_hosts.sam", "-q", str(d / "r.fq"), "--index-shards",
+               "2", "--shard-across-hosts", "--devices", "2", "--skip-save")
+    ),
     "import_mapper": lambda d: "import nextgenmap_tpu_torch.models.mapper\n",
+    "import_parallel": lambda d: (
+        "import nextgenmap_tpu_torch.parallel.distributed\n"
+        "import nextgenmap_tpu_torch.parallel.dp\n"
+        "import nextgenmap_tpu_torch.parallel.mesh\n"),
     "import_index_shard": lambda d: (
         "import nextgenmap_tpu_torch.parallel.index_shard\n"),
     "import_kernel_ab": lambda d: "import nextgenmap_tpu_torch.tools.kernel_ab\n",
+    "import_dp_overlap": lambda d: (
+        "import nextgenmap_tpu_torch.tools.dp_overlap\n"),
     "probe_tool": lambda d: (
         "import sys\n"
         "from nextgenmap_tpu_torch.tools import probe_dyngather\n"
@@ -107,7 +125,11 @@ def test_entry_point_imports_no_reference(files, case):
     if case.startswith("cli"):
         assert (case != "cli_runtime"
                 or os.listdir(files / "prof")[0].endswith(".pt.trace.json"))
-        with open(files / f"{case}.sam") as f:
-            body = [ln for ln in f if not ln.startswith("@")]
-        assert len(body) >= 24
-        assert np.mean([int(ln.split("\t")[1]) & 4 == 0 for ln in body]) > 0.8
+        outs = (("cli_parallel", "cli_dist", "cli_hosts")
+                if case == "cli_parallel" else (case,))
+        for out in outs:
+            with open(files / f"{out}.sam") as f:
+                body = [ln for ln in f if not ln.startswith("@")]
+            assert len(body) >= 24
+            assert np.mean([int(ln.split("\t")[1]) & 4 == 0
+                            for ln in body]) > 0.8

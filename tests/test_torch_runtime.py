@@ -154,20 +154,24 @@ def test_megabatch_pool_sharded_equals_serial(data, spies):
 
 
 def test_megabatch_off_for_topn_and_bisulfite_shards():
-    """The one predicate for --megabatch: never -n > 1, and not the
-    bisulfite shard loop."""
+    """The one predicate for --megabatch: never -n > 1, not the bisulfite
+    shard loop, and not with several device slots or the shard grid."""
     from types import SimpleNamespace
 
     from nextgenmap_tpu_torch.config import NgmConfig
     from nextgenmap_tpu_torch.models.mapper import Mapper
 
-    for shards, bs, mode, want in ((None, False, "single", True),
-                                   (None, True, "paired", True),
-                                   (object(), False, "paired", True),
-                                   (object(), True, "single", False),
-                                   (None, False, "topn", False)):
+    for shards, bs, mode, want, slots, grid in (
+            (None, False, "single", True, 1, None),
+            (None, True, "paired", True, 1, None),
+            (object(), False, "paired", True, 1, None),
+            (object(), True, "single", False, 1, None),
+            (None, False, "topn", False, 1, None),
+            (None, False, "single", False, 2, None),
+            (None, False, "single", False, 1, [[object()]])):
         cfg = NgmConfig(megabatch=2, bs_mapping=bs)
-        m = SimpleNamespace(shards=shards, cfg=cfg)
+        m = SimpleNamespace(shards=shards, cfg=cfg, slots=[None] * slots,
+                            _grid=grid)
         m.supports_megabatch = lambda m=m: Mapper.supports_megabatch(m)
         assert runner.runs_megabatched(cfg, mode, m) == want
         assert not runner.runs_megabatched(cfg.replace(megabatch=1), mode, m)
