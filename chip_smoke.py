@@ -24,9 +24,11 @@ the repository).  Phases, one line of output each:
               local, glocal and tie-heavy; device time, call time, bound
               (integer operations), share and GCUPS
   5. K3       the dynamic-gather probe's kernel == its plain version (exact)
-              at the probe's default 256 x 1024, REP 32, along dim 0 and 1,
-              with its bound (bytes) and torch.gather's time at REP 1; then
-              the probe's entry point, which launches it
+              at the probe's default 256 x 1024 and at its use case at the
+              mapper's batch, 4096 x 2048, REP 32, along dim 0 and 1, with
+              its bound (bytes), its shared-memory gather floor,
+              torch.gather's time at REP 1 and an empty kernel's; then the
+              probe's entry point, which launches it, at both shapes
   6. single   the port's CLI maps 3 x 4096 simulated 100 bp reads (2% SNPs)
               against a 4.6 Mbp genome with planted repeats (E. coli K-12
               scale) on the card; >= 99% mapped, >= 95% truth-correct, K1
@@ -105,7 +107,9 @@ call (CUDA events around one call: host checks, allocation, the launch).
 K1's summary row is the shape the single-end path hands it (2048 slots, ~650
 of them real, the rest at length 0); its other shapes are under
 "other_shapes", the sharded pool's among them, and K2's flattened-genome
-launch under "other_shapes" of K2.
+launch under "other_shapes" of K2.  K3's row is dim 0 at the probe's
+default shape (the slower dim); dim 1 and the 4096 x 2048 shape are under
+its "other_shapes", each with the variant that served it.
 bound_ms is the least time the card could take: for K2 and K3 the bytes
 moved (each input byte read once, each output byte written once) over
 3.35 TB/s; for K1 the integer instructions its cells need (OPS_PER_CELL per
@@ -160,6 +164,10 @@ OPS_PER_CELL = 6               # K1: integer instructions per DP cell
                                # (csrc/sw_score.cu's note counts them)
 K1_MAIN = "local [2048,100]xW48 (650 real)"   # what the single-end path
                                               # hands K1 (~650 real slots)
+# K3: the probe's default shape, and its use case at the mapper's batch
+K3_SHAPES = ((256, 1024), (4096, 2048))
+K3_REP = 32
+K3_MAIN = "256x1024 REP 32 dim 0"
 
 
 def sm_clock_hz():
@@ -381,49 +389,61 @@ def phase_sw(rng, cfg, card):
 def phase_row_gather(card):
     import torch
 
-    from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+    from nextgenmap_tpu_torch.ops.row_gather import (
+        plan, row_gather, row_gather_plain,
+    )
     from nextgenmap_tpu_torch.tools import probe_dyngather
     from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
 
-    R, W, REP = 256, 1024, 32           # the probe's defaults
+    gathers_per_s = 132 * 32 * sm_clock_hz()   # a warp-wide load a clock
+    empty_ms = device_ms(lambda: torch.cuda._sleep(0))
     rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.integers(0, 1 << 20, (R, W), dtype=np.int32)).cuda()
-    err, timing, probes = 0, {}, []
-    for dim in (0, 1):
-        idx = torch.from_numpy(rng.integers(0, (R, W)[dim], (R, W),
-                                            dtype=np.int32)).cuda()
-        k = lambda: row_gather(x, idx, REP, dim)  # noqa: E731
-        p = lambda: row_gather_plain(x, idx, REP, dim)  # noqa: E731
-        got, ref = k(), p()
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"K3 differs from plain along dim {dim}")
-        err = max(err, max_abs_err([got], [ref]))
-        idx64 = idx.long()
-        lib = lambda: torch.gather(x, dim, idx64)  # noqa: E731
-        timing[dim] = {"device_ms": device_ms(k), "call_ms": call_ms(k, 50),
-                       "plain_ms": call_ms(p, 10),
-                       # REP = 1: the one call that computes it
-                       "gather_rep1_ms": device_ms(lib),
-                       "bound_ms": 1e3 * 3 * R * W * 4 / HBM_BYTES_PER_S}
+    err, timing = 0, {}
+    for R, W in K3_SHAPES:
+        x = torch.from_numpy(
+            rng.integers(0, 1 << 20, (R, W), dtype=np.int32)).cuda()
+        for dim in (0, 1):
+            idx = torch.from_numpy(rng.integers(0, (R, W)[dim], (R, W),
+                                                dtype=np.int32)).cuda()
+            k = lambda: row_gather(x, idx, K3_REP, dim)  # noqa: E731
+            p = lambda: row_gather_plain(x, idx, K3_REP, dim)  # noqa: E731
+            got, ref = k(), p()
+            torch.cuda.synchronize()
+            shape = f"{R}x{W} REP {K3_REP} dim {dim}"
+            check(torch.equal(got, ref), f"K3 differs from plain at {shape}")
+            err = max(err, max_abs_err([got], [ref]))
+            idx64 = idx.long()
+            lib = lambda: torch.gather(x, dim, idx64)  # noqa: E731
+            timing[shape] = {
+                "variant": plan(R, W, dim).variant,
+                "device_ms": device_ms(k), "call_ms": call_ms(k, 20),
+                "plain_ms": call_ms(p, 5),
+                # REP = 1: the one call that computes it
+                "gather_rep1_ms": device_ms(lib),
+                "bound_ms": 1e3 * 3 * R * W * 4 / HBM_BYTES_PER_S,
+                "gather_floor_ms": 1e3 * K3_REP * R * W / gathers_per_s}
     # the probe's own entry point is the path that launches K3
     row_gather.launches = 0
-    for dim in (0, 1):
-        res = probe_dyngather.probe(dim, W, R, REP)
-        check(res["ok"] and res["correct"], f"the K3 probe failed: {res}")
-        probes.append(res)
+    probes = {}
+    for R, W in K3_SHAPES:
+        for dim in (0, 1):
+            res = probe_dyngather.probe(dim, W, R, K3_REP)
+            check(res["ok"] and res["correct"], f"the K3 probe failed: {res}")
+            probes[f"{R}x{W} REP {K3_REP} dim {dim}"] = res
     launches = row_gather.launches
     check(launches > 0, "the probe never launched K3")
     line = "; ".join(
-        f"dim {d}: " + timing_row(
+        f"{shape} ({t['variant']}): " + timing_row(
             t["device_ms"], t["call_ms"], t["bound_ms"],
-            f", torch.gather (REP 1) {t['gather_rep1_ms'] * 1e3:.2f} us, "
+            f", gather floor {t['gather_floor_ms'] * 1e3:.3f} us, "
+            f"torch.gather (REP 1) {t['gather_rep1_ms'] * 1e3:.2f} us, "
             f"plain call {t['plain_ms'] * 1e3:.2f} us")
-        + f", probe {probes[d]['ns_per_elem']:.5f} ns/elem = "
-        f"{probes[d]['gelem_per_s']:.1f} Gelem/s"
-        for d, t in timing.items())
-    print(f"[5 K3 row_gather] exact at {R}x{W} REP {REP} ({card}); {line}; "
-          f"probe launches {launches}")
-    return err, timing[1], launches
+        + f", probe {probes[shape]['ns_per_elem']:.5f} ns/elem = "
+        f"{probes[shape]['gelem_per_s']:.1f} Gelem/s"
+        for shape, t in timing.items())
+    print(f"[5 K3 row_gather] exact at every shape ({card}); an empty kernel "
+          f"{empty_ms * 1e3:.2f} us; {line}; probe launches {launches}")
+    return err, timing, launches, empty_ms
 
 
 def map_argv(workdir, device="cuda"):
@@ -1219,7 +1239,8 @@ def main():
     k2_err, k2 = phase_gather(torch.from_numpy(genome).cuda(), rng, card)
     k1_err, k1_shapes = phase_sw(rng, cfg, card)
     k1 = k1_shapes[K1_MAIN]
-    k3_err, k3, k3_launches = phase_row_gather(card)
+    k3_err, k3_shapes, k3_launches, empty_ms = phase_row_gather(card)
+    k3 = k3_shapes[K3_MAIN]
     codes, launches = {}, {}     # launches: {path: (counts, batches)}
     with tempfile.TemporaryDirectory() as workdir:
         ref_path = os.path.join(workdir, "ref.fa")
@@ -1287,8 +1308,15 @@ def main():
         row("row_gather", "nextgenmap_tpu_torch/csrc/row_gather.cu",
             "tools/probe_dyngather.py:51", k3_err, k3, k3_launches,
             {"probe_dyngather": k3_launches}, "bytes", None,
-            gather_rep1_ms=k3["gather_rep1_ms"],
-            shape="256x1024 REP 32 dim 1"),
+            variant=k3["variant"], gather_rep1_ms=k3["gather_rep1_ms"],
+            gather_floor_ms=k3["gather_floor_ms"], empty_kernel_ms=empty_ms,
+            shape=K3_MAIN + ": the probe's default shape",
+            other_shapes={
+                shape: {key: t[key] for key in (
+                    "variant", "device_ms", "call_ms", "plain_ms", "bound_ms",
+                    "gather_floor_ms", "gather_rep1_ms")}
+                | {"share": t["bound_ms"] / t["device_ms"]}
+                for shape, t in k3_shapes.items() if shape != K3_MAIN}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

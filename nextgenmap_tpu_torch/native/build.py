@@ -38,6 +38,7 @@ SIGNATURES = {
     "ngm_sw_score": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
                      P, P, P, P),
     "ngm_row_gather": (P, P, I32, I32, I32, I32, P, P),
+    "ngm_row_gather_plan": (I32, I32, I32, P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -99,10 +100,14 @@ def build(srcdir: str = CSRC_DIR) -> str:
 
 
 def bind(path: str) -> ctypes.CDLL:
-    """Load a kernel library and declare its C signatures."""
+    """Load a kernel library and declare its C signatures.  A library built
+    from an older tree (tools/kernel_ab.py compares them) may lack an entry
+    point that was added since; that one is left undeclared."""
     lib = ctypes.CDLL(path)
     for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:
+            continue
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     lib.ngm_error_string.argtypes = [I32]

@@ -1,7 +1,8 @@
-"""Side-by-side device times of K1 (SW score) and K2 (window gather) built
-from several source trees, in one process on one CUDA card.
+"""Side-by-side device times of K1 (SW score), K2 (window gather) and K3
+(the dynamic-gather probe's kernel) built from several source trees, in one
+process on one CUDA card.
 
-    python -m nextgenmap_tpu_torch.tools.kernel_ab [NAME=CSRC_DIR ...] [--rounds 2]
+    python -m nextgenmap_tpu_torch.tools.kernel_ab [NAME=CSRC_DIR ...] [--rounds 2] [--only k3]
 
 Each CSRC_DIR is a copy of the port's ``csrc/`` (another commit's, or a
 variant of one); ``repo`` (the port's own ``csrc/``) is always included.
@@ -12,12 +13,20 @@ time per launch) at the chip smoke's main shapes: K1 local [2048,100]xW48
 with all slots real and with 650 real (the rest at length 0, as the mapper
 passes them), [2048,150]xW56, [512,1000]xW184 and glocal [2048,100]xW48; K2
 at 2048x148, 4096x148, 4096x206 and 614x1184, beside ``unfold`` +
-``index_select``.  Rounds alternate the trees' order (A B ..., then ... B A)
-so that a drift of the card's clock favours none.
+``index_select``; K3 along dim 0 and dim 1 at the probe's default 256x1024
+and at 4096x2048 (the probe's use case at the mapper's batch), REP 32,
+beside ``torch.gather`` at REP 1 and an empty kernel (``torch.cuda._sleep(0)``:
+one thread, no work), the floor of any launch.  Rounds alternate the trees'
+order (A B ..., then ... B A) so that a drift of the card's clock favours
+none.
 
 Prints the card's name and power limit, one line per kernel and shape, and
 one JSON object as the last line: {"card": ..., "k1": {shape: {tree: [ms per
-round]}}, "k2": {...}}.  Needs a CUDA card.
+round]}}, "k2": {...}, "k3": {...}, "k3_floors": {shape: {"bytes_ms": ...,
+"gather_ms": ...}}}.  K3's floors are its bytes (12 R W over 3.35 TB/s) and
+its gathers from shared memory without bank conflicts (REP R W loads, a
+warp of 32 a clock on each of 132 SMs at the card's maximum SM clock).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.models.mapper import score_matrices
 from nextgenmap_tpu_torch.native import build
 from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
+from nextgenmap_tpu_torch.ops.row_gather import row_gather_plain
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
 from nextgenmap_tpu_torch.tools.timing import device_ms
 
@@ -49,6 +59,10 @@ K1_SHAPES = [
     ("glocal [2048,100]xW48", 2048, 100, 48, 2048, False),
 ]
 K2_SHAPES = [(2048, 148), (4096, 148), (4096, 206), (614, 1184)]
+K3_SHAPES = [(256, 1024), (4096, 2048)]
+K3_REP = 32
+KERNELS = ("k1", "k2", "k3")
+HBM_BYTES_PER_S = 3.35e12
 
 
 def sw_inputs(rng: np.random.Generator, S: int, L: int, W: int, real: int):
@@ -97,10 +111,34 @@ def gather_launcher(lib, genome, starts, T: int):
     return launch
 
 
+def row_gather_launcher(lib, x, idx, rep: int, dim: int):
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    R, W = x.shape
+
+    def launch():
+        code = lib.ngm_row_gather(x.data_ptr(), idx.data_ptr(), R, W, rep,
+                                  dim, out.data_ptr(), stream)
+        build.check(code, "row_gather")
+        return out
+    return launch
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", metavar="NAME=CSRC_DIR")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--only", choices=KERNELS, action="append",
+                    help="time only these kernels (repeatable; default all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
@@ -124,8 +162,9 @@ def main(argv: list[str] | None = None) -> int:
     cfg = NgmConfig()
     gaps = (cfg.gap_read_penalty, cfg.gap_ref_penalty, cfg.gap_extend_penalty)
     mats = torch.from_numpy(score_matrices(cfg)).to(dev)
+    only = set(args.only or KERNELS)
     cases = {}   # (kernel, label) -> {tree: launch}
-    for label, S, L, W, real, local in K1_SHAPES:
+    for label, S, L, W, real, local in K1_SHAPES if "k1" in only else ():
         q, lens, r = (torch.from_numpy(a).to(dev)
                       for a in sw_inputs(rng, S, L, W, real))
         msel = torch.from_numpy(rng.integers(0, 2, S, dtype=np.int32)).to(dev)
@@ -139,7 +178,7 @@ def main(argv: list[str] | None = None) -> int:
                 raise RuntimeError(f"K1 of {name} differs from plain at {label}")
             cases["k1", label][name] = fn
     genome = torch.from_numpy(rng.integers(0, 4, GENOME, dtype=np.uint8)).to(dev)
-    for n, T in K2_SHAPES:
+    for n, T in K2_SHAPES if "k2" in only else ():
         starts = torch.from_numpy(
             rng.integers(0, GENOME + 1, n).astype(np.int32)).to(dev)
         padded = pad_table(genome, T, 4)
@@ -153,16 +192,40 @@ def main(argv: list[str] | None = None) -> int:
             if not torch.equal(fn(), ref):
                 raise RuntimeError(f"K2 of {name} differs from plain at {label}")
             cases["k2", label][name] = fn
+    floors = {}
+    gathers_per_s = 132 * 32 * sm_clock_hz()
+    for R, W in K3_SHAPES if "k3" in only else ():
+        x = torch.from_numpy(
+            rng.integers(0, 1 << 20, (R, W), dtype=np.int32)).to(dev)
+        for dim in (0, 1):
+            idx = torch.from_numpy(rng.integers(0, (R, W)[dim], (R, W),
+                                                dtype=np.int32)).to(dev)
+            ref = row_gather_plain(x, idx, K3_REP, dim)
+            label = f"{R}x{W} REP {K3_REP} dim {dim}"
+            idx64 = idx.long()
+            cases["k3", label] = {
+                "torch.gather (REP 1)":
+                    lambda x=x, i=idx64, d=dim: torch.gather(x, d, i),
+                "empty kernel": lambda: torch.cuda._sleep(0)}
+            for name, lib in libs.items():
+                fn = row_gather_launcher(lib, x, idx, K3_REP, dim)
+                if not torch.equal(fn(), ref):
+                    raise RuntimeError(f"K3 of {name} differs from plain at "
+                                       f"{label}")
+                cases["k3", label][name] = fn
+        floors[f"{R}x{W} REP {K3_REP}"] = {
+            "bytes_ms": 1e3 * 12 * R * W / HBM_BYTES_PER_S,
+            "gather_ms": 1e3 * K3_REP * R * W / gathers_per_s}
     torch.cuda.synchronize()
 
-    result = {"card": card, "k1": {}, "k2": {}}
+    result = {"card": card, "k1": {}, "k2": {}, "k3": {}, "k3_floors": floors}
     for rnd in range(args.rounds):
         for (kernel, label), fns in cases.items():
             order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
             for name in order:
                 result[kernel].setdefault(label, {}).setdefault(
                     name, []).append(device_ms(fns[name]))
-    for kernel in ("k1", "k2"):
+    for kernel in KERNELS:
         for label, by_tree in result[kernel].items():
             print(f"{kernel} {label}: " + "; ".join(
                 f"{name} {statistics.median(ms) * 1e3:.2f} us ("

@@ -9,7 +9,11 @@ slots, tie-heavy periodic inputs (many cells share the maximum, so the
 deferred argmax must pick the first in (i, o)), and matrices large enough
 that the kernel keeps (value, o) unpacked.  K2 is checked at T around the
 16-byte store width, at starts 0, G - T, G - 1, G and beyond, and on a
-genome of more than 2^31 bytes.  The index-shard loop (single, paired, the
+genome of more than 2^31 bytes.  K3 is checked on each side of its
+variants' boundaries (ops/row_gather.plan), at W not a multiple of 32, W 1
+and R 1, REP 0, 1 and 33, indices from -3 to 3 times the extent, rows off
+a 16-byte boundary and 4096 x 2048, and its Python shape rule against the
+library's.  The index-shard loop (single, paired, the
 cross-shard tail pool and top-n) runs on the card against the CPU, and so
 do the dp step and the ("dp", "ish") grid on two and four slots of card 0;
 with two cards or more, K1 and K2 run on tensors of the last card while
@@ -302,18 +306,74 @@ def test_mapper_cuda_equals_cpu(dev):
 @pytest.mark.parametrize("dim,r,w,rep", [
     (1, 256, 1024, 32), (0, 256, 1024, 32), (1, 3, 5, 9), (0, 5, 3, 11),
     (1, 4, 20_000, 3), (0, 300, 77, 0),
+    # K3's variants on each side of their boundaries (ops/row_gather.plan)
+    (0, 1767, 40, 33), (0, 1768, 40, 33), (0, 3534, 21, 5),
+    (0, 3535, 21, 5), (0, 7068, 9, 4), (0, 7069, 9, 4), (0, 56_544, 3, 2),
+    (0, 56_545, 3, 2), (1, 2, 56_615, 33), (1, 2, 56_616, 33),
+    (1, 2, 58_112, 3), (1, 1100, 300, 32), (1, 600, 20_000, 33),
+    # W not a multiple of 32 (and not of 4: no bulk copy), W 1, R 1
+    (1, 9, 77, 33), (0, 77, 45, 70), (1, 5, 1, 7), (0, 1, 5, 7),
+    (1, 1, 600, 64), (0, 1, 1, 3), (1, 1, 1, 0),
+    # REP 0 and 1, and the use-case shape
+    (1, 64, 2048, 0), (0, 64, 2048, 1), (1, 64, 2048, 1),
+    (1, 4096, 2048, 32), (0, 4096, 2048, 32),
 ])
 def test_row_gather_kernel_equals_plain(dev, dim, r, w, rep):
+    """Indices run from -3 extent to 3 extent, so the floored modulo is
+    exercised on both sides."""
     rng = np.random.default_rng(r + w + dim)
+    extent = (r, w)[dim]
     x = torch.from_numpy(
         rng.integers(-(1 << 30), 1 << 30, (r, w), dtype=np.int32)).to(dev)
-    idx = torch.from_numpy(
-        rng.integers(-3 * w, 3 * w, (r, w), dtype=np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-3 * extent, 3 * extent, (r, w),
+                                        dtype=np.int32)).to(dev)
     before = row_gather.launches
     got = row_gather(x, idx, rep, dim)
     torch.cuda.synchronize()
     assert row_gather.launches == before + 1
     assert torch.equal(got, row_gather_plain(x, idx, rep, dim))
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_row_gather_unaligned_rows(dev, dim):
+    """x 4 bytes past a 16-byte boundary: dim 1 cannot take its bulk copy
+    and loads the row itself."""
+    rng = np.random.default_rng(11)
+    r, w = 40, 256
+    flat = torch.from_numpy(rng.integers(0, 1 << 20, r * w + 1,
+                                         dtype=np.int32)).to(dev)
+    x = flat[1:].view(r, w)
+    assert x.data_ptr() % 16 == 4
+    idx = torch.from_numpy(rng.integers(0, (r, w)[dim], (r, w),
+                                        dtype=np.int32)).to(dev)
+    got = row_gather(x, idx, 32, dim)
+    torch.cuda.synchronize()
+    assert torch.equal(got, row_gather_plain(x, idx, 32, dim))
+
+
+def test_row_gather_plan_matches_the_kernels(dev):
+    """The Python shape rule and the library's own are one rule."""
+    import ctypes
+
+    from nextgenmap_tpu_torch.native import build
+    from nextgenmap_tpu_torch.ops import row_gather as rg
+
+    lib = build.load()
+    buf = (ctypes.c_int * 7)()
+    for dim, R, W in [(0, r, w) for r in (1, 256, 1767, 1768, 3534, 3535,
+                                          4096, 7068, 7069, 56_544, 56_545,
+                                          65_535)
+                      for w in (1, 77, 1024, 2048)] + [
+            (1, r, w) for r in (1, 2, 256, 4096, 10_000)
+            for w in (1, 77, 1024, 1025, 2048, 20_000, 56_615, 56_616,
+                      58_112)]:
+        p = rg.plan(R, W, dim)
+        assert lib.ngm_row_gather_plan(R, W, dim, buf) == 0
+        assert list(buf) == [rg.VARIANTS.index(p.variant), p.strip, *p.grid,
+                             p.threads, p.shared_bytes, p.per_block], \
+            (dim, R, W)
+    assert lib.ngm_row_gather_plan(65_536, 4, 0, buf) == -1
+    assert lib.ngm_row_gather_plan(4, 58_113, 1, buf) == -1
 
 
 def _mappers(dev, cfg, g, read_len=100):
