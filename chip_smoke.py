@@ -7,7 +7,7 @@ Needs one CUDA card (exits non-zero without one, and outside a checkout of
 the repository).  Phases, one line of output each:
 
   1. card     the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build    nvcc builds the three hand-written kernels from the checkout,
+  2. build    nvcc builds the four hand-written kernels from the checkout,
               and g++ the port's host IO library
   3. K2       gather kernel == its plain PyTorch version on the card (exact),
               at 2048x148, 4096x148, 4096x206 and the long reads' 614x1184,
@@ -23,6 +23,15 @@ the repository).  Phases, one line of output each:
               cells) and W 520, 1024 and 2048 (a block of warps), each
               local, glocal and tie-heavy; device time, call time, bound
               (integer operations), share and GCUPS
+  4b. K4      SW with traceback == its plain version on the card (exact, in
+              all 11 AlignResult fields and the [L, S, W] direction bytes)
+              at the card tests' main shapes: [4096,100]xW48 (what the
+              single-end path's traceback takes), [2048,150]xW56,
+              [614,1000]xW184 and [2048,100]xW264, local and glocal, with
+              the bisulfite matrices, tie-heavy slots, length-0 slots and a
+              truncating op buffer; device time, the forward pass's alone
+              (every qlen 0: no walk), call time, the plain version's call
+              time, bound (operations or bytes, the larger) and share
   5. K3       the dynamic-gather probe's kernel == its plain version (exact)
               at the probe's default 256 x 1024 and at its use case at the
               mapper's batch, 4096 x 2048, REP 32, along dim 0 and 1, with
@@ -31,27 +40,27 @@ the repository).  Phases, one line of output each:
               probe's entry point, which launches it, at both shapes
   6. single   the port's CLI maps 3 x 4096 simulated 100 bp reads (2% SNPs)
               against a 4.6 Mbp genome with planted repeats (E. coli K-12
-              scale) on the card; >= 99% mapped, >= 95% truth-correct, K1
-              and K2 launched by that run, and K1 scored real candidates
+              scale) on the card; >= 99% mapped, >= 95% truth-correct, K1,
+              K2 and K4 launched by that run, and K1 scored real candidates
   7. paired   the CLI's -1/-2 maps 2 x 4096 reads (2048 FR pairs a batch,
               insert 350 +- 40) on the same genome; >= 99% mapped, >= 95%
-              truth-correct per mate, >= 90% of pairs proper, K1 and K2
-              launched, real slots scored
+              truth-correct per mate, >= 90% of pairs proper, K1, K2 and
+              K4 launched, real slots scored
   8. top-n    the CLI's -n 2 maps 2 x 4096 reads; one primary record per
               read, >= 99% mapped and >= 95% truth-correct primaries,
-              secondaries present, K1 and K2 launched
+              secondaries present, K1, K2 and K4 launched
   9. e2e      the CLI's --end-to-end maps 2 x 4096 reads (2% SNPs) on the
               same genome; >= 99% mapped, >= 95% truth-correct, no S/H op in
-              any mapped CIGAR, K1 (glocal) and K2 launched
+              any mapped CIGAR, K1 and K4 (glocal) and K2 launched
  10. bisulfite the CLI's --bs-mapping maps 2 x 4096 bisulfite reads (original
               top and bottom strands, 80% of C read as T) on the same
-              genome; >= 90% truth-correct, K1 and K2 launched, real slots
-              scored
+              genome; >= 90% truth-correct, K1, K2 and K4 launched, real
+              slots scored
  11. long     the CLI maps 1000 bp reads (3% SNPs, 0.5% indels) in 2
               batches of the size the runner picks for them (614); >= 90%
               mapped, >= 90% of the mapped within 16 bp of the truth, every
-              CIGAR consumes SEQ and every NM equals the edits, K1 at W 184
-              and K2 at T 1184 launched
+              CIGAR consumes SEQ and every NM equals the edits, K1 and K4
+              at W 184 and K2 at T 1184 launched
  12. cuda=cpu one batch of each path (single, paired, top-n, end-to-end,
               bisulfite single and paired: 4096 reads; 1000 bp: 614 reads;
               single with --index-shards 4) mapped on the card and on the
@@ -61,7 +70,7 @@ the repository).  Phases, one line of output each:
               8192 rows; K1 at 4096 slots) and 2 (full per-shard tails) on
               phase 6's reads, and -1/-2 --index-shards 4 on phase 7's
               pairs: each SAM equal to the unsharded one byte for byte but
-              @PG, K1 and K2 launched as the shard loop predicts; K1 == its
+              @PG, K1, K2 and K4 launched as the shard loop predicts; K1 == its
               plain version at the pool's [4096,100]xW48 input with the
               real slots of a batch, K2 at the flattened [S*Gs] genome
  14. gigabase a 2^31 + 2^27 base (2.28 Gbp) genome drawn as uint8 from the
@@ -70,8 +79,8 @@ the repository).  Phases, one line of output each:
               native passes; canonical entries fall away), split into 4
               shards, 2 x 4096 reads (2% SNPs) through Mapper.map_batch on
               the card with full per-shard tails; >= 99% mapped, >= 95%
-              truth-correct, some global positions past 2^31, K1 and K2
-              launched by every shard's tail; seconds of each stage, the
+              truth-correct, some global positions past 2^31, K1, K2 and
+              K4 launched by every shard's tail; seconds of each stage, the
               peak device memory and the process's peak host memory
  15. runtime  the CLI on phase 6's reads with -t 1, -t 2 and -t 4 (SAMs
               equal to phase 6's, the same alignment and cell counters),
@@ -79,7 +88,7 @@ the repository).  Phases, one line of output each:
               4 -t 4, --bam (records, decoded by read_bam, equal to the SAM's
               first 11 fields), an interrupted run (one batch, its sidecar
               marked incomplete, a partial record appended) completed by
-              --resume, --profile (the trace names K1 and K2), and
+              --resume, --profile (the trace names K1, K2 and K4), and
               --corridor 225 (W 264) on 1,024 reads equal to the CPU's SAM;
               host-inclusive and streaming reads/s, GCUPS, the device step
               (CUDA events) and phase seconds of each run
@@ -90,11 +99,11 @@ the repository).  Phases, one line of output each:
               two on phase 7's pairs (equal to phase 7's), and two of
               --shard-across-hosts --index-shards 2 --dist-nprocs 2 joined
               by a gloo group on localhost (SAM equal to phase 13's
-              sharded-2, each holding only its shard); K1 once and K2 twice
-              a batch in each, and each one's peak device memory against
+              sharded-2, each holding only its shard); K1 and K4 once and
+              K2 twice a batch in each, and each one's peak device memory against
               phase 13's sharded-2 run.  Then the dp step on the slots
               [cuda:0, cuda:0] (run_mapping; the slices one after the
-              other, K1 once a slice) on phases 6 and 7's
+              other, K1 and K4 once a slice) on phases 6 and 7's
               inputs, SAM equal to theirs, reads/s and the device step
               beside phase 15's -t 1; --devices 2 through the CLI where the
               machine has two cards, else a line saying it has one
@@ -109,15 +118,24 @@ of them real, the rest at length 0); its other shapes are under
 "other_shapes", the sharded pool's among them, and K2's flattened-genome
 launch under "other_shapes" of K2.  K3's row is dim 0 at the probe's
 default shape (the slower dim); dim 1 and the 4096 x 2048 shape are under
-its "other_shapes", each with the variant that served it.
+its "other_shapes", each with the variant that served it.  K4's row is
+the single-end path's traceback input ([4096,100]xW48, local); its other
+shapes are under "other_shapes".
 bound_ms is the least time the card could take: for K2 and K3 the bytes
 moved (each input byte read once, each output byte written once) over
 3.35 TB/s; for K1 the integer instructions its cells need (OPS_PER_CELL per
 cell of each real slot's qlen x W) over 132 SMs x 64 INT32 lanes x the
-card's maximum SM clock (nvidia-smi).  share = bound_ms / device_ms.
+card's maximum SM clock (nvidia-smi); for K4 the larger of its integer
+instructions (K4_OPS_PER_CELL of its mode per cell of each real slot's
+qlen x W, as for K1) at that rate and its bytes (inputs, those cells'
+direction bytes written, the bytes its walks read back, the outputs) over
+3.35 TB/s.
+share = bound_ms / device_ms.
 
-Every CLI run must launch K1 and K2, score real candidates, count
-alignments (GCUPS > 0) and time its device steps.  After the last phase
+Every CLI run must launch K1, K2 and K4, score real candidates, count
+alignments (GCUPS > 0) and time its device steps.  From phase 6 on, the
+traceback's plain version raises if a CUDA tensor reaches it, so every
+traceback of every mapping phase runs on K4.  After the last phase
 the script fails if jax or any module of the JAX package (nextgenmap_tpu)
 was imported.
 
@@ -162,6 +180,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
 INT32_LANES = 132 * 64         # SMs x INT32 lanes per SM per clock (sm_90)
 OPS_PER_CELL = 6               # K1: integer instructions per DP cell
                                # (csrc/sw_score.cu's note counts them)
+# K4's forward pass, by mode (csrc/sw_align.cu's note counts them)
+K4_OPS_PER_CELL = {"local": 21, "glocal": 19}
+# K4: the card tests' main shapes (single-end 100 and 150 bp, 1000 bp,
+# --corridor 225), the first what the single-end path's traceback takes
+K4_SHAPES = ((4096, 100, 48), (2048, 150, 56), (614, 1000, 184),
+             (2048, 100, 264))
+K4_MAIN = "local [4096,100]xW48"
 K1_MAIN = "local [2048,100]xW48 (650 real)"   # what the single-end path
                                               # hands K1 (~650 real slots)
 # K3: the probe's default shape, and its use case at the mapper's batch
@@ -386,6 +411,122 @@ def phase_sw(rng, cfg, card):
     return err, timings
 
 
+def _align_inputs(rng, S, L, W):
+    """K4's input: _sw_inputs's queries and corridors (~2% SNPs and a short
+    indel), every fifth slot tie-heavy (ACAC... over ACAC...), every 11th
+    of length 0 with an all-4 corridor (the top-n tail's invalid slots)."""
+    q, lens, r, msel = _sw_inputs(rng, S, L, W)
+    tq, _, tr, _ = _tie_inputs(rng, S, L, W)
+    q[1::5], r[1::5] = tq[1::5], tr[1::5]
+    lens[::11] = 0
+    r[::11] = 4
+    return q, lens, r, msel
+
+
+def phase_align(rng, cfg, card):
+    """K4 against its plain version (banded_sw_forward's bytes, then
+    _backwalk_rows's fields) and timed, at the card tests' main shapes."""
+    import torch
+
+    from nextgenmap_tpu_torch.models.mapper import score_matrices
+    from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align_with_dirs
+    from nextgenmap_tpu_torch.ops.sw_ref import (
+        _backwalk_rows, banded_sw_align, banded_sw_forward,
+    )
+    from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
+
+    ops_per_s = INT32_LANES * sm_clock_hz()
+    bs_mats = score_matrices(cfg.replace(bs_mapping=True))
+    gaps = (cfg.gap_read_penalty, cfg.gap_ref_penalty, cfg.gap_extend_penalty)
+    err, rows, timings = 0, [], {}
+    for S, L, W in K4_SHAPES:
+        for mode in ("local", "glocal"):
+            q, lens, r, msel = _align_inputs(rng, S, L, W)
+            main = (S, L, W) == K4_SHAPES[0]
+            mats = score_matrices(cfg) if main else bs_mats
+            args = [torch.from_numpy(a).cuda() for a in (q, lens, r, mats)]
+            ms = torch.from_numpy(msel).cuda()
+            shape = f"{mode} [{S},{L}]xW{W}" + ("" if main else " bs mats")
+            want_dirs, best, bi, bo = banded_sw_forward(
+                *args, *gaps, ms, band=W, mode=mode)
+            for mo in (0, 12):      # the full op buffer, one that truncates
+                got, dirs = sw_align_with_dirs(*args, *gaps, ms, band=W,
+                                               max_ops=mo, mode=mode)
+                want = _backwalk_rows(want_dirs, best, bi, bo, mo or L + W)
+                torch.cuda.synchronize()
+                check(torch.equal(dirs, want_dirs),
+                      f"K4 direction bytes differ from plain at {shape}")
+                for f in want._fields:
+                    check(torch.equal(getattr(got, f), getattr(want, f)),
+                          f"K4 {f} differs from plain at {shape} max_ops {mo}")
+                err = max(err, max_abs_err(list(got), list(want)),
+                          max_abs_err([dirs], [want_dirs]))
+            check(bool(got.trunc.any()), f"max_ops 12 truncated nothing at "
+                  f"{shape}")
+            full = sw_align_with_dirs(*args, *gaps, ms, band=W,
+                                      mode=mode)[0]
+            check(int(full.score.max()) > 0 and int(full.indels.sum()) > 0,
+                  f"K4 aligned nothing, or no gap, at {shape}")
+            k = lambda: sw_align_with_dirs(*args, *gaps, ms, band=W,  # noqa: E731
+                                           mode=mode)
+            p = lambda: banded_sw_align(*args, *gaps, ms, band=W,  # noqa: E731
+                                        mode=mode)
+            cells = int(np.clip(lens, 0, L).astype(np.int64).sum()) * W
+            walked = int(full.n_ops.sum())
+            n_bytes = (S * L + S * (L + W) + 8 * S + cells + walked
+                       + S * (L + W) + 37 * S)
+            bound_ops = 1e3 * K4_OPS_PER_CELL[mode] * cells / ops_per_s
+            bound_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+            long = L >= 1000
+            t = {"device_ms": device_ms(k), "call_ms": call_ms(k, 20),
+                 "plain_ms": call_ms(p, 1, warmup=0 if long else 1),
+                 "bound_ms": max(bound_ops, bound_bytes),
+                 "bound_by": ("operations" if bound_ops >= bound_bytes
+                              else "bytes"),
+                 "walk_steps": walked}
+            # the forward pass alone: every qlen 0, so no cell counts and
+            # no walk starts, while every byte is still written
+            no_walk = [args[0], torch.zeros_like(args[1]), *args[2:]]
+            t["forward_ms"] = device_ms(lambda: sw_align_with_dirs(
+                *no_walk, *gaps, ms, band=W, mode=mode))
+            rows.append(f"{shape}: " + timing_row(
+                t["device_ms"], t["call_ms"], t["bound_ms"],
+                f" ({t['bound_by']}; ops {bound_ops * 1e3:.3f} us, bytes "
+                f"{bound_bytes * 1e3:.3f} us), forward pass alone "
+                f"{t['forward_ms'] * 1e3:.2f} us, {walked} ops walked, plain "
+                f"call {t['plain_ms']:.3f} ms"))
+            timings[shape] = t
+    print(f"[4b K4 sw_align] exact in all 11 fields and the direction bytes "
+          f"at every shape, full and truncating op buffers ({card}; bound: "
+          f"{K4_OPS_PER_CELL['local']} (local) or "
+          f"{K4_OPS_PER_CELL['glocal']} (glocal) int ops per real cell at "
+          f"{ops_per_s / 1e12:.2f} T/s, or "
+          f"bytes at 3.35 TB/s); " + "; ".join(rows))
+    return err, timings
+
+
+def guard_plain_traceback():
+    """From here on, the traceback's plain version raises if a CUDA tensor
+    reaches it: the mapping phases must run every traceback on K4."""
+    import torch
+
+    from nextgenmap_tpu_torch.ops import sw_align_kernel, sw_ref
+
+    def guard(name, fn):
+        def call(*a, **k):
+            check(not any(isinstance(x, torch.Tensor) and x.is_cuda
+                          for x in a),
+                  f"a CUDA tensor reached the plain {name}")
+            return fn(*a, **k)
+        return call
+
+    for mod in (sw_ref, sw_align_kernel):
+        for name in ("banded_sw_align", "banded_sw_forward",
+                     "_backwalk_rows"):
+            if hasattr(mod, name):
+                setattr(mod, name, guard(name, getattr(mod, name)))
+
+
 def phase_row_gather(card):
     import torch
 
@@ -465,18 +606,22 @@ def run_cli(path, argv):
 def run_counted(path, run):
     """run() -> RunStats of one mapping run, with run_cli's checks."""
     from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
+    from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
     from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 
     sw_score.launches = 0
     gather_genome_windows.launches = 0
+    sw_align.launches = 0
     t0 = time.perf_counter()
     stats = run()
     wall = time.perf_counter() - t0
     launches = {"sw_score": sw_score.launches,
-                "gather_windows": gather_genome_windows.launches}
+                "gather_windows": gather_genome_windows.launches,
+                "sw_align": sw_align.launches}
     check(launches["sw_score"] > 0, f"the {path} path never launched K1")
     check(launches["gather_windows"] > 0,
           f"the {path} path never launched K2")
+    check(launches["sw_align"] > 0, f"the {path} path never launched K4")
     check(stats.slots_scored > 0, f"K1 scored no real candidate ({path})")
     check(stats.alignments_computed > 0 and stats.gcups() > 0,
           f"the {path} run counted no alignment (GCUPS {stats.gcups()})")
@@ -642,9 +787,11 @@ def phase_long_path(genome, workdir, device="cuda"):
 
     check(stats.first_batch_reads == LONG_BATCH,
           f"first batch {stats.first_batch_reads} reads, expected {LONG_BATCH}")
-    # one score pass (K1) and two corridor fetches (K2) per batch
+    # one score pass (K1), two corridor fetches (K2) and one traceback (K4)
+    # per batch
     check(launches == {"sw_score": N_BATCHES_NEW,
-                       "gather_windows": 2 * N_BATCHES_NEW},
+                       "gather_windows": 2 * N_BATCHES_NEW,
+                       "sw_align": N_BATCHES_NEW},
           f"long-read launches {launches}")
     c = synthetic.alignment_counts(sam, genome, tol=16)
     check(c["records"] == n, f"SAM holds {c['records']} records, expected {n}")
@@ -736,9 +883,10 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
         S = int(flags[-1])
         per = 1 if shard_tail_cap(BATCH, S) else S    # pool, or S tails
         check(counts == {"sw_score": per * n_batches,
-                         "gather_windows": 2 * per * n_batches},
-              f"{name}: launches {counts}, expected {per} K1 and {2 * per} "
-              f"K2 per batch")
+                         "gather_windows": 2 * per * n_batches,
+                         "sw_align": per * n_batches},
+              f"{name}: launches {counts}, expected {per} K1, {2 * per} "
+              f"K2 and {per} K4 per batch")
         launches[name] = (counts, n_batches)
         rows.append(f"{name} ({'pool' if per == 1 else f'{S} tails'}): "
                     f"SAM equal; " + summary(stats, n_batches, counts, wall))
@@ -805,6 +953,7 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
     from nextgenmap_tpu_torch.models.mapper import Mapper
     from nextgenmap_tpu_torch.native import hostio
     from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
+    from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
     from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
     from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
 
@@ -847,6 +996,7 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
     lens = np.full(batch, READ_LEN, np.int32)
     sw_score.launches = 0
     gather_genome_windows.launches = 0
+    sw_align.launches = 0
     mapped, gpos, gstrand = [], [], []
     for b in range(2):
         t = time.perf_counter()
@@ -858,7 +1008,8 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
         gpos.append(res.pos.cpu().numpy())
         gstrand.append(res.strand.cpu().numpy())
     launches = {"sw_score": sw_score.launches,
-                "gather_windows": gather_genome_windows.launches}
+                "gather_windows": gather_genome_windows.launches,
+                "sw_align": sw_align.launches}
     mapped, gpos, gstrand = (np.concatenate(x) for x in
                              (mapped, gpos, gstrand))
     correct = mapped & (np.abs(gpos - pos) <= 5) & (gstrand == strand)
@@ -866,12 +1017,14 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
     peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
             else float("nan"))
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    # past S * Gs = 2^31 the tails run per shard: K1 once and K2 twice each
+    # past S * Gs = 2^31 the tails run per shard: K1 once, K2 twice and K4
+    # once each
     per = (1 if mapper.tail_cap(batch)
            and mapper.shards.genome.numel() < 2**31 else n_shards)
-    check(launches == {"sw_score": 2 * per, "gather_windows": 4 * per},
-          f"gigabase launches {launches}, expected {per} K1 and {2 * per} "
-          f"K2 per batch")
+    check(launches == {"sw_score": 2 * per, "gather_windows": 4 * per,
+                       "sw_align": 2 * per},
+          f"gigabase launches {launches}, expected {per} K1, {2 * per} "
+          f"K2 and {per} K4 per batch")
     check(mapped.sum() >= 0.99 * n, f"only {mapped.sum()}/{n} reads mapped")
     check(correct.sum() >= 0.95 * n,
           f"only {correct.sum()}/{n} reads truth-correct")
@@ -960,9 +1113,11 @@ def phase_runtime(workdir, device="cuda"):
     check(len(traces) == 1, f"--profile wrote {traces}")
     with open(os.path.join(prof, traces[0])) as f:
         trace = f.read()
-    for kern in ("sw_score_kernel", "gather_windows_kernel"):
+    for kern in ("sw_score_kernel", "gather_windows_kernel",
+                 "sw_align_kernel"):
         check(kern in trace, f"the trace names no {kern}")
-    rows[-1] += f"; trace {len(trace) / 2**20:.1f} MiB names K1 and K2"
+    rows[-1] += (f"; trace {len(trace) / 2**20:.1f} MiB names K1, K2 and "
+                 f"K4")
     os.remove(os.path.join(prof, traces[0]))
 
     # W = 264: K1's warp kernel at 32 x 12 cells; the CPU runs its plain
@@ -991,6 +1146,7 @@ def child(argv):
     run_cli's checks, then one JSON line of what the parent reads."""
     import torch
 
+    guard_plain_traceback()
     stats, launches, wall = run_cli("child", argv)
     print(json.dumps({
         "launches": launches, "reads_in": stats.reads_in,
@@ -1085,7 +1241,8 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
         for i, (r, err) in enumerate(procs):
             n_b = -(-r["reads_in"] // BATCH)     # batches it mapped
             per = r["launches"]
-            check(per == {"sw_score": n_b, "gather_windows": 2 * n_b},
+            check(per == {"sw_score": n_b, "gather_windows": 2 * n_b,
+                          "sw_align": n_b},
                   f"{name} process {i}: launches {per} for {n_b} batches")
             launches[f"{name} p{i}"] = (per, n_b)
             if name == "shard-across-hosts":
@@ -1121,8 +1278,10 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
             cfg, path("ref.fa"), out_path=path(out), device=slots, **qry))
         check(sam_records(path(out)) == want,
               f"{name}: SAM differs from the one-slot run's")
-        check(counts == {"sw_score": 2 * n_b, "gather_windows": 4 * n_b},
-              f"{name}: launches {counts}, expected 2 K1 and 4 K2 a batch")
+        check(counts == {"sw_score": 2 * n_b, "gather_windows": 4 * n_b,
+                         "sw_align": 2 * n_b},
+              f"{name}: launches {counts}, expected 2 K1, 4 K2 and 2 K4 a "
+              f"batch")
         launches[name] = (counts, n_b)
         rows.append(f"{name}: " + summary(stats, n_b, counts, wall))
     rows.append(f"phase 15's -t 1 on one slot: {t1[0]:.0f} reads/s, device "
@@ -1239,8 +1398,11 @@ def main():
     k2_err, k2 = phase_gather(torch.from_numpy(genome).cuda(), rng, card)
     k1_err, k1_shapes = phase_sw(rng, cfg, card)
     k1 = k1_shapes[K1_MAIN]
+    k4_err, k4_shapes = phase_align(rng, cfg, card)
+    k4 = k4_shapes[K4_MAIN]
     k3_err, k3_shapes, k3_launches, empty_ms = phase_row_gather(card)
     k3 = k3_shapes[K3_MAIN]
+    guard_plain_traceback()
     codes, launches = {}, {}     # launches: {path: (counts, batches)}
     with tempfile.TemporaryDirectory() as workdir:
         ref_path = os.path.join(workdir, "ref.fa")
@@ -1317,6 +1479,19 @@ def main():
                     "gather_floor_ms", "gather_rep1_ms")}
                 | {"share": t["bound_ms"] / t["device_ms"]}
                 for shape, t in k3_shapes.items() if shape != K3_MAIN}),
+        row("sw_align", "nextgenmap_tpu_torch/csrc/sw_align.cu",
+            "nextgenmap_tpu/ops/sw_ref.py:209", k4_err, k4, total("sw_align"),
+            per_step("sw_align"), k4["bound_by"], None,
+            replaces_kind="not a Pallas kernel: the reference's lax.scan "
+            "traceback (banded_sw_align, scans at :289 and :451)",
+            walk_steps=k4["walk_steps"], forward_ms=k4["forward_ms"],
+            shape=K4_MAIN + ": the single-end path's traceback input",
+            other_shapes={
+                shape: {key: t[key] for key in (
+                    "device_ms", "call_ms", "plain_ms", "bound_ms",
+                    "bound_by", "forward_ms")}
+                | {"share": t["bound_ms"] / t["device_ms"]}
+                for shape, t in k4_shapes.items() if shape != K4_MAIN}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,7 +74,7 @@ constexpr int kWarpsPerBlock = 1;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kMaxMats = 8;
 // 1024 threads x kBlockNPL cells.  The band could go further, but past it
-// the plain traceback's [L, B, W] direction bytes exhaust the card first
+// the traceback's (K4, csrc/sw_align.cu) [L, B, W] bytes exhaust the card
 constexpr int kBlockNPL = 8;
 constexpr int kMaxBlockThreads = 1024;
 constexpr int kMaxBand = kMaxBlockThreads * kBlockNPL;

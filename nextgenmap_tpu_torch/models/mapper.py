@@ -60,8 +60,8 @@ from nextgenmap_tpu_torch.ops.kmer import (
     extract_kmers, extract_kmers_canonical,
 )
 from nextgenmap_tpu_torch.ops.scoring import matrices_are_simple, score_matrix
+from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
-from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align
 from nextgenmap_tpu_torch.parallel.dp import (
     SliceRunner, concat_results, split_batch,
 )
@@ -270,7 +270,8 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
     starts = torch.where(a1_valid, best_start, 0).clamp(0, max(0, G - T))
     best_corr = gather_genome_windows(genome, starts.to(I32).contiguous(), T)
     best_query = torch.where((best_strand == 1)[:, None], rc, reads)
-    ares = banded_sw_align(
+    # (kernel K4 on the card)
+    ares = sw_align(
         best_query, lengths, best_corr, matrices, gopen_q, gopen_r, gext,
         best_strand, band=band, mode=_sw_mode(end_to_end),
         simple=simple_matrix,
@@ -560,7 +561,8 @@ def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
     corr_s = gather_genome_windows(genome, starts.to(I32).contiguous(), T)
     corr_s = torch.where(slot_valid[:, None], corr_s, 4).to(torch.uint8)
     q_s = torch.where((strand_s == 1)[:, None], rc[b_safe], reads[b_safe])
-    ares = banded_sw_align(
+    # (kernel K4 on the card)
+    ares = sw_align(
         q_s, lengths[b_safe], corr_s, matrices, gopen_q, gopen_r, gext,
         strand_s, band=band, mode=_sw_mode(end_to_end), simple=simple_matrix,
     )

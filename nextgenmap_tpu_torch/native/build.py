@@ -37,6 +37,8 @@ SIGNATURES = {
     "ngm_gather_windows": (P, I64, P, I64, I32, P, P),
     "ngm_sw_score": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
                      P, P, P, P),
+    "ngm_sw_align": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
+                     I32, P, P, P, P, P),
     "ngm_row_gather": (P, P, I32, I32, I32, I32, P, P),
     "ngm_row_gather_plan": (I32, I32, I32, P),
 }

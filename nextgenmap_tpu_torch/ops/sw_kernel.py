@@ -17,8 +17,8 @@ from nextgenmap_tpu_torch.ops.sw_ref import (
     ScoreResult, banded_sw_score, check_mode,
 )
 
-# kMaxBand in csrc/sw_score.cu: 1024 threads x 8 cells.  Past it the plain
-# traceback's [L, B, W] direction bytes exhaust the card before K1 would
+# kMaxBand in csrc/sw_score.cu and csrc/sw_align.cu: 1024 threads x 8
+# cells.  Past it K4's [L, B, W] direction bytes exhaust the card first
 MAX_BAND = 8192
 MAX_MATS = 8     # kMaxMats in csrc/sw_score.cu
 

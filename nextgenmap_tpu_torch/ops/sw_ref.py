@@ -16,9 +16,10 @@ exact whenever gap open >= gap extend (NgmConfig.validate):
 
   F[o] = max_{t<o}( Htmp[t] + t*gext ) - gopen - (o-1)*gext
 
-``banded_sw_score`` is the plain version of the hand-written CUDA kernel in
-``csrc/sw_score.cu`` (wrapper: ``ops/sw_kernel.py``).  ``banded_sw_align`` is
-the traceback on the main path; it has no kernel of its own.
+``banded_sw_score`` is the plain version of the hand-written CUDA kernel K1,
+``csrc/sw_score.cu`` (wrapper: ``ops/sw_kernel.py``); ``banded_sw_align``
+(``banded_sw_forward`` then ``_backwalk_rows``) is the plain version of K4,
+``csrc/sw_align.cu`` (wrapper: ``ops/sw_align_kernel.py``).
 
 Two modes: ``"local"`` (Smith-Waterman: a 0 floor, the best cell over every
 row, the walk stops at a 0 cell) and ``"glocal"`` (--end-to-end: no floor,
@@ -186,7 +187,7 @@ def banded_sw_score(
     return ScoreResult(best, bi, bo)
 
 
-def banded_sw_align(
+def banded_sw_forward(
     query: torch.Tensor,
     qlen: torch.Tensor,
     ref: torch.Tensor,
@@ -197,17 +198,14 @@ def banded_sw_align(
     msel: torch.Tensor | None = None,
     *,
     band: int,
-    max_ops: int = 0,
     mode: str = "local",
-    simple: bool = False,
-) -> AlignResult:
-    """Banded SW with traceback: [L, B, W] direction bytes, then the
-    row-synchronized backwalk (a glocal walk ends when the query is
-    consumed)."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The traceback's forward pass: (dirs [L, B, W] uint8, best, bi, bo),
+    the direction byte of every cell and the best cell by `_row_best`'s
+    rule.  K4 (``csrc/sw_align.cu``) writes the same bytes."""
     local = check_mode(mode)
     B, L, q, r, flat, moff = _setup(query, ref, matrix, msel)
     W = band
-    MO = max_ops or (L + W)
     dev = q.device
     qlen = qlen.to(torch.int32)
     off = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
@@ -228,7 +226,33 @@ def banded_sw_align(
         dirs[i] = _dirs(h, hd, e, e_ext, e_open, f_prev_ext, f_prev_open,
                         sub > 0, local)
         best, bi, bo = _row_best(h, i, qlen, best, bi, bo, local)
-    return _backwalk_rows(dirs, best, bi, bo, MO)
+    return dirs, best, bi, bo
+
+
+def banded_sw_align(
+    query: torch.Tensor,
+    qlen: torch.Tensor,
+    ref: torch.Tensor,
+    matrix: torch.Tensor,
+    gopen_q: int,
+    gopen_r: int,
+    gext: int,
+    msel: torch.Tensor | None = None,
+    *,
+    band: int,
+    max_ops: int = 0,
+    mode: str = "local",
+    simple: bool = False,
+) -> AlignResult:
+    """Banded SW with traceback: [L, B, W] direction bytes, then the
+    row-synchronized backwalk (a glocal walk ends when the query is
+    consumed)."""
+    dirs, best, bi, bo = banded_sw_forward(
+        query, qlen, ref, matrix, gopen_q, gopen_r, gext, msel, band=band,
+        mode=mode,
+    )
+    mo = max_ops or (query.shape[1] + band)
+    return _backwalk_rows(dirs, best, bi, bo, mo)
 
 
 def _extract_at(row, o, W):

@@ -1,6 +1,6 @@
 """Where a mapping step's time goes, per cell, on one CUDA card.
 
-    python -m nextgenmap_tpu_torch.tools.step_breakdown [--cells single sharded-4 ...]
+    python -m nextgenmap_tpu_torch.tools.step_breakdown [--cells single sharded-4 ...] [--plain-traceback]
 
 Cells (the inputs of ``chip_smoke.py``, seeded the same way):
 
@@ -8,13 +8,20 @@ Cells (the inputs of ``chip_smoke.py``, seeded the same way):
               2% SNPs, B = 4096, index built on the device (phase 6)
   sharded-4   the same with --index-shards 4 (the cross-shard tail pool)
   sharded-2   the same with --index-shards 2 (full per-shard tails)
+  long        the same genome, 1000 bp reads at 3% SNPs and 0.5% indels,
+              B = 614, W = 184 (phase 11)
   gigabase-4  the 2^31 + 2^27 base genome in 4 shards (phase 14: k 13,
               index skip 2, read stride 1; full per-shard tails)
+
+The traceback runs as the mapper calls it, K4 (``ops/sw_align_kernel.py``);
+``--plain-traceback`` puts its plain version (``ops/sw_ref.py::
+banded_sw_align``, a loop of torch calls a row) in its place, so both can
+be measured in one process on one card.
 
 For each cell, through ``Mapper.map_batch`` after one warm-up batch: the
 step time (host clock, synchronised) of WARM batches, median, min and max;
 the traceback's share of the step (a synchronise on each side of
-``banded_sw_align``) and K1's real slots per batch (slots of length > 0)
+``sw_align``) and K1's real slots per batch (slots of length > 0)
 over TIMED batches; the device's busy share over PROFILED batches (kernel
 rows of torch.profiler over the window's wall time); the peak device memory
 of the cell (state and steps).  Prints the card's name and power limit, one
@@ -39,22 +46,23 @@ from nextgenmap_tpu_torch import synthetic
 from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
 from nextgenmap_tpu_torch.models import mapper as mapper_mod
+from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align
 from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
 
 SEED = 2026            # chip_smoke.py's
-BATCH = 4096
-READ_LEN = 100
 WARM, TIMED, PROFILED = 6, 3, 2
-CELLS = {   # name: (genome size, shards, config changes)
-    "single": (4_600_000, 1, {}),
-    "sharded-4": (4_600_000, 4, {}),
-    "sharded-2": (4_600_000, 2, {}),
+CELLS = {   # name: (genome size, shards, config changes, read length, batch)
+    "single": (4_600_000, 1, {}, 100, 4096),
+    "sharded-4": (4_600_000, 4, {}, 100, 4096),
+    "sharded-2": (4_600_000, 2, {}, 100, 4096),
+    "long": (4_600_000, 1, {}, 1000, 614),
     "gigabase-4": ((1 << 31) + (1 << 27), 4,
-                   dict(kmer_skip=2, read_kmer_skip=1)),
+                   dict(kmer_skip=2, read_kmer_skip=1), 100, 4096),
 }
 
 
-def make_mapper(size: int, shards: int, changes: dict, device):
+def make_mapper(size: int, shards: int, changes: dict, read_len: int,
+                device):
     """(Mapper, genome codes) of a cell: the genome and index as
     chip_smoke.py builds them."""
     cfg = NgmConfig(index_shards=shards, **changes)
@@ -72,7 +80,7 @@ def make_mapper(size: int, shards: int, changes: dict, device):
     class Codes:
         codes = g
 
-    return mapper_mod.Mapper(cfg, Codes, READ_LEN, index, device=device), g
+    return mapper_mod.Mapper(cfg, Codes, read_len, index, device=device), g
 
 
 class Instrument:
@@ -82,7 +90,7 @@ class Instrument:
 
     def __enter__(self):
         self.tb_s, self.slots = 0.0, 0
-        self.orig = (mapper_mod.banded_sw_align, mapper_mod.sw_score)
+        self.orig = (mapper_mod.sw_align, mapper_mod.sw_score)
 
         def align(*a, **k):
             torch.cuda.synchronize()
@@ -96,22 +104,26 @@ class Instrument:
             self.slots += int((a[1] > 0).sum())
             return self.orig[1](*a, **k)
 
-        mapper_mod.banded_sw_align, mapper_mod.sw_score = align, score
+        mapper_mod.sw_align, mapper_mod.sw_score = align, score
         return self
 
     def __exit__(self, *exc):
-        mapper_mod.banded_sw_align, mapper_mod.sw_score = self.orig
+        mapper_mod.sw_align, mapper_mod.sw_score = self.orig
 
 
 def run_cell(name: str, device="cuda") -> dict:
-    size, shards, changes = CELLS[name]
+    size, shards, changes, read_len, batch = CELLS[name]
     torch.cuda.reset_peak_memory_stats()
-    m, g = make_mapper(size, shards, changes, device)
+    m, g = make_mapper(size, shards, changes, read_len, device)
     n = 1 + WARM + TIMED + PROFILED
-    codes, _, _ = synthetic.simulate_reads(g, n * BATCH, READ_LEN, 0.02,
-                                           seed=SEED + 1)
-    lens = np.full(BATCH, READ_LEN, np.int32)
-    batches = iter(codes[i * BATCH:(i + 1) * BATCH] for i in range(n))
+    if read_len > 250:
+        codes, _, _ = synthetic.simulate_long_reads(
+            g, n * batch, read_len, 0.03, 0.005, seed=SEED + 6)
+    else:
+        codes, _, _ = synthetic.simulate_reads(g, n * batch, read_len, 0.02,
+                                               seed=SEED + 1)
+    lens = np.full(batch, read_len, np.int32)
+    batches = iter(codes[i * batch:(i + 1) * batch] for i in range(n))
 
     def step():
         t = time.perf_counter()
@@ -142,26 +154,40 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--cells", nargs="+", default=list(CELLS),
                    choices=list(CELLS))
+    p.add_argument("--plain-traceback", action="store_true",
+                   help="run the traceback's plain version in place of K4")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_breakdown: no CUDA card", file=sys.stderr)
         return 2
+    kernel = mapper_mod.sw_align
+    if a.plain_traceback:
+        mapper_mod.sw_align = banded_sw_align
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
+    print(f"traceback: {'plain' if a.plain_traceback else 'K4'}")
     out = {}
-    for name in a.cells:
-        out[name] = r = run_cell(name)
-        print(f"[{name}] step {r['step_ms']:.2f} ms median of {WARM} "
-              f"({r['step_ms_min']:.2f}-{r['step_ms_max']:.2f}); traceback "
-              f"{100 * r['traceback_share']:.1f}% of {TIMED} steps; K1 real "
-              f"slots {r['k1_real_slots_per_batch']:.0f} per batch; device "
-              f"busy {100 * r['device_busy']:.1f}% over {PROFILED} steps; "
-              f"peak {r['peak_gib']:.3f} GiB", flush=True)
-    print(json.dumps({"card": card, "cells": out}))
+    try:
+        for name in a.cells:
+            out[name] = run_cell(name)
+            print_cell(name, out[name])
+    finally:
+        mapper_mod.sw_align = kernel
+    print(json.dumps({"card": card, "plain_traceback": a.plain_traceback,
+                      "cells": out}))
     return 0
+
+
+def print_cell(name: str, r: dict) -> None:
+    print(f"[{name}] step {r['step_ms']:.2f} ms median of {WARM} "
+          f"({r['step_ms_min']:.2f}-{r['step_ms_max']:.2f}); traceback "
+          f"{100 * r['traceback_share']:.1f}% of {TIMED} steps; K1 real "
+          f"slots {r['k1_real_slots_per_batch']:.0f} per batch; device "
+          f"busy {100 * r['device_busy']:.1f}% over {PROFILED} steps; "
+          f"peak {r['peak_gib']:.3f} GiB", flush=True)
 
 
 if __name__ == "__main__":

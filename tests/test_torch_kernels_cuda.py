@@ -1,14 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-(K1 in local and glocal mode), and the single-end, paired and top-n steps,
-also under --end-to-end and --bs-mapping, on the card against the CPU.
+(K1 and K4 in local and glocal mode), and the single-end, paired and top-n
+steps, also under --end-to-end and --bs-mapping, on the card against the
+CPU (their tracebacks through K4).
 
 K1 is checked at every band width that crosses a boundary of its (lanes per
 alignment, cells per lane) templates, with S not a multiple of the
 alignments per warp, qlen 0, 1, L and > L, 1 to 8 matrices, invalid all-4
 slots, tie-heavy periodic inputs (many cells share the maximum, so the
 deferred argmax must pick the first in (i, o)), and matrices large enough
-that the kernel keeps (value, o) unpacked.  K2 is checked at T around the
-16-byte store width, at starts 0, G - T, G - 1, G and beyond, and on a
+that the kernel keeps (value, o) unpacked.  K4 is checked in every
+AlignResult field and in its direction bytes at the main path's shapes
+([4096,100]xW48, [2048,150]xW56, [614,1000]xW184, [2048,100]xW264), at W
+512 (one warp), 520, 1024, 2048 and 8192 (a block), W 1, 2 and 17, with
+ties, cheap gaps, length-0 slots and an op buffer that truncates.  K2 is
+checked at T around the 16-byte store width, at starts 0, G - T, G - 1, G and beyond, and on a
 genome of more than 2^31 bytes.  K3 is checked on each side of its
 variants' boundaries (ops/row_gather.plan), at W not a multiple of 32, W 1
 and R 1, REP 0, 1 and 33, indices from -3 to 3 times the extent, rows off
@@ -36,8 +41,13 @@ from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from nextgenmap_tpu_torch.ops.scoring import score_matrix
+from nextgenmap_tpu_torch.ops.sw_align_kernel import (
+    sw_align, sw_align_with_dirs,
+)
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
-from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
+from nextgenmap_tpu_torch.ops.sw_ref import (
+    _backwalk_rows, banded_sw_forward, banded_sw_score,
+)
 from nextgenmap_tpu_torch.synthetic import (
     repeat_genome, simulate_long_reads, simulate_pairs, simulate_reads,
 )
@@ -281,6 +291,106 @@ def test_sw_kernel_large_scores(dev, mode):
               mode)
 
 
+def _align_case(rng, S, L, W):
+    """K4's input: two in five queries planted in their corridors with 3%
+    SNPs and a 1-3 bp insertion and deletion, one in five tie-heavy
+    (ACAC... over ACAC..., some out of phase), the rest random; N codes;
+    lengths 0 (every 11th, with an all-4 corridor, as the top-n tail's
+    invalid slots), 1, short ones and L; a matrix per slot."""
+    q = rng.integers(0, 4, (S, L)).astype(np.uint8)
+    r = rng.integers(0, 4, (S, L + W)).astype(np.uint8)
+    for i in range(S):
+        kind = i % 5
+        if kind in (0, 3):
+            o = int(rng.integers(0, W))
+            seg = q[i].copy()
+            snp = rng.random(L) < 0.03
+            seg[snp] = (seg[snp] + 1) % 4
+            cut = int(rng.integers(1, L)) if L > 1 else 0
+            seg = np.concatenate([seg[:cut], rng.integers(0, 4, 1 + i % 3),
+                                  seg[cut:]])
+            cut = int(rng.integers(0, seg.shape[0]))
+            seg = np.delete(seg, slice(cut, cut + 1 + i % 3))[:L + W - o]
+            r[i, o:o + seg.shape[0]] = seg
+        elif kind == 1:
+            q[i] = np.resize(np.array([0, 1], np.uint8), L)
+            r[i] = np.resize(np.array([0, 1] if i % 2 else [1, 0], np.uint8),
+                             L + W)
+    q[rng.random((S, L)) < 0.01] = 4
+    lens = np.full(S, L, np.int32)
+    lens[2::7] = rng.integers(1, L + 1, len(lens[2::7]))
+    lens[1::13] = 1
+    lens[::11] = 0
+    r[::11] = 4
+    msel = rng.integers(0, 2, S).astype(np.int32)
+    return q, lens, r, msel
+
+
+def _check_align(dev, q, lens, r, mats, msel, gaps, W, mode, max_ops=0):
+    """K4 == banded_sw_forward's bytes, then _backwalk_rows's every
+    AlignResult field."""
+    args = [torch.from_numpy(a).to(dev) for a in (q, lens, r, mats, msel)]
+    before = sw_align.launches
+    got, dirs = sw_align_with_dirs(*args[:4], *gaps, args[4], band=W,
+                                   max_ops=max_ops, mode=mode)
+    torch.cuda.synchronize()
+    assert sw_align.launches == before + 1
+    pdirs, best, bi, bo = banded_sw_forward(*args[:4], *gaps, args[4],
+                                            band=W, mode=mode)
+    assert torch.equal(dirs, pdirs), ("dirs", W, mode)
+    ref = _backwalk_rows(pdirs, best, bi, bo, max_ops or q.shape[1] + W)
+    for f in ref._fields:
+        assert torch.equal(getattr(ref, f), getattr(got, f)), (f, W, mode)
+    return got
+
+
+@pytest.mark.parametrize("gaps", [(20, 20, 20), (5, 7, 1)])
+@pytest.mark.parametrize("mode", ["local", "glocal"])
+@pytest.mark.parametrize("S,L,W", [
+    # the main path's (single-end, 150 bp, 1000 bp, --corridor 225)
+    (4096, 100, 48), (2048, 150, 56), (614, 1000, 184), (2048, 100, 264),
+    # one warp of 32 x 16 cells, then the block form; band 1 and 2
+    (64, 100, 512), (64, 100, 520), (32, 200, 1024), (16, 200, 2048),
+    (4, 100, 8192), (37, 60, 1), (37, 60, 2), (45, 70, 17),
+])
+def test_sw_align_kernel_equals_plain(dev, S, L, W, mode, gaps):
+    """K4 at the main path's shapes and the band's edges, with the
+    bisulfite [2, 8, 8] matrices, in every AlignResult field and in the
+    direction bytes; then with an op buffer of 12 that truncates."""
+    rng = np.random.default_rng(S + L + W + gaps[2])
+    q, lens, r, msel = _align_case(rng, S, L, W)
+    cfg = NgmConfig(bs_mapping=True)
+    mats = np.stack([score_matrix(cfg, 0), score_matrix(cfg, 1)])
+    got = _check_align(dev, q, lens, r, mats, msel, gaps, W, mode)
+    assert int(got.score.max()) > 0
+    zero = torch.from_numpy(lens == 0).to(dev)
+    assert int(got.n_ops[zero].max()) == 0
+    short = _check_align(dev, q, lens, r, mats, msel, gaps, W, mode,
+                         max_ops=12)
+    assert bool(short.trunc.any())
+
+
+def test_sw_align_kernel_refuses(dev):
+    """A band past 8192 and nine matrices raise before any launch."""
+    from nextgenmap_tpu_torch.ops.sw_kernel import MAX_BAND
+
+    S, L = 4, 20
+    mats = torch.from_numpy(score_matrix(NgmConfig(), 0)).to(dev)
+
+    def args(W):
+        return [torch.zeros((S, L), dtype=torch.uint8, device=dev),
+                torch.full((S,), L, dtype=torch.int32, device=dev),
+                torch.zeros((S, L + W), dtype=torch.uint8, device=dev)]
+
+    before = sw_align.launches
+    with pytest.raises(ValueError, match="band"):
+        sw_align(*args(MAX_BAND + 1), mats, 20, 20, 20, band=MAX_BAND + 1)
+    with pytest.raises(ValueError, match="matrices"):
+        sw_align(*args(48), mats.expand(9, 8, 8).contiguous(), 20, 20, 20,
+                 torch.zeros(S, dtype=torch.int32, device=dev), band=48)
+    assert sw_align.launches == before
+
+
 def test_mapper_cuda_equals_cpu(dev):
     cfg = NgmConfig(kmer=11)
     g = repeat_genome(60_000, n_repeats=12, min_len=800, max_len=2000, seed=5)
@@ -292,11 +402,13 @@ def test_mapper_cuda_equals_cpu(dev):
 
     gpu = Mapper(cfg, _G(), 100, device=dev)
     cpu = Mapper(cfg, _G(), 100, device="cpu")
-    launches = (sw_score.launches, gather_genome_windows.launches)
+    launches = (sw_score.launches, gather_genome_windows.launches,
+                sw_align.launches)
     a = gpu.map_batch(codes, lens)
     torch.cuda.synchronize()
     assert sw_score.launches == launches[0] + 1
     assert gather_genome_windows.launches == launches[1] + 2
+    assert sw_align.launches == launches[2] + 1
     b = cpu.map_batch(codes, lens)
     for f in a._fields:
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
