@@ -24,14 +24,20 @@ the repository).  Phases, one line of output each:
               local, glocal and tie-heavy; device time, call time, bound
               (integer operations), share and GCUPS
   4b. K4      SW with traceback == its plain version on the card (exact, in
-              all 11 AlignResult fields and the [L, S, W] direction bytes)
-              at the card tests' main shapes: [4096,100]xW48 (what the
-              single-end path's traceback takes), [2048,150]xW56,
+              all 11 AlignResult fields, and in the [L, S, W] direction
+              bytes when they are asked for) on each of its routes (smem,
+              global) at the card tests' main shapes: [4096,100]xW48 (what
+              the single-end path's traceback takes), [2048,150]xW56,
               [614,1000]xW184 and [2048,100]xW264, local and glocal, with
               the bisulfite matrices, tie-heavy slots, length-0 slots and a
-              truncating op buffer; device time, the forward pass's alone
-              (every qlen 0: no walk), call time, the plain version's call
-              time, bound (operations or bytes, the larger) and share
+              truncating op buffer; the route the shape rule picks, and per
+              route the block it launches, the blocks (warps) of that size
+              an SM holds, the route's capacity (warps an SM at blocks of
+              up to 4 warps, which the rule reads), the global route's
+              scratch bytes, device time, the forward pass's alone (a matrix of negative entries: no walk
+              starts) and call time, all as the mapping path calls it (no
+              direction bytes); the plain version's call time, bound
+              (operations or bytes, the larger) and share
   5. K3       the dynamic-gather probe's kernel == its plain version (exact)
               at the probe's default 256 x 1024 and at its use case at the
               mapper's batch, 4096 x 2048, REP 32, along dim 0 and 1, with
@@ -120,16 +126,20 @@ launch under "other_shapes" of K2.  K3's row is dim 0 at the probe's
 default shape (the slower dim); dim 1 and the 4096 x 2048 shape are under
 its "other_shapes", each with the variant that served it.  K4's row is
 the single-end path's traceback input ([4096,100]xW48, local); its other
-shapes are under "other_shapes".
+shapes are under "other_shapes"; "variant" is the route the shape rule
+took there, and "routes" the figures of both routes: each with the
+block it launched (threads), the blocks and warps of that size an SM holds,
+and the route's capacity (warps an SM at blocks of up to 4 warps, which the
+shape rule reads).
 bound_ms is the least time the card could take: for K2 and K3 the bytes
 moved (each input byte read once, each output byte written once) over
 3.35 TB/s; for K1 the integer instructions its cells need (OPS_PER_CELL per
 cell of each real slot's qlen x W) over 132 SMs x 64 INT32 lanes x the
 card's maximum SM clock (nvidia-smi); for K4 the larger of its integer
 instructions (K4_OPS_PER_CELL of its mode per cell of each real slot's
-qlen x W, as for K1) at that rate and its bytes (inputs, those cells'
-direction bytes written, the bytes its walks read back, the outputs) over
-3.35 TB/s.
+qlen x W, as for K1) at that rate and its bytes (inputs read once, the
+op buffer and the fields written once; the mapping path's call writes no
+direction bytes) over 3.35 TB/s.
 share = bound_ms / device_ms.
 
 Every CLI run must launch K1, K2 and K4, score real candidates, count
@@ -181,7 +191,7 @@ INT32_LANES = 132 * 64         # SMs x INT32 lanes per SM per clock (sm_90)
 OPS_PER_CELL = 6               # K1: integer instructions per DP cell
                                # (csrc/sw_score.cu's note counts them)
 # K4's forward pass, by mode (csrc/sw_align.cu's note counts them)
-K4_OPS_PER_CELL = {"local": 21, "glocal": 19}
+K4_OPS_PER_CELL = {"local": 20, "glocal": 18}
 # K4: the card tests' main shapes (single-end 100 and 150 bp, 1000 bp,
 # --corridor 225), the first what the single-end path's traceback takes
 K4_SHAPES = ((4096, 100, 48), (2048, 150, 56), (614, 1000, 184),
@@ -425,11 +435,14 @@ def _align_inputs(rng, S, L, W):
 
 def phase_align(rng, cfg, card):
     """K4 against its plain version (banded_sw_forward's bytes, then
-    _backwalk_rows's fields) and timed, at the card tests' main shapes."""
+    _backwalk_rows's fields) and timed on each of its routes, at the card
+    tests' main shapes."""
     import torch
 
     from nextgenmap_tpu_torch.models.mapper import score_matrices
-    from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align_with_dirs
+    from nextgenmap_tpu_torch.ops.sw_align_kernel import (
+        ROUTES, plan, sw_align, sw_align_with_dirs,
+    )
     from nextgenmap_tpu_torch.ops.sw_ref import (
         _backwalk_rows, banded_sw_align, banded_sw_forward,
     )
@@ -445,63 +458,101 @@ def phase_align(rng, cfg, card):
             main = (S, L, W) == K4_SHAPES[0]
             mats = score_matrices(cfg) if main else bs_mats
             args = [torch.from_numpy(a).cuda() for a in (q, lens, r, mats)]
+            # every entry below 0: no cell scores above 0, so no walk
+            # starts, while the forward pass runs the same rows
+            no_walk = args[:3] + [-args[3].abs() - 1]
             ms = torch.from_numpy(msel).cuda()
             shape = f"{mode} [{S},{L}]xW{W}" + ("" if main else " bs mats")
             want_dirs, best, bi, bo = banded_sw_forward(
                 *args, *gaps, ms, band=W, mode=mode)
-            for mo in (0, 12):      # the full op buffer, one that truncates
-                got, dirs = sw_align_with_dirs(*args, *gaps, ms, band=W,
-                                               max_ops=mo, mode=mode)
-                want = _backwalk_rows(want_dirs, best, bi, bo, mo or L + W)
-                torch.cuda.synchronize()
-                check(torch.equal(dirs, want_dirs),
-                      f"K4 direction bytes differ from plain at {shape}")
-                for f in want._fields:
-                    check(torch.equal(getattr(got, f), getattr(want, f)),
-                          f"K4 {f} differs from plain at {shape} max_ops {mo}")
-                err = max(err, max_abs_err(list(got), list(want)),
-                          max_abs_err([dirs], [want_dirs]))
-            check(bool(got.trunc.any()), f"max_ops 12 truncated nothing at "
-                  f"{shape}")
-            full = sw_align_with_dirs(*args, *gaps, ms, band=W,
-                                      mode=mode)[0]
-            check(int(full.score.max()) > 0 and int(full.indels.sum()) > 0,
-                  f"K4 aligned nothing, or no gap, at {shape}")
-            k = lambda: sw_align_with_dirs(*args, *gaps, ms, band=W,  # noqa: E731
-                                           mode=mode)
-            p = lambda: banded_sw_align(*args, *gaps, ms, band=W,  # noqa: E731
-                                        mode=mode)
+            rule = plan(S, L, W, mode).route
             cells = int(np.clip(lens, 0, L).astype(np.int64).sum()) * W
+            by_route = {}
+            for route in ROUTES:
+                p = plan(S, L, W, mode, route)
+                for mo in (0, 12):   # the full op buffer, one that truncates
+                    got, dirs = sw_align_with_dirs(*args, *gaps, ms, band=W,
+                                                   max_ops=mo, mode=mode,
+                                                   route=route)
+                    bare = sw_align(*args, *gaps, ms, band=W, max_ops=mo,
+                                    mode=mode, route=route)
+                    want = _backwalk_rows(want_dirs, best, bi, bo,
+                                          mo or L + W)
+                    torch.cuda.synchronize()
+                    check(torch.equal(dirs, want_dirs),
+                          f"K4 {route} direction bytes differ from plain at "
+                          f"{shape}")
+                    for f in want._fields:
+                        for res in (got, bare):
+                            check(torch.equal(getattr(res, f),
+                                              getattr(want, f)),
+                                  f"K4 {route} {f} differs from plain at "
+                                  f"{shape} max_ops {mo}")
+                    err = max(err, max_abs_err(list(got), list(want)),
+                              max_abs_err(list(bare), list(want)),
+                              max_abs_err([dirs], [want_dirs]))
+                check(bool(bare.trunc.any()), f"max_ops 12 truncated nothing "
+                      f"at {shape}")
+                full = sw_align(*args, *gaps, ms, band=W, mode=mode,
+                                route=route)
+                check(int(full.score.max()) > 0 and int(full.indels.sum()) > 0,
+                      f"K4 {route} aligned nothing, or no gap, at {shape}")
+                k = (lambda route=route: sw_align(  # noqa: E731
+                    *args, *gaps, ms, band=W, mode=mode, route=route))
+                by_route[route] = {
+                    "device_ms": device_ms(k), "call_ms": call_ms(k, 20),
+                    # the forward pass alone, on the same rows
+                    "forward_ms": device_ms(lambda route=route: sw_align(
+                        *no_walk, *gaps, ms, band=W, mode=mode,
+                        route=route)),
+                    "threads": p.threads,
+                    "blocks_per_sm": p.blocks_per_sm,
+                    "warps_per_sm": p.warps_per_sm,
+                    "route_warps_per_sm": p.route_warps_per_sm,
+                    "smem_bytes": p.smem_bytes,
+                    # the global route's packed rows, [S, L, row_bytes]
+                    "scratch_bytes": (S * L * p.row_bytes
+                                      if route == "global" else 0)}
             walked = int(full.n_ops.sum())
-            n_bytes = (S * L + S * (L + W) + 8 * S + cells + walked
-                       + S * (L + W) + 37 * S)
+            # inputs (query, corridors, qlen, msel) read once, the ops and
+            # the fields written once: no direction bytes on this call
+            n_bytes = S * L + S * (L + W) + 8 * S + S * (L + W) + 37 * S
             bound_ops = 1e3 * K4_OPS_PER_CELL[mode] * cells / ops_per_s
             bound_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
             long = L >= 1000
-            t = {"device_ms": device_ms(k), "call_ms": call_ms(k, 20),
-                 "plain_ms": call_ms(p, 1, warmup=0 if long else 1),
-                 "bound_ms": max(bound_ops, bound_bytes),
-                 "bound_by": ("operations" if bound_ops >= bound_bytes
-                              else "bytes"),
-                 "walk_steps": walked}
-            # the forward pass alone: every qlen 0, so no cell counts and
-            # no walk starts, while every byte is still written
-            no_walk = [args[0], torch.zeros_like(args[1]), *args[2:]]
-            t["forward_ms"] = device_ms(lambda: sw_align_with_dirs(
-                *no_walk, *gaps, ms, band=W, mode=mode))
-            rows.append(f"{shape}: " + timing_row(
-                t["device_ms"], t["call_ms"], t["bound_ms"],
-                f" ({t['bound_by']}; ops {bound_ops * 1e3:.3f} us, bytes "
-                f"{bound_bytes * 1e3:.3f} us), forward pass alone "
-                f"{t['forward_ms'] * 1e3:.2f} us, {walked} ops walked, plain "
-                f"call {t['plain_ms']:.3f} ms"))
+            t = dict(by_route[rule])
+            t.update({
+                "variant": rule, "routes": by_route,
+                "plain_ms": call_ms(lambda: banded_sw_align(
+                    *args, *gaps, ms, band=W, mode=mode), 1,
+                    warmup=0 if long else 1),
+                "bound_ms": max(bound_ops, bound_bytes),
+                "bound_by": ("operations" if bound_ops >= bound_bytes
+                             else "bytes"),
+                "walk_steps": walked})
+            rows.append(f"{shape}: rule {rule}; " + "; ".join(
+                f"{route} device {v['device_ms'] * 1e3:.2f} us, forward pass "
+                f"alone {v['forward_ms'] * 1e3:.2f} us, call "
+                f"{v['call_ms'] * 1e3:.2f} us, launched {v['threads']} "
+                f"threads a block, {v['blocks_per_sm']} blocks "
+                f"({v['warps_per_sm']} warps) an SM at {v['smem_bytes']} B, "
+                f"route capacity {v['route_warps_per_sm']} warps an SM"
+                + (f", scratch {v['scratch_bytes']} B" if route == "global"
+                   else "")
+                for route, v in by_route.items())
+                + f"; [L, S, W] bytes {L * S * W}"
+                + f"; bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}; "
+                f"ops {bound_ops * 1e3:.3f} us, bytes "
+                f"{bound_bytes * 1e3:.3f} us), share "
+                f"{t['bound_ms'] / t['device_ms']:.3f}, {walked} ops walked, "
+                f"plain call {t['plain_ms']:.3f} ms")
             timings[shape] = t
-    print(f"[4b K4 sw_align] exact in all 11 fields and the direction bytes "
-          f"at every shape, full and truncating op buffers ({card}; bound: "
-          f"{K4_OPS_PER_CELL['local']} (local) or "
-          f"{K4_OPS_PER_CELL['glocal']} (glocal) int ops per real cell at "
-          f"{ops_per_s / 1e12:.2f} T/s, or "
-          f"bytes at 3.35 TB/s); " + "; ".join(rows))
+    print(f"[4b K4 sw_align] exact on both routes in all 11 fields, with and "
+          f"without the direction bytes, at every shape, full and truncating "
+          f"op buffers ({card}; bound: {K4_OPS_PER_CELL['local']} (local) "
+          f"or {K4_OPS_PER_CELL['glocal']} (glocal) int ops per real cell "
+          f"at {ops_per_s / 1e12:.2f} T/s, or bytes at 3.35 TB/s); "
+          + "; ".join(rows))
     return err, timings
 
 
@@ -1485,11 +1536,12 @@ def main():
             replaces_kind="not a Pallas kernel: the reference's lax.scan "
             "traceback (banded_sw_align, scans at :289 and :451)",
             walk_steps=k4["walk_steps"], forward_ms=k4["forward_ms"],
+            variant=k4["variant"], routes=k4["routes"],
             shape=K4_MAIN + ": the single-end path's traceback input",
             other_shapes={
                 shape: {key: t[key] for key in (
-                    "device_ms", "call_ms", "plain_ms", "bound_ms",
-                    "bound_by", "forward_ms")}
+                    "variant", "device_ms", "call_ms", "plain_ms", "bound_ms",
+                    "bound_by", "forward_ms", "routes")}
                 | {"share": t["bound_ms"] / t["device_ms"]}
                 for shape, t in k4_shapes.items() if shape != K4_MAIN}),
     ]

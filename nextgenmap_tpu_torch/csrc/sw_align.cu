@@ -8,16 +8,16 @@
 // program, which the port's plain version runs as two Python loops of small
 // torch calls.  Bit-identical to that plain version,
 // nextgenmap_tpu_torch/ops/sw_ref.py::banded_sw_align (banded_sw_forward,
-// then _backwalk_rows), in every AlignResult field and in the [L, S, W]
-// direction bytes, which it writes in the plain version's layout.
+// then _backwalk_rows), in every AlignResult field; when the caller asks
+// for them (a non-null `dirs`), also in the [L, S, W] direction bytes, in
+// the plain version's layout.
 //
 // Forward pass: the int32 DP of K1 (csrc/sw_score.cu) in band coordinates
 // (ref j = i + o), with the plain version's sentinels (NEG = -2^30 past the
 // band's edges, so that f[0] = NEG - gr + ge, and at o = W-1 the E terms
 // are NEG - gq and NEG - ge) rather than K1's inert cells, because the
-// direction bits at the band's edges depend on them.  Every cell of every
-// one of the L rows gets its byte (rows past qlen too, as in the plain
-// version):
+// direction bits at the band's edges depend on them.  The plain version's
+// direction byte of a cell:
 //   bits 0-1  H source: 0 stop (local, h <= 0), 1 h == hd, 2 h == e, 3 F
 //   bit 2     E extends: e_ext > e_open, which is e != e_open since
 //             e = max(e_open, e_ext)
@@ -27,83 +27,130 @@
 //             cell to the left (known before the F scan); at o = 0 it is
 //             (NEG - ge > NEG - gr)
 //   bit 4     sub > 0
-// The best cell is K1's: the first strict maximum over rows i < qlen (local)
-// or the row i == qlen - 1 (glocal), smallest i, then smallest o.
+// The walk needs bits 0-3 only: the cell's 4-bit code.  Bit 4 splits M
+// columns into matches and mismatches; the walk recomputes it from what
+// the block holds (the staged codes, clamped to 5, and a 64-bit mask of the
+// slot's matrix entries > 0).  The best cell is K1's: the first strict
+// maximum over rows i < qlen (local) or the row i == qlen - 1 (glocal),
+// smallest i, then smallest o.
 //
-// Backwalk: one thread per alignment walks its own direction bytes cell by
-// cell from (bi, bo) while best > 0: the walk of tests/oracle_sw.py, which
-// equals the row-synchronised walk of _backwalk_rows field for field (a D
-// run continues from cell c to c-1 while f_bit(c) or hsrc(c-1) == 3; ops
-// past max_ops are dropped while the counters go on, and raise trunc).
+// Backwalk: the walk of tests/oracle_sw.py cell by cell from (bi, bo) while
+// best > 0, which equals the row-synchronised walk of _backwalk_rows field
+// for field (a D run continues from cell c to c-1 while f_bit(c) or
+// hsrc(c-1) == 3; ops past max_ops are dropped while the counters go on,
+// and raise trunc).
 //
 // What bounds it on the card.  The forward pass's 32-bit integer
-// instructions, counted from the code below as K1's note counts its 6 (a
-// DPX instruction counts as one): OPS_PER_CELL = 21 a cell in local mode,
-// 19 in glocal mode (no floor):
+// instructions, counted as K1's note counts its 6 (a DPX instruction counts
+// as one): OPS_PER_CELL = 20 a cell in local mode, 18 in glocal mode (no
+// floor):
 //   E     e_open = h - gq, e = max(e_open, e_ext) (IADD + VIADDMAX),
 //         the E bit e != e_open                                  3
 //   H     hd = h + sub, htmp = max(hd, e[, 0])                   2
 //   scan  run = max(run, htmp + o*ge)                            1
 //   F/H   cm = max(excl, incl), f = cm - c_o, h = max(htmp, f)   3
-//   byte  h == hd, h == e, two selects                           4
+//   bits  h == hd, h == e, two selects                           4
 //         (local only: h <= 0, select                            2)
 //         htmp[o-1] - gr, f != it                                2
-//         sub > 0                                                1
-//         three to pack the bits                                 3
-// K1's 6 less its two fused forms (K4 keeps hd and f for the byte), plus
-// the byte.  The two shared-memory loads of the substitution score, the
-// byte's store (both on the load/store pipe) and the argmax's compare and
-// selects are left out, as in K1's count.  Only the cells of the rows
+//         three ORs: the H source, the E bit and the F bit into
+//         the row's word (a select can give its value already at
+//         the cell's nibble)                                     3
+// K1's 6 less its two fused forms (K4 keeps hd and f for the bits), plus
+// the four direction bits the walk reads.  Bit 4 (sub > 0) is not a cell's
+// work: the walk computes it for the M cells it passes, about one a row
+// where a row has W cells, as it does its other few instructions a step,
+// which the count leaves out like K1's argmax.  The substitution
+// score's shared-memory loads, the words' stores and the argmax's compare
+// and selects are left out, as in K1's count.  Only the cells of the rows
 // i < qlen of each slot count: no field of the result depends on the rest.
-// Bytes: those cells' direction bytes written once and the bytes the walk
-// reads back, the inputs, and the ops buffer and the fields written once.
-// At the main path's [4096, 100] x W48 the integer bound is ~4x the byte
-// bound (chip_smoke.py phase 4b).  On an H100 the forward pass takes most
-// of K4's time at the main path's shapes (phase 4b times it alone; PERF.md
-// has the figures), the walk the rest: its steps are loads that each
-// depend on the one before (L2 hits), ~qlen + indels of them an alignment.
+// Bytes: the inputs, the ops buffer and the fields written once (the
+// direction bits never leave the chip on the smem route, and the [L, S, W]
+// bytes are not written on the mapping path).  At the main path's
+// [4096, 100] x W48 the integer bound is ~40x the byte bound (chip_smoke.py
+// phase 4b).
 //
-// Design (the simple one: keeping the bytes in shared memory, cp.async and
-// a faster walk are later work):
-//   - the forward pass uses K1's layout: a group of LPA = 8, 16 or 32 lanes
-//     per alignment, NPL cells per lane, picked from W by K1's table, up to
-//     W = 512; past it a block of 32 * ceil(W / 256) threads, 8 cells each,
-//     with two barriers a row (the E neighbour and the F scan cross warps
-//     through shared memory);
-//   - the query and corridor are staged in shared memory, codes clamped to
-//     5, and the matrices with every entry of a code >= 5 zeroed (a code
-//     >= 5 scores 0, as in the plain version);
-//   - the direction bytes go to a scratch [L, S, W] uint8 tensor that the
-//     wrapper allocates, the plain version's layout; after a __syncwarp
-//     (a barrier in the block form) the group's first lane walks back
-//     through its own bytes, which were just written and sit in L2;
-//   - the group's lanes then fill the rest of the op buffer with OP_NONE.
+// Design:
+//   - the forward pass: blocks of up to kWarps warps, the matrices staged
+//     once a block (every entry of a code >= 5 zeroed: such a code scores
+//     0, as in the plain version), then groups of LPA lanes, one alignment
+//     each, NPL cells a lane, from K4's own table (by_band; fixed by a
+//     sweep on the card); the query and corridor staged in shared
+//     memory, codes clamped to 5.  Without the bytes, the rows stop at the
+//     longest qlen of the warp.  The row loop is compiled twice, with and
+//     without the bytes, so the mapping path's has no test for them; the
+//     plan halves the warps a block while that spreads them over the SMs
+//     more evenly (a few hundred alignments of one warp each).
+//   - each lane packs its NPL cells' 4-bit codes into one word a row
+//     (16 bits up to NPL 4, 32 up to 8, 64 up to 16) and stores it once a
+//     row at [row][lane]: cell (i, o) is row i, lane o / NPL, nibble o % NPL.
+//     Cells past W are packed but never read (the walk stops at o >= W).
+//   - two routes, by shape (ngm_sw_align_plan, which also fixes the block;
+//     ngm_sw_align launches what it planned, with no runtime call but the
+//     launch):
+//       smem   every row of the group's words in dynamic shared memory;
+//              the walk reads them there.  Shared memory sets how many
+//              warps an SM holds, so the route runs where at least
+//              kMinSmemWarps warps of it fit on an SM.
+//       global the words to a scratch [S, L, LPA] laid out alignment-major,
+//              so an alignment's rows are contiguous; the walk reads them
+//              in chunks of kChunk rows that the group copies into shared
+//              memory together (coalesced, independent loads), then walks
+//              there.  Past W = 512 (one alignment a block of 32 *
+//              ceil(W / 256) threads, 8 cells each, two barriers a row: the
+//              E neighbour and the F scan cross warps through shared
+//              memory) only this route runs, and thread 0 walks the
+//              scratch directly.
+//     Neither route is a fallback of the other: a route that cannot take
+//     a shape is refused (the plan reports it), never replaced.
+//   - the walk: every lane of the group runs the same walk (broadcast
+//     reads from shared memory), so the group can refill a chunk together;
+//     the group's first lane writes the ops and fields; the group then
+//     fills the rest of the op buffer with OP_NONE.
 // Exact int32 arithmetic throughout.
 
+#include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// one warp per block in the warp form, as in K1
-constexpr int kThreads = 32;
+// warps a block in the warp form (fewer where their shared memory needs
+// it: the smem route's rows, or long reads' codes)
+constexpr int kWarps = 4;
 constexpr int kMaxMats = 8;
 constexpr int kBlockNPL = 8;
 constexpr int kMaxBlockThreads = 1024;
-// 1024 threads x 8 cells, K1's limit: past it the [L, S, W] direction
-// bytes exhaust the card
+// 1024 threads x 8 cells, K1's limit
 constexpr int kMaxBand = kMaxBlockThreads * kBlockNPL;
 constexpr int kMaxWarpBand = 512;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPadCode = 5;
 constexpr int kNeg = -(1 << 30);      // the plain version's NEG
-constexpr int kMaxDynSmem = 200 * 1024;
 constexpr uint8_t kOpM = 0, kOpI = 1, kOpD = 2, kOpNone = 255;
 constexpr int kPhH = 0, kPhE = 1, kPhF = 2;
+// the walk's step computes an op as its H source - 1, the source of the
+// E (F) phase as the phase + 1, and the phases from bits 2 and 3
+static_assert(kOpM == 0 && kOpI == 1 && kOpD == 2, "op = source - 1");
+static_assert(kPhH == 0 && kPhE == 1 && kPhF == 2, "E: bit 2, F: bit 3");
 // int32 outputs, one [S] row each: score, q_start, q_end, r_start, r_end,
 // n_ops, matches, mismatches, indels
 constexpr int kFields = 9;
+// the global route's walk: rows a chunk, copied to shared memory at once
+constexpr int kChunk = 32;
+// the shape rule: the smem route where at least this many of its warps fit
+// on an SM.  Measured on an H100 (tools/kernel_ab.py, PERF.md): the smem
+// route won with 28 and 20 warps an SM ([4096,100]xW48, [2048,150]xW56),
+// the global route against 8 and 1 ([2048,100]xW264, [614,1000]xW184)
+constexpr int kMinSmemWarps = 12;
+constexpr int kRouteSmem = 0, kRouteGlobal = 1;
+
+// one packed row of a lane: NPL 4-bit codes
+template <int NPL>
+using Word = typename std::conditional<
+    (NPL <= 4), uint16_t,
+    typename std::conditional<(NPL <= 8), uint32_t, uint64_t>::type>::type;
 
 // dst[t] = min(src[t], 5) for t < n, kPadCode for n <= t < n_pad, by the
 // `lpa` threads of one group (index sl); K1's staging.  src is read as
@@ -141,17 +188,31 @@ __device__ __forceinline__ void load_mats(int32_t* smat, const int32_t* mats,
   }
 }
 
+// bit 8q + r set where the matrix scores (q, r) > 0: the plain version's
+// bit 4 (sub > 0) of a cell whose clamped codes are q, r
+__device__ __forceinline__ uint64_t positive_mask(const int32_t* sm) {
+  uint64_t pos = 0;
+#pragma unroll
+  for (int q = 0; q < kPadCode; ++q) {
+#pragma unroll
+    for (int r = 0; r < kPadCode; ++r) {
+      if (sm[8 * q + r] > 0) pos |= uint64_t{1} << (8 * q + r);
+    }
+  }
+  return pos;
+}
+
 // First half of a row, from the previous row's h and e of this thread's
 // cells (and hn, en of the cell right of its last): writes the new E into
-// e, and hd, htmp, the inclusive in-thread scan of htmp + o*ge, and the
-// byte's E and match bits of each cell; returns the thread's scan total.
+// e, and hd, htmp, the inclusive in-thread scan of htmp + o*ge, and each
+// cell's E bit; returns the thread's scan total.
 template <int NPL, bool LOCAL>
 __device__ __forceinline__ int row_first(const int32_t* srow,
                                          const uint8_t* rr, const int (&h)[NPL],
                                          int (&e)[NPL], int hn, int en, int gq,
                                          int ge, int o0, int (&hd)[NPL],
                                          int (&ht)[NPL], int (&incl)[NPL],
-                                         int (&bits)[NPL]) {
+                                         int (&eb)[NPL]) {
   int run = kNeg;
 #pragma unroll
   for (int k = 0; k < NPL; ++k) {
@@ -160,29 +221,31 @@ __device__ __forceinline__ int row_first(const int32_t* srow,
     const int e_open = hup - gq;
     const int e_ext = eup - ge;
     const int ec = max(e_open, e_ext);
-    const int s = srow[rr[k]];
-    hd[k] = h[k] + s;
+    hd[k] = h[k] + srow[rr[k]];
     ht[k] = LOCAL ? max(max(hd[k], 0), ec) : max(hd[k], ec);
     run = max(run, ht[k] + (o0 + k) * ge);
     incl[k] = run;
-    bits[k] = (ec != e_open ? 4 : 0) | (s > 0 ? 16 : 0);
+    eb[k] = ec != e_open ? 4 : 0;
     e[k] = ec;   // e[k + 1] is read before it is written
   }
   return run;
 }
 
 // Second half: F from the exclusive scan `excl` of the cells left of this
-// thread, the new H, and each cell's direction byte (stored to drow, null
-// for a slot past S); htl = htmp of the cell left of o0, fb0 = bit 3 at
-// o = 0.  Cells past W are reset to NEG: the cell W-1 must see NEG above
-// its right neighbour, as the plain version's shift fills it.  Folds the
-// row into the thread's first maximum (lb, li, lo) when `counts`.
-template <int NPL, bool LOCAL>
-__device__ __forceinline__ void row_second(
+// thread, the new H, and each cell's 4-bit code, packed into the returned
+// word (cell k at bits 4k..4k+3); htl = htmp of the cell left of o0, fb0 =
+// bit 3 at o = 0.  With `drow` (the plain version's bytes asked for) each
+// cell's byte goes there too, with bit 4 (sub = hd - the previous h).
+// Cells past W are reset to NEG: the cell W-1 must see NEG above its right
+// neighbour, as the plain version's shift fills it.  Folds the row into the
+// thread's first maximum (lb, li, lo) when `counts`.
+template <int NPL, bool LOCAL, bool BYTES, typename Wd>
+__device__ __forceinline__ Wd row_second(
     int excl, int htl, int fb0, int (&h)[NPL], int (&e)[NPL],
     const int (&hd)[NPL], const int (&ht)[NPL], const int (&incl)[NPL],
-    const int (&bits)[NPL], int o0, int W, int gr, int ge, uint8_t* drow,
+    const int (&eb)[NPL], int o0, int W, int gr, int ge, uint8_t* drow,
     bool counts, int i, int& lb, int& li, int& lo) {
+  Wd w = 0;
 #pragma unroll
   for (int k = 0; k < NPL; ++k) {
     const int o = o0 + k;
@@ -193,21 +256,21 @@ __device__ __forceinline__ void row_second(
     if (LOCAL && hn <= 0) src = 0;
     const int hl = k == 0 ? htl : ht[k - 1];
     const int fbit = o == 0 ? fb0 : (f != hl - gr ? 8 : 0);
-    if (o < W) {
-      if (drow != nullptr) {
-        drow[k] = static_cast<uint8_t>(src | fbit | bits[k]);
-      }
-      if (counts && hn > lb) {   // strict >: ties keep the earlier
-        lb = hn;
-        li = i;
-        lo = o;
-      }
-      h[k] = hn;
-    } else {
-      h[k] = kNeg;
-      e[k] = kNeg;
+    const int code = src | fbit | eb[k];
+    w |= static_cast<Wd>(static_cast<Wd>(code) << (4 * k));
+    const bool in = o < W;
+    if (BYTES && in && drow != nullptr) {
+      drow[k] = static_cast<uint8_t>(code | (hd[k] - h[k] > 0 ? 16 : 0));
     }
+    if (counts && in && hn > lb) {   // strict >: ties keep the earlier
+      lb = hn;
+      li = i;
+      lo = o;
+    }
+    h[k] = in ? hn : kNeg;
+    e[k] = in ? e[k] : kNeg;
   }
+  return w;
 }
 
 // (value, i, o) of two first maxima: the larger value, then smaller i, o
@@ -220,59 +283,68 @@ __device__ __forceinline__ void take_first_max(int ov, int oi, int oo, int& bv,
   }
 }
 
-// The backwalk of one alignment by one thread, cell by cell; d points at
-// its row 0 (dirs + slot * W), row i at d + i * row_stride.  Writes the
-// fields and the first n_ops ops; returns n_ops.
-__device__ int walk_back(const uint8_t* d, long long row_stride, int W,
-                         int max_ops, int best, int bi, int bo, uint8_t* ops,
-                         int32_t* out, uint8_t* trunc, int slot, int S) {
+// The backwalk of one alignment, cell by cell from (bi, bo), over its
+// packed rows `bits` (row i at bits + i * row_words).  CHUNKED (the global
+// route's warp form): the `lpa` lanes of the group (mask gmask, this one
+// sl) all run this walk and copy kChunk rows at a time into `buf` (shared
+// memory) before reading them there; otherwise the reads go to `bits`
+// directly.  qs, rs: the staged codes; pos: positive_mask of the slot's
+// matrix.  The `writer` writes the first n_ops ops and the fields; returns
+// n_ops.
+template <int NPL, bool CHUNKED, typename Wd>
+__device__ __forceinline__ int walk_back(
+    const Wd* bits, int row_words, Wd* buf, unsigned gmask, int sl, int lpa,
+    const uint8_t* qs, const uint8_t* rs, uint64_t pos, int W, int max_ops,
+    int best, int bi, int bo, bool writer, uint8_t* ops, int32_t* out,
+    uint8_t* trunc, int slot, int S) {
   int i = bi, o = bo, ph = kPhH, c = 0;
-  int qs = bi, rs = bi + bo, nm = 0, nmm = 0, nid = 0;
+  int q0 = bi, r0 = bi + bo, nm = 0, nmm = 0, nid = 0;
   bool tr = false;
+  int lo = CHUNKED ? bi + 1 : 0;            // the first row `held` holds
+  const Wd* held = CHUNKED ? buf : bits;
   if (best > 0) {
     while (i >= 0 && o >= 0 && o < W) {
-      const int v = d[i * row_stride + o];
+      if (CHUNKED && i < lo) {
+        lo = max(0, i - kChunk + 1);
+        __syncwarp(gmask);                  // the last chunk's reads done
+        const Wd* src = bits + static_cast<long long>(lo) * row_words;
+        const int n = (i - lo + 1) * row_words;
+        for (int t = sl; t < n; t += lpa) buf[t] = src[t];
+        __syncwarp(gmask);
+      }
+      const int ow = o / NPL;
+      const int v = static_cast<int>(
+          (held[static_cast<long long>(i - lo) * row_words + ow] >>
+           (4 * (o - ow * NPL))) & 15);
+      const int qc = qs[i], rc = rs[i + o];
       // in the E (F) phase the cell emits I (D) whatever its H source
-      const int src = ph == kPhH ? (v & 3) : (ph == kPhE ? 2 : 3);
-      uint8_t op;
+      const int src = ph == kPhH ? (v & 3) : ph + 1;
       if (src == 0) break;
-      if (src == 1) {
-        op = kOpM;
-        if (v & 16) {
-          ++nm;
-        } else {
-          ++nmm;
-        }
-        qs = i;
-        rs = i + o;
-        --i;
-      } else if (src == 2) {
-        op = kOpI;
-        ++nid;
-        qs = i;
-        ph = (v & 4) ? kPhE : kPhH;
-        --i;
-        ++o;
-      } else {
-        op = kOpD;
-        ++nid;
-        rs = i + o;
-        ph = (v & 8) ? kPhF : kPhH;
-        --o;
-      }
-      if (c < max_ops) {
-        ops[c++] = op;
-      } else {
-        tr = true;
-      }
+      // one step without branches, so that the groups of a warp walk in
+      // step: M (src 1) moves up-left, I (2) up, D (3) left
+      const bool m = src == 1, ins = src == 2, del = src == 3;
+      const int hit = m ? static_cast<int>((pos >> (8 * qc + rc)) & 1) : 0;
+      nm += hit;
+      nmm += static_cast<int>(m) - hit;
+      nid += static_cast<int>(!m);
+      q0 = del ? q0 : i;
+      r0 = ins ? r0 : i + o;
+      ph = ins ? (v >> 2) & 1 : (del ? (v >> 2) & 2 : kPhH);
+      i -= static_cast<int>(!del);
+      o += static_cast<int>(ins) - static_cast<int>(del);
+      if (writer && c < max_ops) ops[c] = static_cast<uint8_t>(src - 1);
+      tr = tr || c >= max_ops;
+      c += static_cast<int>(c < max_ops);
     }
   }
-  const int vals[kFields] = {best, qs, bi, rs, bi + bo, c, nm, nmm, nid};
+  if (writer) {
+    const int vals[kFields] = {best, q0, bi, r0, bi + bo, c, nm, nmm, nid};
 #pragma unroll
-  for (int f = 0; f < kFields; ++f) {
-    out[f * static_cast<long long>(S) + slot] = vals[f];
+    for (int f = 0; f < kFields; ++f) {
+      out[f * static_cast<long long>(S) + slot] = vals[f];
+    }
+    trunc[slot] = tr ? 1 : 0;
   }
-  trunc[slot] = tr ? 1 : 0;
   return c;
 }
 
@@ -286,37 +358,44 @@ __device__ __forceinline__ void init_cells(int o0, int W, int (&h)[NPL],
   }
 }
 
-// Groups of LPA lanes, one alignment each, APW = 32 / LPA alignments a
-// warp, one warp a block.
-template <int LPA, int NPL, bool LOCAL>
-__global__ void __launch_bounds__(kThreads)
+// Groups of LPA lanes, one alignment each, 32 / LPA a warp, blockDim.x / 32
+// warps a block.  Each group's shared memory (group_bytes from `stage`):
+// its query codes (stage_q bytes), its corridor codes, then at codes_bytes
+// its packed rows: all L (SMEM) or a chunk of kChunk (the global route,
+// whose rows go to gbits [S, L, LPA]).
+template <int LPA, int NPL, bool LOCAL, bool SMEM>
+__global__ void __launch_bounds__(kWarps * 32)
 sw_align_kernel(const uint8_t* __restrict__ query,
                 const int32_t* __restrict__ qlen,
                 const uint8_t* __restrict__ corr,
                 const int32_t* __restrict__ mats,
                 const int32_t* __restrict__ msel, int S, int L, int W,
                 int n_mats, int gq, int gr, int ge, int max_ops, int stage_q,
-                int stage_bytes, uint8_t* dirs, int32_t* __restrict__ out,
+                int codes_bytes, int group_bytes, Word<NPL>* gbits,
+                uint8_t* dirs, int32_t* __restrict__ out,
                 uint8_t* __restrict__ ops, uint8_t* __restrict__ trunc) {
-  constexpr int APW = 32 / LPA;
+  using Wd = Word<NPL>;
   constexpr int WP = LPA * NPL;
   __shared__ int32_t smat[kMaxMats * 64];
   extern __shared__ __align__(16) uint8_t stage[];
 
-  load_mats(smat, mats, n_mats, threadIdx.x, kThreads);
+  load_mats(smat, mats, n_mats, threadIdx.x, blockDim.x);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const int g = lane / LPA;
+  const int g = threadIdx.x / LPA;
   const int sl = lane % LPA;
-  const int slot = blockIdx.x * APW + g;
+  const int slot = blockIdx.x * (blockDim.x / LPA) + g;
   const bool real = slot < S;
   const int len = real ? qlen[slot] : 0;
   const int rows = len < 0 ? 0 : (len > L ? L : len);
   const int last = len - 1;   // glocal: the one row that competes
+  const unsigned gmask =
+      LPA == 32 ? kFull : (((1u << (LPA & 31)) - 1u) << (lane - sl));
 
-  uint8_t* qs = stage + g * stage_bytes;
+  uint8_t* qs = stage + static_cast<long long>(g) * group_bytes;
   uint8_t* rs = qs + stage_q;
+  Wd* buf = reinterpret_cast<Wd*>(qs + codes_bytes);
   const int nr = L + WP - 1;
   if (real) {
     stage_codes(query + static_cast<long long>(slot) * L, L, qs, L, sl, LPA);
@@ -335,36 +414,54 @@ sw_align_kernel(const uint8_t* __restrict__ query,
   const int o0 = sl * NPL;
   const int fb0 = (kNeg - ge) > (kNeg - gr) ? 8 : 0;
   const long long row_stride = static_cast<long long>(S) * W;
-  uint8_t* dcell = real ? dirs + static_cast<long long>(slot) * W + o0 : nullptr;
+  uint8_t* dcell = (dirs != nullptr && real)
+                       ? dirs + static_cast<long long>(slot) * W + o0
+                       : nullptr;
+  Wd* rowbits = SMEM ? buf
+                     : (real ? gbits + static_cast<long long>(slot) * L * LPA
+                             : nullptr);
+  // every row when the bytes are asked for; else the warp's longest read
+  const int nrows = dirs != nullptr ? L : __reduce_max_sync(kFull, rows);
   int h[NPL], e[NPL];
   init_cells<NPL>(o0, W, h, e);
   int lb = 0, li = 0, lo = 0;
 
-  for (int i = 0; i < L; ++i) {
-    // the previous row's h and e of the cell right of this lane's last
-    int hn = __shfl_down_sync(kFull, h[0], 1, LPA);
-    int en = __shfl_down_sync(kFull, e[0], 1, LPA);
-    if (sl == LPA - 1) {
-      hn = kNeg;
-      en = kNeg;
-    }
-    int hd[NPL], ht[NPL], incl[NPL], bits[NPL];
-    const int run = row_first<NPL, LOCAL>(sm + 8 * qs[i], rs + i + o0, h, e,
-                                          hn, en, gq, ge, o0, hd, ht, incl,
-                                          bits);
-    const int htl = __shfl_up_sync(kFull, ht[NPL - 1], 1, LPA);
-    // exclusive max-scan of the lane totals across the group
-    int v = run;
+  // the rows, compiled twice: with the bytes (tests) and without
+  auto forward = [&](auto bytes) {
+    constexpr bool BYTES = decltype(bytes)::value;
+    for (int i = 0; i < nrows; ++i) {
+      // the previous row's h and e of the cell right of this lane's last
+      int hn = __shfl_down_sync(kFull, h[0], 1, LPA);
+      int en = __shfl_down_sync(kFull, e[0], 1, LPA);
+      if (sl == LPA - 1) {
+        hn = kNeg;
+        en = kNeg;
+      }
+      int hd[NPL], ht[NPL], incl[NPL], eb[NPL];
+      const int run = row_first<NPL, LOCAL>(sm + 8 * qs[i], rs + i + o0, h,
+                                            e, hn, en, gq, ge, o0, hd, ht,
+                                            incl, eb);
+      const int htl = __shfl_up_sync(kFull, ht[NPL - 1], 1, LPA);
+      // exclusive max-scan of the lane totals across the group
+      int v = run;
 #pragma unroll
-    for (int d = 1; d < LPA; d <<= 1) {
-      const int t = __shfl_up_sync(kFull, v, d, LPA);
-      if (sl >= d) v = max(v, t);
+      for (int d = 1; d < LPA; d <<= 1) {
+        const int t = __shfl_up_sync(kFull, v, d, LPA);
+        if (sl >= d) v = max(v, t);
+      }
+      int excl = __shfl_up_sync(kFull, v, 1, LPA);
+      if (sl == 0) excl = kNeg;
+      const Wd w = row_second<NPL, LOCAL, BYTES, Wd>(
+          excl, htl, fb0, h, e, hd, ht, incl, eb, o0, W, gr, ge,
+          BYTES && dcell != nullptr ? dcell + i * row_stride : nullptr,
+          LOCAL ? i < rows : i == last, i, lb, li, lo);
+      if (real) rowbits[i * LPA + sl] = w;
     }
-    int excl = __shfl_up_sync(kFull, v, 1, LPA);
-    if (sl == 0) excl = kNeg;
-    row_second<NPL, LOCAL>(excl, htl, fb0, h, e, hd, ht, incl, bits, o0, W,
-                           gr, ge, real ? dcell + i * row_stride : nullptr,
-                           LOCAL ? i < rows : i == last, i, lb, li, lo);
+  };
+  if (dirs != nullptr) {
+    forward(std::true_type{});
+  } else {
+    forward(std::false_type{});
   }
 
   int bv = lb, bi = li, bo = lo;
@@ -374,25 +471,22 @@ sw_align_kernel(const uint8_t* __restrict__ query,
                    __shfl_xor_sync(kFull, bi, d, LPA),
                    __shfl_xor_sync(kFull, bo, d, LPA), bv, bi, bo);
   }
-  __syncwarp();   // the group's bytes, visible to its walking lane
-  int c = 0;
+  __syncwarp();   // the group's words, visible to all its lanes
+  if (!real) return;
   uint8_t* slot_ops = ops + static_cast<long long>(slot) * max_ops;
-  if (real && sl == 0) {
-    c = walk_back(dirs + static_cast<long long>(slot) * W, row_stride, W,
-                  max_ops, bv, bi, bo, slot_ops, out, trunc, slot, S);
-  }
-  c = __shfl_sync(kFull, c, 0, LPA);
-  if (real) {
-    for (int t = c + sl; t < max_ops; t += LPA) slot_ops[t] = kOpNone;
-  }
+  const int c = walk_back<NPL, !SMEM, Wd>(
+      rowbits, LPA, buf, gmask, sl, LPA, qs, rs, positive_mask(sm), W,
+      max_ops, bv, bi, bo, sl == 0, slot_ops, out, trunc, slot, S);
+  for (int t = c + sl; t < max_ops; t += LPA) slot_ops[t] = kOpNone;
 }
 
-// One alignment a block, for W > kMaxWarpBand: 32 * nw threads, thread t
-// owning cells 8t .. 8t+7.  Two barriers a row: (A) after each warp's lane
-// 0 publishes the previous row's h and e of its first cell, which lane 31
-// of the warp before needs for its last cell's E; (B) after each warp's
-// lane 31 publishes its scan total and its last cell's htmp, which the
-// warps after need for the F scan and for bit 3 of their first cell.
+// One alignment a block, for W > kMaxWarpBand (the global route): 32 * nw
+// threads, thread t owning cells 8t .. 8t+7 and word t of each row of
+// gbits [S, L, 32 * nw].  Two barriers a row: (A) after each warp's lane 0
+// publishes the previous row's h and e of its first cell, which lane 31 of
+// the warp before needs for its last cell's E; (B) after each warp's lane
+// 31 publishes its scan total and its last cell's htmp, which the warps
+// after need for the F scan and for bit 3 of their first cell.
 template <bool LOCAL>
 __global__ void __launch_bounds__(kMaxBlockThreads)
 sw_align_block_kernel(const uint8_t* __restrict__ query,
@@ -401,8 +495,9 @@ sw_align_block_kernel(const uint8_t* __restrict__ query,
                       const int32_t* __restrict__ mats,
                       const int32_t* __restrict__ msel, int S, int L, int W,
                       int n_mats, int gq, int gr, int ge, int max_ops,
-                      int stage_q, uint8_t* dirs, int32_t* __restrict__ out,
-                      uint8_t* __restrict__ ops, uint8_t* __restrict__ trunc) {
+                      int stage_q, uint32_t* gbits, uint8_t* dirs,
+                      int32_t* __restrict__ out, uint8_t* __restrict__ ops,
+                      uint8_t* __restrict__ trunc) {
   constexpr int NPL = kBlockNPL;
   __shared__ int32_t smat[kMaxMats * 64];
   __shared__ int32_t s_h0[32], s_e0[32];    // previous row, first cell
@@ -436,12 +531,15 @@ sw_align_block_kernel(const uint8_t* __restrict__ query,
   const int o0 = tid * NPL;
   const int fb0 = (kNeg - ge) > (kNeg - gr) ? 8 : 0;
   const long long row_stride = static_cast<long long>(S) * W;
-  uint8_t* dcell = dirs + static_cast<long long>(slot) * W + o0;
+  uint8_t* dcell =
+      dirs != nullptr ? dirs + static_cast<long long>(slot) * W + o0 : nullptr;
+  uint32_t* rowbits = gbits + static_cast<long long>(slot) * L * nt;
+  const int nrows = dirs != nullptr ? L : rows;
   int h[NPL], e[NPL];
   init_cells<NPL>(o0, W, h, e);
   int lb = 0, li = 0, lo = 0;
 
-  for (int i = 0; i < L; ++i) {
+  for (int i = 0; i < nrows; ++i) {
     if (lane == 0) {
       s_h0[warp] = h[0];
       s_e0[warp] = e[0];
@@ -453,10 +551,10 @@ sw_align_block_kernel(const uint8_t* __restrict__ query,
       hn = warp + 1 < nw ? s_h0[warp + 1] : kNeg;
       en = warp + 1 < nw ? s_e0[warp + 1] : kNeg;
     }
-    int hd[NPL], ht[NPL], incl[NPL], bits[NPL];
+    int hd[NPL], ht[NPL], incl[NPL], eb[NPL];
     const int run = row_first<NPL, LOCAL>(sm + 8 * qs[i], rs + i + o0, h, e,
                                           hn, en, gq, ge, o0, hd, ht, incl,
-                                          bits);
+                                          eb);
     int htl = __shfl_up_sync(kFull, ht[NPL - 1], 1);
     int v = run;
 #pragma unroll
@@ -479,9 +577,11 @@ sw_align_block_kernel(const uint8_t* __restrict__ query,
       carry = max(carry, __shfl_xor_sync(kFull, carry, d));
     }
     excl = max(excl, carry);
-    row_second<NPL, LOCAL>(excl, htl, fb0, h, e, hd, ht, incl, bits, o0, W,
-                           gr, ge, dcell + i * row_stride,
-                           LOCAL ? i < rows : i == last, i, lb, li, lo);
+    rowbits[static_cast<long long>(i) * nt + tid] =
+        row_second<NPL, LOCAL, true, uint32_t>(
+            excl, htl, fb0, h, e, hd, ht, incl, eb, o0, W, gr, ge,
+            dcell != nullptr ? dcell + i * row_stride : nullptr,
+            LOCAL ? i < rows : i == last, i, lb, li, lo);
   }
 
   int bv = lb, bi = li, bo = lo;
@@ -496,7 +596,7 @@ sw_align_block_kernel(const uint8_t* __restrict__ query,
     red[1][warp] = bi;
     red[2][warp] = bo;
   }
-  __syncthreads();   // also makes every thread's bytes visible to thread 0
+  __syncthreads();   // also makes every thread's words visible to thread 0
   uint8_t* slot_ops = ops + static_cast<long long>(slot) * max_ops;
   if (warp == 0) {
     bv = lane < nw ? red[0][lane] : 0;
@@ -509,8 +609,9 @@ sw_align_block_kernel(const uint8_t* __restrict__ query,
                      __shfl_xor_sync(kFull, bo, d), bv, bi, bo);
     }
     if (lane == 0) {
-      s_c = walk_back(dirs + static_cast<long long>(slot) * W, row_stride, W,
-                      max_ops, bv, bi, bo, slot_ops, out, trunc, slot, S);
+      s_c = walk_back<NPL, false, uint32_t>(
+          rowbits, nt, nullptr, 1u, 0, 1, qs, rs, positive_mask(sm), W,
+          max_ops, bv, bi, bo, true, slot_ops, out, trunc, slot, S);
     }
   }
   __syncthreads();
@@ -520,97 +621,304 @@ sw_align_block_kernel(const uint8_t* __restrict__ query,
 struct Args {
   const void *query, *qlen, *corr, *mats, *msel;
   int S, L, W, n_mats, gq, gr, ge, max_ops;
-  void *dirs, *out, *ops, *trunc;
+  void *scratch, *dirs, *out, *ops, *trunc;
 };
 
+// What a launch takes: the route, the layout, the block and its dynamic
+// shared memory, how many such blocks an SM holds (0: the route cannot
+// take the shape), and the route's capacity, the warps an SM holds at
+// blocks of as many warps (up to kWarps) as fit: what the shape rule reads.
+struct Plan {
+  int route, lpa, npl, row_bytes, threads;
+  long long smem;
+  int blocks_per_sm, route_warps_per_sm;
+};
+
+struct Device {
+  int id, n_sm;
+};
+
+// (lanes per alignment, cells per lane); LPA 0 is the block form
+template <int LPA_, int NPL_>
+struct Layout {
+  static constexpr int LPA = LPA_, NPL = NPL_;
+};
+
+// f(K4's layout at W).  K4's (lanes per alignment, cells per lane) table:
+// a sweep on an H100 (tools/kernel_ab.py, PERF.md) kept K1's values against
+// half the lanes with twice the cells: those took 0.98x and 1.12x the time
+// at [4096,100]xW48 and [2048,150]xW56 (smem), and 0.90-0.95x at
+// [614,1000]xW184 (global), where their 64-bit rows (256 KB a warp) leave
+// the smem route no room
+template <typename F>
+cudaError_t by_band(int W, F&& f) {
+  if (W <= 16) return f(Layout<8, 2>{});
+  if (W <= 32) return f(Layout<8, 4>{});
+  if (W <= 48) return f(Layout<16, 3>{});
+  if (W <= 64) return f(Layout<16, 4>{});
+  if (W <= 96) return f(Layout<16, 6>{});
+  if (W <= 128) return f(Layout<16, 8>{});
+  if (W <= 192) return f(Layout<32, 6>{});
+  if (W <= 256) return f(Layout<32, 8>{});
+  if (W <= 384) return f(Layout<32, 12>{});
+  if (W <= kMaxWarpBand) return f(Layout<32, 16>{});
+  return f(Layout<0, kBlockNPL>{});
+}
+
+long long align_up(long long x, long long a) { return (x + a - 1) / a * a; }
+
+int stage_q_bytes(int L) { return (L + 3) & ~3; }
+
+// the shared memory of one group of the warp form at [*, L]: its query
+// codes, its corridor codes, then at codes_bytes its packed rows, all L of
+// them (the smem route) or a chunk of kChunk (the global route)
+template <int LPA, int NPL>
+struct WarpBytes {
+  int L, codes_bytes, row_bytes;
+  explicit WarpBytes(int L_)
+      : L(L_),
+        codes_bytes(static_cast<int>(align_up(
+            stage_q_bytes(L_) + ((L_ + LPA * NPL + 3) & ~3), 16))),
+        row_bytes(LPA * static_cast<int>(sizeof(Word<NPL>))) {}
+  long long group(bool smem) const {
+    return align_up(
+        codes_bytes + static_cast<long long>(smem ? L : kChunk) * row_bytes,
+        16);
+  }
+};
+
+// the block form at W: 32 * ceil(W / 256) threads, its codes staged
+int block_threads(int W) {
+  return 32 * ((W + 32 * kBlockNPL - 1) / (32 * kBlockNPL));
+}
+long long block_smem(int L, int threads) {
+  return stage_q_bytes(L) +
+         align_up(static_cast<long long>(L) + threads * kBlockNPL, 4);
+}
+
+// The dynamic shared memory a block of `kern` may take on device `dev`:
+// what the card grants a block past the kernel's static share.  Raises the
+// kernel's own ceiling to it (above 48 KB), so that every launch a plan
+// allows runs with no further attribute call.
 template <typename Kernel>
-cudaError_t set_smem(Kernel kern, long long smem) {
-  if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
+cudaError_t smem_limit(Kernel kern, int dev, long long* limit) {
+  int optin = 0;
+  cudaFuncAttributes attr;
+  *limit = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  *limit = optin - static_cast<long long>(attr.sharedSizeBytes);
+  if (*limit <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kern,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+                              static_cast<int>(*limit));
 }
 
-template <bool LOCAL>
-cudaError_t launch_block(const Args& a, cudaStream_t stream) {
-  const int threads = 32 * ((a.W + 32 * kBlockNPL - 1) / (32 * kBlockNPL));
-  const int stage_q = (a.L + 3) & ~3;
-  const long long smem =
-      stage_q + ((static_cast<long long>(a.L) + threads * kBlockNPL + 3) & ~3);
-  auto kern = sw_align_block_kernel<LOCAL>;
-  const cudaError_t err = set_smem(kern, smem);
+// blocks of `kern` an SM holds at `threads` threads and `smem` bytes of
+// dynamic shared memory (0 where those do not fit one block)
+template <typename Kernel>
+cudaError_t blocks_per_sm(Kernel kern, int threads, long long smem,
+                          long long limit, int* blocks) {
+  *blocks = 0;
+  if (threads < 32 || smem > limit) return cudaSuccess;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kern, threads, static_cast<size_t>(smem));
+}
+
+// The warp form's launch of `kern` for S alignments, `apw` a warp, at
+// `per_warp` bytes of shared memory a warp: the route's capacity at as
+// many warps a block as fit (up to kWarps); the launch then halves the
+// warps a block while that spreads the warps over the SMs more evenly (614
+// alignments of one warp: blocks of 4 leave 8 warps on some SMs, blocks of
+// 1 at most 5).
+template <typename Kernel>
+cudaError_t plan_warps(Kernel kern, const Device& d, int S, int apw,
+                       long long per_warp, Plan* p) {
+  long long limit = 0;
+  cudaError_t err = smem_limit(kern, d.id, &limit);
   if (err != cudaSuccess) return err;
-  kern<<<a.S, threads, static_cast<size_t>(smem), stream>>>(
-      static_cast<const uint8_t*>(a.query), static_cast<const int32_t*>(a.qlen),
-      static_cast<const uint8_t*>(a.corr), static_cast<const int32_t*>(a.mats),
-      static_cast<const int32_t*>(a.msel), a.S, a.L, a.W, a.n_mats, a.gq, a.gr,
-      a.ge, a.max_ops, stage_q, static_cast<uint8_t*>(a.dirs),
-      static_cast<int32_t*>(a.out), static_cast<uint8_t*>(a.ops),
-      static_cast<uint8_t*>(a.trunc));
+  int nw = static_cast<int>(std::min<long long>(kWarps, limit / per_warp));
+  if (nw < 1) {   // one warp's bytes; p->blocks_per_sm stays 0
+    p->threads = 32;
+    p->smem = per_warp;
+    return cudaSuccess;
+  }
+  int cap = 0;
+  err = blocks_per_sm(kern, 32 * nw, nw * per_warp, limit, &cap);
+  if (err != cudaSuccess) return err;
+  p->route_warps_per_sm = cap * nw;
+  const long long warps = (static_cast<long long>(S) + apw - 1) / apw;
+  const auto most = [&](int w) {   // warps on the fullest SM, in one wave
+    return (((warps + w - 1) / w) + d.n_sm - 1) / d.n_sm * w;
+  };
+  while (nw > 1 && most(nw) > most(1)) nw /= 2;
+  p->threads = 32 * nw;
+  p->smem = nw * per_warp;
+  return blocks_per_sm(kern, p->threads, p->smem, limit, &p->blocks_per_sm);
+}
+
+// The plan at one layout: the named route, or for route < 0 the shape
+// rule's (the smem route where at least kMinSmemWarps of its warps fit on
+// an SM)
+template <bool LOCAL, int LPA, int NPL>
+cudaError_t plan_at(Layout<LPA, NPL>, const Device& d, int S, int L, int W,
+                    int route, Plan* p) {
+  if constexpr (LPA == 0) {
+    const int threads = block_threads(W);
+    *p = Plan{kRouteGlobal, threads, kBlockNPL, threads * 4, threads,
+              block_smem(L, threads), 0, 0};
+    // the block form's rows stay in global memory: no smem route
+    if (route == kRouteSmem) return cudaSuccess;
+    auto kern = sw_align_block_kernel<LOCAL>;
+    long long limit = 0;
+    cudaError_t err = smem_limit(kern, d.id, &limit);
+    if (err == cudaSuccess) {
+      err = blocks_per_sm(kern, threads, p->smem, limit, &p->blocks_per_sm);
+    }
+    p->route_warps_per_sm = p->blocks_per_sm * threads / 32;
+    return err;
+  } else {
+    constexpr int APW = 32 / LPA;
+    const WarpBytes<LPA, NPL> b(L);
+    Plan ps{kRouteSmem, LPA, NPL, b.row_bytes, 0, 0, 0, 0};
+    Plan pg{kRouteGlobal, LPA, NPL, b.row_bytes, 0, 0, 0, 0};
+    cudaError_t err = cudaSuccess;
+    if (route != kRouteGlobal) {
+      err = plan_warps(sw_align_kernel<LPA, NPL, LOCAL, true>, d, S, APW,
+                       APW * b.group(true), &ps);
+      if (err != cudaSuccess) return err;
+    }
+    if (route < 0) {
+      route = ps.route_warps_per_sm >= kMinSmemWarps ? kRouteSmem
+                                                     : kRouteGlobal;
+    }
+    if (route == kRouteGlobal) {
+      err = plan_warps(sw_align_kernel<LPA, NPL, LOCAL, false>, d, S, APW,
+                       APW * b.group(false), &pg);
+    }
+    *p = route == kRouteSmem ? ps : pg;
+    return err;
+  }
+}
+
+// The launch at one layout, on the route and at the threads a block that
+// the plan gave; grid and shared memory follow from them and the shape
+template <bool LOCAL, int LPA, int NPL>
+cudaError_t launch_at(Layout<LPA, NPL>, const Args& a, int route,
+                      int threads, cudaStream_t st) {
+  if (route == kRouteGlobal && a.scratch == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  const int stage_q = stage_q_bytes(a.L);
+  if constexpr (LPA == 0) {
+    if (route != kRouteGlobal || threads != block_threads(a.W)) {
+      return cudaErrorInvalidValue;
+    }
+    sw_align_block_kernel<LOCAL>
+        <<<a.S, threads, static_cast<size_t>(block_smem(a.L, threads)), st>>>(
+            static_cast<const uint8_t*>(a.query),
+            static_cast<const int32_t*>(a.qlen),
+            static_cast<const uint8_t*>(a.corr),
+            static_cast<const int32_t*>(a.mats),
+            static_cast<const int32_t*>(a.msel), a.S, a.L, a.W, a.n_mats,
+            a.gq, a.gr, a.ge, a.max_ops, stage_q,
+            static_cast<uint32_t*>(a.scratch), static_cast<uint8_t*>(a.dirs),
+            static_cast<int32_t*>(a.out), static_cast<uint8_t*>(a.ops),
+            static_cast<uint8_t*>(a.trunc));
+  } else {
+    constexpr int APW = 32 / LPA;
+    const int nw = threads / 32;
+    if (threads != 32 * nw || nw < 1 || nw > kWarps) {
+      return cudaErrorInvalidValue;
+    }
+    const WarpBytes<LPA, NPL> b(a.L);
+    const bool smem = route == kRouteSmem;
+    const long long group = b.group(smem);
+    const int apb = nw * APW;
+    auto kern = smem ? sw_align_kernel<LPA, NPL, LOCAL, true>
+                     : sw_align_kernel<LPA, NPL, LOCAL, false>;
+    kern<<<(a.S + apb - 1) / apb, threads,
+           static_cast<size_t>(apb * group), st>>>(
+        static_cast<const uint8_t*>(a.query),
+        static_cast<const int32_t*>(a.qlen),
+        static_cast<const uint8_t*>(a.corr),
+        static_cast<const int32_t*>(a.mats),
+        static_cast<const int32_t*>(a.msel), a.S, a.L, a.W, a.n_mats, a.gq,
+        a.gr, a.ge, a.max_ops, stage_q, b.codes_bytes,
+        static_cast<int>(group), static_cast<Word<NPL>*>(a.scratch),
+        static_cast<uint8_t*>(a.dirs), static_cast<int32_t*>(a.out),
+        static_cast<uint8_t*>(a.ops), static_cast<uint8_t*>(a.trunc));
+  }
   return cudaGetLastError();
 }
 
-template <int LPA, int NPL, bool LOCAL>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int APB = kThreads / LPA;   // alignments per block
-  const int stage_q = (a.L + 3) & ~3;
-  const int stage_bytes = stage_q + ((a.L + LPA * NPL + 3) & ~3);
-  const long long smem = static_cast<long long>(APB) * stage_bytes;
-  auto kern = sw_align_kernel<LPA, NPL, LOCAL>;
-  const cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (a.S + APB - 1) / APB;
-  kern<<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(
-      static_cast<const uint8_t*>(a.query), static_cast<const int32_t*>(a.qlen),
-      static_cast<const uint8_t*>(a.corr), static_cast<const int32_t*>(a.mats),
-      static_cast<const int32_t*>(a.msel), a.S, a.L, a.W, a.n_mats, a.gq, a.gr,
-      a.ge, a.max_ops, stage_q, stage_bytes, static_cast<uint8_t*>(a.dirs),
-      static_cast<int32_t*>(a.out), static_cast<uint8_t*>(a.ops),
-      static_cast<uint8_t*>(a.trunc));
-  return cudaGetLastError();
-}
-
-template <bool LOCAL>
-cudaError_t launch_band(const Args& a, cudaStream_t st) {
-  // K1's (lanes per alignment, cells per lane) table
-  if (a.W <= 16) return launch<8, 2, LOCAL>(a, st);
-  if (a.W <= 32) return launch<8, 4, LOCAL>(a, st);
-  if (a.W <= 48) return launch<16, 3, LOCAL>(a, st);
-  if (a.W <= 64) return launch<16, 4, LOCAL>(a, st);
-  if (a.W <= 96) return launch<16, 6, LOCAL>(a, st);
-  if (a.W <= 128) return launch<16, 8, LOCAL>(a, st);
-  if (a.W <= 192) return launch<32, 6, LOCAL>(a, st);
-  if (a.W <= 256) return launch<32, 8, LOCAL>(a, st);
-  if (a.W <= 384) return launch<32, 12, LOCAL>(a, st);
-  if (a.W <= kMaxWarpBand) return launch<32, 16, LOCAL>(a, st);
-  return launch_block<LOCAL>(a, st);
-}
+bool valid(int L, int W) { return W >= 1 && W <= kMaxBand && L >= 0; }
 
 }  // namespace
 
+// The plan of a call of S alignments at [S, L] x W on the current device,
+// the one place that decides a launch: route < 0 for the shape rule's pick,
+// 0 to force the smem route, 1 the global route.  out[8] = route (0 smem,
+// 1 global), lanes per alignment (threads in the block form), cells per
+// lane, bytes of one alignment's packed row (the global route's scratch is
+// S * L of them), threads a block, dynamic shared memory a block, blocks
+// of that size an SM holds (0: the route cannot take the shape), and the
+// route's capacity in warps an SM (the shape rule's measure).  Raises the
+// kernel's shared-memory ceiling on this device, which ngm_sw_align needs.
+extern "C" int ngm_sw_align_plan(int S, int L, int W, int local, int route,
+                                 int* out) {
+  if (!valid(L, W) || S < 0 || route > kRouteGlobal) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Device d{0, 1};
+  Plan p{};
+  cudaError_t err = cudaGetDevice(&d.id);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&d.n_sm, cudaDevAttrMultiProcessorCount,
+                                 d.id);
+  }
+  if (err == cudaSuccess) {
+    err = by_band(W, [&](auto lay) {
+      return local != 0 ? plan_at<true>(lay, d, S, L, W, route, &p)
+                        : plan_at<false>(lay, d, S, L, W, route, &p);
+    });
+  }
+  const int vals[8] = {p.route, p.lpa, p.npl, p.row_bytes, p.threads,
+                       static_cast<int>(p.smem), p.blocks_per_sm,
+                       p.route_warps_per_sm};
+  for (int f = 0; f < 8; ++f) out[f] = vals[f];
+  return static_cast<int>(err);
+}
+
 // query [S, L] uint8, qlen [S] int32, corr [S, L + W] uint8,
 // mats [n_mats, 8, 8] int32, msel [S] int32 (clamped to [0, n_mats)); local
-// != 0 for local mode, 0 for glocal.  Writes dirs [L, S, W] uint8 (scratch,
-// the plain version's direction bytes), out [9, S] int32 (score, q_start,
-// q_end, r_start, r_end, n_ops, matches, mismatches, indels), ops
-// [S, max_ops] uint8 and trunc [S] bool.  1 <= W <= 8192, 1 <= n_mats <= 8,
-// max_ops >= 1.
+// != 0 for local mode, 0 for glocal; route 0 (smem) or 1 (global) and
+// `threads` a block, as ngm_sw_align_plan gave them on this device for S,
+// L, W and the mode.  scratch: the global route's packed rows,
+// S * L * row_bytes (plan) bytes, else unused; dirs: null, or [L, S, W]
+// uint8 for the plain version's direction bytes.  Writes out [9, S] int32
+// (score, q_start, q_end, r_start, r_end, n_ops, matches, mismatches,
+// indels), ops [S, max_ops] uint8 and trunc [S] bool.  1 <= W <= 8192,
+// 1 <= n_mats <= 8, max_ops >= 1.  A route or block the plan would not
+// give returns an error and runs nothing.
 extern "C" int ngm_sw_align(const void* query, const void* qlen,
                             const void* corr, const void* mats,
                             const void* msel, int S, int L, int W, int n_mats,
                             int gq, int gr, int ge, int local, int max_ops,
-                            void* dirs, void* out, void* ops, void* trunc,
-                            void* stream) {
-  if (W < 1 || W > kMaxBand || n_mats < 1 || n_mats > kMaxMats || L < 0 ||
-      max_ops < 1) {
+                            int route, int threads, void* scratch, void* dirs,
+                            void* out, void* ops, void* trunc, void* stream) {
+  if (!valid(L, W) || n_mats < 1 || n_mats > kMaxMats || max_ops < 1 ||
+      (route != kRouteSmem && route != kRouteGlobal)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (S <= 0) return static_cast<int>(cudaGetLastError());
   const Args a{query, qlen, corr, mats, msel, S, L, W, n_mats, gq, gr, ge,
-               max_ops, dirs, out, ops, trunc};
+               max_ops, scratch, dirs, out, ops, trunc};
   auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      local != 0 ? launch_band<true>(a, st) : launch_band<false>(a, st);
-  return static_cast<int>(err);
+  return static_cast<int>(by_band(W, [&](auto lay) {
+    return local != 0 ? launch_at<true>(lay, a, route, threads, st)
+                      : launch_at<false>(lay, a, route, threads, st);
+  }));
 }

@@ -38,7 +38,8 @@ SIGNATURES = {
     "ngm_sw_score": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
                      P, P, P, P),
     "ngm_sw_align": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
-                     I32, P, P, P, P, P),
+                     I32, I32, I32, P, P, P, P, P, P),
+    "ngm_sw_align_plan": (I32, I32, I32, I32, I32, P),
     "ngm_row_gather": (P, P, I32, I32, I32, I32, P, P),
     "ngm_row_gather_plan": (I32, I32, I32, P),
 }

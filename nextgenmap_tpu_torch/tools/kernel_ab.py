@@ -1,8 +1,8 @@
-"""Side-by-side device times of K1 (SW score), K2 (window gather) and K3
-(the dynamic-gather probe's kernel) built from several source trees, in one
-process on one CUDA card.
+"""Side-by-side device times of K1 (SW score), K2 (window gather), K3
+(the dynamic-gather probe's kernel) and K4 (SW with traceback) built from
+several source trees, in one process on one CUDA card.
 
-    python -m nextgenmap_tpu_torch.tools.kernel_ab [NAME=CSRC_DIR ...] [--rounds 2] [--only k3]
+    python -m nextgenmap_tpu_torch.tools.kernel_ab [NAME=CSRC_DIR ...] [--rounds 2] [--only k4]
 
 Each CSRC_DIR is a copy of the port's ``csrc/`` (another commit's, or a
 variant of one); ``repo`` (the port's own ``csrc/``) is always included.
@@ -16,22 +16,36 @@ at 2048x148, 4096x148, 4096x206 and 614x1184, beside ``unfold`` +
 ``index_select``; K3 along dim 0 and dim 1 at the probe's default 256x1024
 and at 4096x2048 (the probe's use case at the mapper's batch), REP 32,
 beside ``torch.gather`` at REP 1 and an empty kernel (``torch.cuda._sleep(0)``:
-one thread, no work), the floor of any launch.  Rounds alternate the trees'
-order (A B ..., then ... B A) so that a drift of the card's clock favours
-none.
+one thread, no work), the floor of any launch; K4 at chip_smoke.py's
+K4_SHAPES ([4096,100]xW48, [2048,150]xW56, [614,1000]xW184,
+[2048,100]xW264), local and glocal, through each tree's own
+``ngm_sw_align``: a tree with routes (``ngm_sw_align_plan``) on each route
+that takes the shape ("NAME smem", "NAME global"), without the direction
+bytes, as its mapping path calls it; an older tree without them with the
+[L, S, W] direction bytes its mapping path wrote.  Every K4 result is held
+equal to the plain ``banded_sw_align`` in all 11 fields first.  Rounds
+alternate the trees' order (A B ..., then ... B A) so that a drift of the
+card's clock favours none.
 
 Prints the card's name and power limit, one line per kernel and shape, and
 one JSON object as the last line: {"card": ..., "k1": {shape: {tree: [ms per
-round]}}, "k2": {...}, "k3": {...}, "k3_floors": {shape: {"bytes_ms": ...,
-"gather_ms": ...}}}.  K3's floors are its bytes (12 R W over 3.35 TB/s) and
-its gathers from shared memory without bank conflicts (REP R W loads, a
-warp of 32 a clock on each of 132 SMs at the card's maximum SM clock).
-Needs a CUDA card.
+round]}}, "k2": {...}, "k3": {...}, "k4": {...}, "k3_floors": {shape:
+{"bytes_ms": ..., "gather_ms": ...}}, "k4_bounds": {shape: ms},
+"k4_plans": {shape: {tree route: plan}}}.  K3's floors are its bytes (12 R
+W over 3.35 TB/s) and its gathers from shared memory without bank conflicts
+(REP R W loads, a warp of 32 a clock on each of 132 SMs at the card's
+maximum SM clock).  K4's bound is chip_smoke.py's: 20 (local) or 18
+(glocal) int ops per cell of each real slot's qlen x W over 132 SMs x 64
+INT32 lanes at that clock.  A K4 plan is ``ngm_sw_align_plan``'s (route,
+lanes, cells per lane, packed row bytes, threads a block and its shared
+memory bytes as launched, blocks of that size an SM holds, the route's
+capacity in warps an SM).  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -46,7 +60,8 @@ from nextgenmap_tpu_torch.models.mapper import score_matrices
 from nextgenmap_tpu_torch.native import build
 from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
 from nextgenmap_tpu_torch.ops.row_gather import row_gather_plain
-from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
+from nextgenmap_tpu_torch.ops.sw_align_kernel import N_FIELDS, ROUTES
+from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align, banded_sw_score
 from nextgenmap_tpu_torch.tools.timing import device_ms
 
 GENOME = 4_600_000
@@ -61,8 +76,18 @@ K1_SHAPES = [
 K2_SHAPES = [(2048, 148), (4096, 148), (4096, 206), (614, 1184)]
 K3_SHAPES = [(256, 1024), (4096, 2048)]
 K3_REP = 32
-KERNELS = ("k1", "k2", "k3")
+# chip_smoke.py's K4_SHAPES and K4_OPS_PER_CELL
+K4_SHAPES = [(4096, 100, 48), (2048, 150, 56), (614, 1000, 184),
+             (2048, 100, 264)]
+K4_OPS_PER_CELL = {"local": 20, "glocal": 18}
+KERNELS = ("k1", "k2", "k3", "k4")
 HBM_BYTES_PER_S = 3.35e12
+INT32_LANES = 132 * 64
+P, I32 = build.P, build.I32
+# ngm_sw_align of an older tree without routes: the [L, S, W] direction
+# bytes where the routed one takes (route, scratch, dirs)
+SW_ALIGN_DIRS_ONLY = (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
+                      I32, P, P, P, P, P)
 
 
 def sw_inputs(rng: np.random.Generator, S: int, L: int, W: int, real: int):
@@ -124,6 +149,64 @@ def row_gather_launcher(lib, x, idx, rep: int, dim: int):
     return launch
 
 
+def align_inputs(rng: np.random.Generator, S: int, L: int, W: int):
+    """sw_inputs's queries, each with a 1-3 base insertion at a random cut
+    before it is planted, and one in ten shorter than L."""
+    q, lens, r = sw_inputs(rng, S, L, W, S)
+    for i in range(S):
+        cut = int(rng.integers(L // 4, 3 * L // 4))
+        ins = rng.integers(0, 4, int(rng.integers(1, 4)), dtype=np.uint8)
+        off = int(rng.integers(0, W // 2 + 1))
+        seg = np.concatenate([q[i, :cut], ins, q[i, cut:]])[:L + W - off]
+        r[i, off:off + seg.shape[0]] = seg
+    short = rng.random(S) < 0.1
+    lens[short] = rng.integers(1, L, int(short.sum()))
+    return q, lens, r
+
+
+def align_launcher(lib, args, gaps, msel, W: int, local: bool,
+                   route: str | None):
+    """(launch, plan) of `lib`'s K4 on `route` (None: a tree without routes,
+    with its direction bytes); launch() returns (out, ops, trunc).  (None,
+    None) where the route cannot take the shape."""
+    q, lens, r, mats = args
+    S, L = q.shape
+    dev = q.device
+    mo = L + W
+    out = torch.empty((N_FIELDS, S), dtype=torch.int32, device=dev)
+    ops = torch.empty((S, mo), dtype=torch.uint8, device=dev)
+    trunc = torch.empty(S, dtype=torch.bool, device=dev)
+    plan = None
+    if route is None:
+        dirs = torch.empty((L, S, W), dtype=torch.uint8, device=dev)
+
+        def middle():
+            return (dirs.data_ptr(),)
+    else:
+        plan = (ctypes.c_int * 8)()
+        build.check(lib.ngm_sw_align_plan(S, L, W, int(local),
+                                          ROUTES.index(route), plan),
+                    "sw_align plan")
+        if plan[6] == 0 or ROUTES[plan[0]] != route:
+            return None, None
+        scratch = (torch.empty(max(S * L * plan[3], 16), dtype=torch.uint8,
+                               device=dev)
+                   if route == "global" else None)
+
+        def middle():
+            return (ROUTES.index(route), plan[4],
+                    None if scratch is None else scratch.data_ptr(), None)
+
+    def launch():
+        build.check(lib.ngm_sw_align(
+            q.data_ptr(), lens.data_ptr(), r.data_ptr(), mats.data_ptr(),
+            msel.data_ptr(), S, L, W, mats.shape[0], *gaps, int(local), mo,
+            *middle(), out.data_ptr(), ops.data_ptr(), trunc.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "sw_align")
+        return out, ops, trunc
+    return launch, (None if plan is None else list(plan))
+
+
 def sm_clock_hz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -156,6 +239,9 @@ def main(argv: list[str] | None = None) -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
     libs = {name: build.bind(build.build(path)) for name, path in trees.items()}
+    for lib in libs.values():
+        if not hasattr(lib, "ngm_sw_align_plan"):
+            lib.ngm_sw_align.argtypes = list(SW_ALIGN_DIRS_ONLY)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2026)
@@ -216,9 +302,43 @@ def main(argv: list[str] | None = None) -> int:
         floors[f"{R}x{W} REP {K3_REP}"] = {
             "bytes_ms": 1e3 * 12 * R * W / HBM_BYTES_PER_S,
             "gather_ms": 1e3 * K3_REP * R * W / gathers_per_s}
+    bounds, plans = {}, {}
+    ops_per_s = INT32_LANES * sm_clock_hz()
+    for S, L, W in K4_SHAPES if "k4" in only else ():
+        q, lens, r = (torch.from_numpy(a).to(dev)
+                      for a in align_inputs(rng, S, L, W))
+        msel = torch.from_numpy(rng.integers(0, 2, S, dtype=np.int32)).to(dev)
+        for mode in ("local", "glocal"):
+            label = f"{mode} [{S},{L}]xW{W}"
+            want = banded_sw_align(q, lens, r, mats, *gaps, msel, band=W,
+                                   mode=mode)
+            cells = int(lens.clamp(0, L).sum()) * W
+            bounds[label] = 1e3 * K4_OPS_PER_CELL[mode] * cells / ops_per_s
+            cases["k4", label], plans[label] = {}, {}
+            for name, lib in libs.items():
+                routes = (ROUTES if hasattr(lib, "ngm_sw_align_plan")
+                          else (None,))
+                for route in routes:
+                    fn, p = align_launcher(lib, (q, lens, r, mats), gaps,
+                                           msel, W, mode == "local", route)
+                    if fn is None:
+                        continue
+                    tree = name if route is None else f"{name} {route}"
+                    out, ops, trunc = fn()
+                    got = (*out, ops, trunc)
+                    fields = ("score", "q_start", "q_end", "r_start", "r_end",
+                              "n_ops", "matches", "mismatches", "indels",
+                              "ops", "trunc")
+                    for f, g in zip(fields, got):
+                        if not torch.equal(g, getattr(want, f)):
+                            raise RuntimeError(f"K4 of {tree} differs from "
+                                               f"plain in {f} at {label}")
+                    cases["k4", label][tree] = fn
+                    plans[label][tree] = p
     torch.cuda.synchronize()
 
-    result = {"card": card, "k1": {}, "k2": {}, "k3": {}, "k3_floors": floors}
+    result = {"card": card, "k1": {}, "k2": {}, "k3": {}, "k4": {},
+              "k3_floors": floors, "k4_bounds": bounds, "k4_plans": plans}
     for rnd in range(args.rounds):
         for (kernel, label), fns in cases.items():
             order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]

@@ -8,14 +8,16 @@ CUDA card; ``chip_smoke.py`` and ``tools/kernel_ab.py`` use them.
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-WINDOWS = 3   # profiler windows tried before giving up: CUPTI now and then
-              # hands back a window without its kernel records
+WINDOWS = 6   # profiler windows tried before giving up: CUPTI now and then
+              # hands back windows without their kernel records (three in a
+              # row once, on an H100)
 
 
 def call_ms(fn: Callable[[], object], reps: int, warmup: int = 2) -> float:
@@ -47,7 +49,10 @@ def device_ms(fn: Callable[[], object], calls: int = 20,
     divided by the launches recorded of the most launched kernel (a call
     launches each of its kernels once; counting recorded launches, not
     calls, keeps a dropped record from reading as a faster kernel).  A
-    window that recorded no kernel at all is run again.
+    window that recorded no kernel at all is run again, in a new profiler
+    session after a pause; after WINDOWS such windows it raises: no other
+    clock stands in for the device's (CUDA events around back-to-back calls
+    read the launch rate for a kernel shorter than its launch).
     """
     for _ in range(warmup):
         fn()
@@ -69,5 +74,6 @@ def device_ms(fn: Callable[[], object], calls: int = 20,
                 launches = max(launches, e.count)
         if total_us > 0:
             return total_us / launches / 1e3
+        time.sleep(0.5)
     raise RuntimeError(f"torch.profiler recorded no kernel in {WINDOWS} "
                        "windows")

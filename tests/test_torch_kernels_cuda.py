@@ -326,58 +326,109 @@ def _align_case(rng, S, L, W):
     return q, lens, r, msel
 
 
-def _check_align(dev, q, lens, r, mats, msel, gaps, W, mode, max_ops=0):
+def _check_align(dev, q, lens, r, mats, msel, gaps, W, mode, max_ops=0,
+                 route=None):
     """K4 == banded_sw_forward's bytes, then _backwalk_rows's every
-    AlignResult field."""
+    AlignResult field; and without the bytes (the mapping path's call) the
+    same fields."""
     args = [torch.from_numpy(a).to(dev) for a in (q, lens, r, mats, msel)]
     before = sw_align.launches
     got, dirs = sw_align_with_dirs(*args[:4], *gaps, args[4], band=W,
-                                   max_ops=max_ops, mode=mode)
+                                   max_ops=max_ops, mode=mode, route=route)
+    bare = sw_align(*args[:4], *gaps, args[4], band=W, max_ops=max_ops,
+                    mode=mode, route=route)
     torch.cuda.synchronize()
-    assert sw_align.launches == before + 1
+    assert sw_align.launches == before + 2
     pdirs, best, bi, bo = banded_sw_forward(*args[:4], *gaps, args[4],
                                             band=W, mode=mode)
-    assert torch.equal(dirs, pdirs), ("dirs", W, mode)
+    assert torch.equal(dirs, pdirs), ("dirs", W, mode, route)
     ref = _backwalk_rows(pdirs, best, bi, bo, max_ops or q.shape[1] + W)
     for f in ref._fields:
-        assert torch.equal(getattr(ref, f), getattr(got, f)), (f, W, mode)
+        assert torch.equal(getattr(ref, f), getattr(got, f)), (f, W, mode,
+                                                               route)
+        assert torch.equal(getattr(ref, f), getattr(bare, f)), (f, W, mode,
+                                                                route)
     return got
+
+
+# (S, L, W) of the main path (single-end, 150 bp, 1000 bp, --corridor
+# 225), then one warp of 32 x 16 cells and band 1, 2 and 17: both routes
+ALIGN_WARP_SHAPES = [
+    (4096, 100, 48), (2048, 150, 56), (614, 1000, 184), (2048, 100, 264),
+    (64, 100, 512), (37, 60, 1), (37, 60, 2), (45, 70, 17),
+]
+# the block form (W > 512): the global route only
+ALIGN_BLOCK_SHAPES = [(64, 100, 520), (32, 200, 1024), (16, 200, 2048),
+                      (4, 100, 8192)]
 
 
 @pytest.mark.parametrize("gaps", [(20, 20, 20), (5, 7, 1)])
 @pytest.mark.parametrize("mode", ["local", "glocal"])
-@pytest.mark.parametrize("S,L,W", [
-    # the main path's (single-end, 150 bp, 1000 bp, --corridor 225)
-    (4096, 100, 48), (2048, 150, 56), (614, 1000, 184), (2048, 100, 264),
-    # one warp of 32 x 16 cells, then the block form; band 1 and 2
-    (64, 100, 512), (64, 100, 520), (32, 200, 1024), (16, 200, 2048),
-    (4, 100, 8192), (37, 60, 1), (37, 60, 2), (45, 70, 17),
-])
-def test_sw_align_kernel_equals_plain(dev, S, L, W, mode, gaps):
-    """K4 at the main path's shapes and the band's edges, with the
-    bisulfite [2, 8, 8] matrices, in every AlignResult field and in the
-    direction bytes; then with an op buffer of 12 that truncates."""
+@pytest.mark.parametrize("S,L,W,route", [
+    (*shape, route) for shape in ALIGN_WARP_SHAPES
+    for route in ("smem", "global")
+] + [(*shape, "global") for shape in ALIGN_BLOCK_SHAPES])
+def test_sw_align_kernel_equals_plain(dev, S, L, W, route, mode, gaps):
+    """K4 on each route at the main path's shapes and the band's edges,
+    with the bisulfite [2, 8, 8] matrices, in every AlignResult field and in
+    the direction bytes; then with an op buffer of 12 that truncates."""
     rng = np.random.default_rng(S + L + W + gaps[2])
     q, lens, r, msel = _align_case(rng, S, L, W)
     cfg = NgmConfig(bs_mapping=True)
     mats = np.stack([score_matrix(cfg, 0), score_matrix(cfg, 1)])
-    got = _check_align(dev, q, lens, r, mats, msel, gaps, W, mode)
+    got = _check_align(dev, q, lens, r, mats, msel, gaps, W, mode,
+                       route=route)
     assert int(got.score.max()) > 0
     zero = torch.from_numpy(lens == 0).to(dev)
     assert int(got.n_ops[zero].max()) == 0
     short = _check_align(dev, q, lens, r, mats, msel, gaps, W, mode,
-                         max_ops=12)
+                         max_ops=12, route=route)
     assert bool(short.trunc.any())
 
 
+@pytest.mark.parametrize("mode", ["local", "glocal"])
+@pytest.mark.parametrize("W", [48, 184, 264])
+def test_sw_align_route_threshold_edge(dev, W, mode):
+    """The longest L at which the shape rule still takes the smem route,
+    and the next: both routes exact on each side, and the rule's pick."""
+    from nextgenmap_tpu_torch.ops.sw_align_kernel import plan
+
+    def rule(L):
+        return plan(24, L, W, mode).route
+
+    lo, hi = 1, 4096
+    assert rule(lo) == "smem" and rule(hi) == "global"
+    while hi - lo > 1:                     # rule(lo) smem, rule(hi) global
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if rule(mid) == "smem" else (lo, mid)
+    for L, want in ((lo, "smem"), (hi, "global")):
+        assert plan(24, L, W, mode).warps_per_sm >= 1
+        rng = np.random.default_rng(L + W)
+        q, lens, r, msel = _align_case(rng, 24, L, W)
+        mats = np.stack([score_matrix(NgmConfig(), 0)])
+        for route in ("smem", "global", None):
+            if route == "smem" and L > lo:
+                try:
+                    plan(24, L, W, mode, "smem")
+                except ValueError:
+                    continue                # past what the route can hold
+            got = _check_align(dev, q, lens, r, mats, msel * 0, (5, 7, 1), W,
+                               mode, route=route)
+            assert int(got.score.max()) > 0
+        assert rule(L) == want
+
+
 def test_sw_align_kernel_refuses(dev):
-    """A band past 8192 and nine matrices raise before any launch."""
+    """A band past 8192, nine matrices, an unknown route and a route that
+    cannot take the shape (smem past W 512, or rows past the shared memory
+    of one block) raise before any launch."""
+    from nextgenmap_tpu_torch.ops.sw_align_kernel import plan
     from nextgenmap_tpu_torch.ops.sw_kernel import MAX_BAND
 
     S, L = 4, 20
     mats = torch.from_numpy(score_matrix(NgmConfig(), 0)).to(dev)
 
-    def args(W):
+    def args(W, L=L):
         return [torch.zeros((S, L), dtype=torch.uint8, device=dev),
                 torch.full((S,), L, dtype=torch.int32, device=dev),
                 torch.zeros((S, L + W), dtype=torch.uint8, device=dev)]
@@ -388,7 +439,78 @@ def test_sw_align_kernel_refuses(dev):
     with pytest.raises(ValueError, match="matrices"):
         sw_align(*args(48), mats.expand(9, 8, 8).contiguous(), 20, 20, 20,
                  torch.zeros(S, dtype=torch.int32, device=dev), band=48)
+    with pytest.raises(ValueError, match="route"):
+        sw_align(*args(48), mats, 20, 20, 20, band=48, route="shared")
+    for W, L2 in ((520, 20), (8192, 20), (184, 3000), (48, 20_000)):
+        with pytest.raises(ValueError, match="cannot take"):
+            plan(S, L2, W, "local", "smem")
+        for fn in (sw_align, sw_align_with_dirs):
+            with pytest.raises(ValueError, match="cannot take"):
+                fn(*args(W, L2), mats, 20, 20, 20, band=W, route="smem")
+        assert plan(S, L2, W, "local").route == "global"
+        assert plan(S, L2, W, "local", "global").blocks_per_sm >= 1
     assert sw_align.launches == before
+
+
+def test_sw_align_plan_is_the_launch(dev):
+    """The plan reports the block K4 launches: fewer warps a block for a
+    few hundred alignments of one warp each, up to 4 for thousands, the
+    route's capacity apart; the library launches only a block the plan
+    gives, and a planned launch is exact."""
+    from nextgenmap_tpu_torch.native import build
+    from nextgenmap_tpu_torch.ops.sw_align_kernel import ROUTES, plan
+
+    big = plan(4096, 100, 48, "local")
+    assert big.route == "smem" and big.threads == 128
+    assert big.route_warps_per_sm >= big.warps_per_sm >= 4
+    few = plan(614, 1000, 184, "local")
+    assert few.route == "global" and few.threads < 128
+    assert few.warps_per_sm >= 1 and few.route_warps_per_sm >= 4
+    assert few.smem_bytes * 128 == plan(4096, 1000, 184, "local").smem_bytes \
+        * few.threads
+    blk = plan(4, 20, 1024, "glocal")
+    assert blk.route == "global" and blk.threads == 128
+
+    rng = np.random.default_rng(7)
+    S, L, W = 40, 60, 48
+    q, lens, r, msel = _align_case(rng, S, L, W)
+    mats = np.stack([score_matrix(NgmConfig(), 0)])
+    _check_align(dev, q, lens, r, mats, msel * 0, (5, 7, 1), W, "local")
+    lib = build.load()
+    t = [torch.from_numpy(a).to(dev) for a in (q, lens, r, mats, msel * 0)]
+    out = torch.empty((9, S), dtype=torch.int32, device=dev)
+    ops = torch.empty((S, L + W), dtype=torch.uint8, device=dev)
+    trunc = torch.empty(S, dtype=torch.bool, device=dev)
+    p = plan(S, L, W, "local", "smem")
+    for threads in (p.threads + 16, 5 * 32, 0):
+        code = lib.ngm_sw_align(
+            *(a.data_ptr() for a in t), S, L, W, 1, 5, 7, 1, 1, L + W,
+            ROUTES.index("smem"), threads, None, None, out.data_ptr(),
+            ops.data_ptr(), trunc.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        assert code != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("route", [None, "smem", "global"])
+def test_sw_align_allocates_no_direction_bytes(dev, route):
+    """The mapping path's call at [614,1000]xW184 allocates less than the
+    L x S x W direction bytes over its inputs (the global route's packed
+    rows, S x L x 128 bytes, are the largest of what it allocates)."""
+    S, L, W = 614, 1000, 184
+    rng = np.random.default_rng(7)
+    q, lens, r, msel = _align_case(rng, S, L, W)
+    cfg = NgmConfig(bs_mapping=True)
+    mats = np.stack([score_matrix(cfg, 0), score_matrix(cfg, 1)])
+    args = [torch.from_numpy(a).to(dev) for a in (q, lens, r, mats, msel)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = sw_align(*args[:4], 20, 20, 20, args[4], band=W, route=route)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < L * S * W, (peak, L * S * W)
+    assert int(got.score.max()) > 0
 
 
 def test_mapper_cuda_equals_cpu(dev):
