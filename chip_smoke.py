@@ -113,6 +113,23 @@ the repository).  Phases, one line of output each:
               inputs, SAM equal to theirs, reads/s and the device step
               beside phase 15's -t 1; --devices 2 through the CLI where the
               machine has two cards, else a line saying it has one
+ 17. bench    the port's bench, python -m nextgenmap_tpu_torch.bench, in a
+              fresh process at its full size (root bench.py's workload: a
+              4.6 Mbp random genome, 36 batches of 4096 100 bp reads at 2%
+              SNPs, the fit over 12 and 36 batches): exactly one stdout
+              line with bench.py's four keys, >= 99% mapped and >= 95%
+              truth-correct of the 147,456 timed reads, GCUPS > 0, K1, K2
+              and K4 launched (its stderr's bench-json line); then in this
+              process a 2-batch sweep of its step under
+              torch.cuda.set_sync_debug_mode("error") (no sync), and batch
+              0 mapped on the card and on the CPU from the same state: all
+              17 MapResult fields equal
+ 18. graft    the graft entry (nextgenmap_tpu_torch/graft_entry.py):
+              entry()'s step on the card, >= 60 of 64 mapped and equal to
+              the CPU's in every field; dryrun_multichip(4) on four slots
+              (of cuda:0 on one card): the local ("dp", "ish") grid and
+              the --shard-across-hosts layout equal, and each equal to the
+              CPU's; K1, K2 and K4 launched
 
 A kernel's device time (device_ms, also "ms" in the summary) comes from
 torch.profiler (nextgenmap_tpu_torch/tools/timing.py): the device time of
@@ -179,6 +196,7 @@ SHARDED = (("sharded-4", "single", ("--index-shards", "4")),
            ("paired-sharded-4", "paired", ("--index-shards", "4")))
 GIGA_SIZE = (1 << 31) + (1 << 27)
 GIGA_SHARDS = 4
+BENCH_TIMEOUT_S = 600   # phase 17's bench process
 
 
 def check(ok, what):
@@ -1427,6 +1445,123 @@ def phase_cuda_equals_cpu(genome, codes, cfg, ref_path, device="cuda"):
           f"equal on one batch of each path: " + "; ".join(rows))
 
 
+def phase_bench(card):
+    """Phase 17: the port's bench (python -m nextgenmap_tpu_torch.bench) in
+    a fresh process at its full size, its one stdout line parsed, its
+    accuracy held to PERF.md's limits; no sync inside a sweep of its step;
+    batch 0 of its workload mapped on the card and on the CPU from the same
+    state.  Returns ({kernel: launches}, batches) of the bench's run."""
+    import torch
+
+    from nextgenmap_tpu_torch import bench
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nextgenmap_tpu_torch.bench"], cwd=repo,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    check(len(lines) == 1, f"the bench printed {len(lines)} stdout lines")
+    line = json.loads(lines[0])
+    check(list(line) == ["metric", "value", "unit", "vs_baseline"]
+          and line["metric"] == "reads_per_sec_per_chip"
+          and line["unit"] == "reads/s" and line["value"] > 0,
+          f"the bench's line is not bench.py's: {line}")
+    tag = "bench-json: "
+    r = json.loads(next(ln for ln in proc.stderr.splitlines()
+                        if ln.startswith(tag))[len(tag):])
+    n = r["n_reads"]
+    check(n == bench.BATCH * bench.N_BATCHES, f"the bench mapped {n} reads")
+    check(r["mapped"] >= 0.99 * n, f"bench: only {r['mapped']}/{n} mapped")
+    check(r["truth_correct"] >= 0.95 * n,
+          f"bench: only {r['truth_correct']}/{n} truth-correct")
+    check(r["gcups"] > 0, f"bench: GCUPS {r['gcups']}")
+    for name, k in r["launches"].items():
+        check(k > 0, f"the bench never launched {name}")
+
+    # the same workload in this process: a sweep makes no sync, and batch
+    # 0 maps alike on the card and on the CPU
+    w = bench.workload(bench.GENOME_SIZE, bench.BATCH, "cuda")
+    staged = bench.stage_reads(w, bench.N_BATCHES, bench.READS_SEED)
+    bench.sweep(w, *staged, 2).cpu()            # K4's plan, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")     # a sync now raises
+    try:
+        counters = bench.sweep(w, *staged, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(counters.cpu()[:, 0].min() > 0, "the no-sync sweep mapped nothing")
+    on_cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x  # noqa: E731
+    w_cpu = w._replace(tables=tuple(map(on_cpu, w.tables)),
+                       lens=w.lens.cpu(), matrices=w.matrices.cpu(),
+                       scalars=tuple(map(on_cpu, w.scalars)))
+    t1 = time.perf_counter()
+    a = bench.step(w, staged[0][0])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    b = bench.step(w_cpu, staged[0][0].cpu())
+    t3 = time.perf_counter()
+    for f in a._fields:
+        check(torch.equal(getattr(a, f).cpu(), getattr(b, f)),
+              f"bench batch 0: cuda and cpu differ in {f}")
+    span, span_fixed = r["span_fit_ms"]
+    print(f"[17 bench] python -m nextgenmap_tpu_torch.bench ({card}), one "
+          f"stdout line {lines[0]}; {r['reads_per_sec']:.1f} reads/s, "
+          f"{r['gcups']:.3f} GCUPS (step-effective), mapped {r['mapped']}/{n}"
+          f", truth-correct {r['truth_correct']}/{n}; marginal "
+          f"{r['t_batch'] * 1e3:.3f} ms a batch, fixed {r['fixed'] * 1e3:.1f}"
+          f" ms, walls {r['walls']} s; stream span {span:.3f} ms a batch "
+          f"(fixed {span_fixed:.1f} ms; {r['spans_ms']} ms); K1 real slots "
+          f"{r['k1_real_slots_per_batch']:.2f} a batch; set-up {r['setup_s']}"
+          f"; launches {r['launches']} over {r['batches_run']} batches; "
+          f"process {wall:.1f} s; no sync in a 2-batch sweep; batch 0 all "
+          f"{len(a._fields)} fields cuda == cpu ({t2 - t1:.3f} s cuda, "
+          f"{t3 - t2:.3f} s cpu)")
+    return r["launches"], r["batches_run"]
+
+
+def phase_graft(card):
+    """Phase 18: the graft entry's entry() on the card against the CPU, then
+    dryrun_multichip(4) on four slots (of cuda:0 on one card), both legs,
+    against the CPU's.  Returns ({kernel: launches}, batches) of the card's
+    calls: entry()'s step and one batch of each leg."""
+    import torch
+
+    from nextgenmap_tpu_torch import graft_entry
+    from nextgenmap_tpu_torch.bench import KERNELS
+
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    legs = graft_entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    for name, k in launches.items():
+        check(k > 0, f"the graft entry never launched {name}")
+    mapped = int(got.mapped.sum())
+    check(mapped >= 60, f"graft entry: only {mapped}/64 mapped")
+    check(legs[1] is not None, "dryrun_multichip(4) ran one leg")
+    cfn, cargs = graft_entry.entry(device="cpu")
+    pairs = [(got, cfn(*cargs))]
+    pairs += zip(legs, graft_entry.dryrun_multichip(4, device="cpu"))
+    for what, (a, b) in zip(("entry", "local grid", "cross-host"), pairs):
+        for f in a._fields:
+            check(torch.equal(getattr(a, f).cpu(), getattr(b, f)),
+                  f"graft {what}: cuda and cpu differ in {f}")
+    print(f"[18 graft] entry() on the card ({card}): mapped {mapped}/64, all "
+          f"{len(got._fields)} fields equal to the CPU's; dryrun_multichip(4)"
+          f" on {graft_entry.slots(4)}: both legs equal, and equal to the "
+          f"CPU's, proper {int(legs[0].proper.sum())}/64; launches {launches}"
+          f"; {wall:.2f} s")
+    return launches, 3
+
+
 def main():
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nextgenmap_tpu_torch")):
@@ -1477,6 +1612,8 @@ def main():
         runtime, t1 = phase_runtime(workdir)
         launches.update(runtime)
         launches.update(phase_parallel(workdir, t1, sharded_memory))
+    launches["bench"] = phase_bench(card)
+    launches["graft"] = phase_graft(card)
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m == "nextgenmap_tpu"
                        or m.startswith("nextgenmap_tpu."))

@@ -17,7 +17,11 @@ inputs:
   * ReadBatch from batch_single / batch_paired on plain and gzipped FASTQ,
     FASTA reads, SAM and BAM input, native and Python parsers;
   * format_sam bytes of the native writer, and the port's Python emit path
-    against its native one.
+    against its native one;
+  * the read simulator (io/simulate.py: the bench's and the graft entry's
+    reads): random_genome, simulate_reads_fast (also on a genome of N runs,
+    through its re-draw and its fallback to position 0), simulate_reads,
+    simulate_pairs, and write_fastq's bytes.
 Tolerance: exact equality (integers, bytes, strings).
 """
 
@@ -33,6 +37,7 @@ from nextgenmap_tpu import native as jnative
 from nextgenmap_tpu.index import genome as jgenome
 from nextgenmap_tpu.index import kmer_index as jkmer
 from nextgenmap_tpu.io import fastq as jfastq
+from nextgenmap_tpu.io import simulate as jsimulate
 from nextgenmap_tpu.ops import scoring as jscoring
 from nextgenmap_tpu.parallel import index_shard as jshard
 from nextgenmap_tpu_torch import cli as tcli
@@ -44,6 +49,7 @@ from nextgenmap_tpu_torch.convert import (
 from nextgenmap_tpu_torch.index import genome as tgenome
 from nextgenmap_tpu_torch.index import kmer_index as tkmer
 from nextgenmap_tpu_torch.io import fastq as tfastq
+from nextgenmap_tpu_torch.io import simulate as tsimulate
 from nextgenmap_tpu_torch.native import hostio
 from nextgenmap_tpu_torch.ops import scoring as tscoring
 from nextgenmap_tpu_torch.parallel import index_shard as tshard
@@ -476,3 +482,65 @@ def test_emit_python_path_equals_native(fasta, tmp_path, monkeypatch):
         out[native] = buf.getvalue()
     assert out[True] == out[False]
     assert out[True].count("\n") == B
+
+
+def _n_run_genome() -> np.ndarray:
+    """A genome mostly of N runs: most 100 bp windows hold an N, so
+    simulate_reads_fast draws them again, and some fall back to 0."""
+    g = tsimulate.random_genome(6_000, seed=71)
+    for start in range(0, 6_000, 400):
+        g[start + 50:start + 200] = 4
+    return g
+
+
+def _simulated(mod, case, tmp_path):
+    g = mod.random_genome(40_000, seed=72)
+    if case == "random_genome":
+        return [mod.random_genome(n, seed=s) for n, s in ((1, 0), (12_345, 9))]
+    if case == "simulate_reads_fast":
+        return [mod.simulate_reads_fast(g, 500, read_len=100, snp_rate=0.02,
+                                        seed=2),
+                mod.simulate_reads_fast(_n_run_genome(), 300, read_len=100,
+                                        snp_rate=0.05, seed=3)]
+    if case == "simulate_reads":
+        return [(r.name, r.codes, r.chrom, r.pos, r.strand, r.n_snps,
+                 r.n_indels)
+                for r in mod.simulate_reads(g, 60, read_len=100,
+                                            snp_rate=0.02, indel_rate=0.01,
+                                            seed=4)]
+    if case == "simulate_pairs":
+        return [(m.name, m.codes, m.pos, m.strand, m.n_snps, m.n_indels)
+                for p in mod.simulate_pairs(g, 30, read_len=100,
+                                            insert_mean=300, insert_sd=30,
+                                            snp_rate=0.02, indel_rate=0.01,
+                                            seed=5)
+                for m in p]
+    path = tmp_path / f"{mod.__name__.split('.')[0]}.fq"
+    mod.write_fastq(str(path), mod.simulate_reads(g, 20, seed=6))
+    return [path.read_bytes()]
+
+
+def _assert_same(a, b):
+    if isinstance(a, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_same(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("case", [
+    "random_genome", "simulate_reads_fast", "simulate_reads",
+    "simulate_pairs", "write_fastq"])
+def test_read_simulator_copy(case, tmp_path):
+    ref = _simulated(jsimulate, case, tmp_path)
+    port = _simulated(tsimulate, case, tmp_path)
+    assert len(ref) > 0
+    _assert_same(ref, port)
+    if case == "simulate_reads_fast":
+        codes, pos, _ = port[1]
+        assert (pos == 0).any() and (pos > 0).any()   # fell back, and not all
+        assert (codes[pos > 0] < 4).all()

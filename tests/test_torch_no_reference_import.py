@@ -9,8 +9,9 @@ input with ``--resume --profile``; ``--devices 2``, the two processes of
 ``--dist-nprocs 2`` one after the other, ``--shard-across-hosts`` in one
 process), the ``index --index-shards 2`` verb, importing the mapper, the
 index-shard module and the other parallel modules (mesh, dp,
-distributed), the K3 probe tool (which exits 2 without a card), and
-importing the kernel timing tools.
+distributed), the K3 probe tool (which exits 2 without a card),
+importing the kernel timing tools, the bench's run() at a tiny size and
+the graft entry's step on the CPU.
 """
 
 import os
@@ -89,6 +90,15 @@ CASES = {
         + _cli(d, "cli_hosts.sam", "-q", str(d / "r.fq"), "--index-shards",
                "2", "--shard-across-hosts", "--devices", "2", "--skip-save")
     ),
+    "bench_run": lambda d: (
+        "from nextgenmap_tpu_torch import bench\n"
+        "r = bench.run(genome_size=20_000, batch=32, n_batches=3, "
+        "device='cpu')\n"
+        "assert r['mapped'] >= 90, r['mapped']\n"),
+    "graft_entry": lambda d: (
+        "from nextgenmap_tpu_torch import graft_entry\n"
+        "fn, args = graft_entry.entry(device='cpu')\n"
+        "assert int(fn(*args).mapped.sum()) >= 60\n"),
     "import_mapper": lambda d: "import nextgenmap_tpu_torch.models.mapper\n",
     "import_parallel": lambda d: (
         "import nextgenmap_tpu_torch.parallel.distributed\n"
@@ -96,7 +106,9 @@ CASES = {
         "import nextgenmap_tpu_torch.parallel.mesh\n"),
     "import_index_shard": lambda d: (
         "import nextgenmap_tpu_torch.parallel.index_shard\n"),
-    "import_kernel_ab": lambda d: "import nextgenmap_tpu_torch.tools.kernel_ab\n",
+    "import_kernel_ab": lambda d: (
+        "import nextgenmap_tpu_torch.tools.kernel_ab\n"
+        "import nextgenmap_tpu_torch.tools.bench_breakdown\n"),
     "import_dp_overlap": lambda d: (
         "import nextgenmap_tpu_torch.tools.dp_overlap\n"),
     "probe_tool": lambda d: (
