@@ -130,6 +130,30 @@ the repository).  Phases, one line of output each:
               (of cuda:0 on one card): the local ("dp", "ish") grid and
               the --shard-across-hosts layout equal, and each equal to the
               CPU's; K1, K2 and K4 launched
+ 19. graphs   the one-dispatch step (models/step_graph.py: each step one
+              captured CUDA graph, --megabatch K one graph of K steps), for
+              single, paired, -n 2, --index-shards 4 (the pool),
+              --index-shards 2 (full tails) and --megabatch 4 (a graph of 4
+              steps) on phase 6's genome: the graph's results equal the
+              same Mapper state's eager step (StepGraphs(..., eager=True))
+              in every field and rank on two successive batches, the first
+              unchanged after the second replay; a replay, and the eager
+              step, with their inputs on the card under
+              torch.cuda.set_sync_debug_mode("error") (no sync); K1, K2 and
+              K4 launched by a replay as often as by the eager step, and a
+              third replay under torch.profiler records each of their
+              kernels as many times as the capture counted nodes; host
+              ms a batch, eager against graph, in alternating rounds over
+              the same batches; each capture's seconds and graph-pool bytes
+
+Every mapping path from phase 6 on runs its one-device steps through step
+graphs, as the CLI does by default (the dp and grid steps run eagerly).
+The kernel wrappers count a launch where they launch; a graph's replay adds
+the launches its capture recorded (phase 19 holds that against the kernel
+records of a replay under torch.profiler), and the eager warm-up step before each
+capture counts as the step it is, so a run of N batches launches each
+kernel per node N + (graphs captured) times (a --megabatch K run: N
+rounded up to K); "launches_per_step" divides by those steps.
 
 A kernel's device time (device_ms, also "ms" in the summary) comes from
 torch.profiler (nextgenmap_tpu_torch/tools/timing.py): the device time of
@@ -197,6 +221,8 @@ SHARDED = (("sharded-4", "single", ("--index-shards", "4")),
 GIGA_SIZE = (1 << 31) + (1 << 27)
 GIGA_SHARDS = 4
 BENCH_TIMEOUT_S = 600   # phase 17's bench process
+GRAPH_BATCHES = 4       # phase 19: batches a timed round (one --megabatch 4
+GRAPH_ROUNDS = 4        # group), and the rounds, eager and graph in turn
 
 
 def check(ok, what):
@@ -705,9 +731,18 @@ def summary(stats, n_batches, launches, wall):
             f"(streaming {stats.streaming_reads_per_sec():.0f}), "
             f"{stats.gcups():.3f} GCUPS; device step (CUDA events) "
             f"{sum(step) / max(1, n_batches):.1f} ms per batch over "
-            f"{len(step)} dispatch(es); launches {launches}; real slots "
+            f"{len(step)} dispatch(es); launches {launches}; step graph "
+            f"replays {stats.graph_replays}, captures {stats.graph_captures}; "
+            f"real slots "
             f"scored {stats.slots_scored}; phase s {phases}; wall "
             f"{wall:.2f} s")
+
+
+def steps(stats, n_batches, k=1):
+    """The steps a run ran on the card: its batches (with --megabatch K the
+    tail group padded to K), and the eager warm-up step of each step graph
+    it captured.  Each launches its path's kernels once per node."""
+    return -(-n_batches // k) * k + stats.graph_captures
 
 
 def phase_main_path(genome, workdir, device="cuda"):
@@ -728,7 +763,7 @@ def phase_main_path(genome, workdir, device="cuda"):
           f"mapped {mapped} ({100 * mapped / n:.2f}%), truth-correct {correct} "
           f"({100 * correct / n:.2f}%); "
           + summary(stats, N_BATCHES, launches, wall))
-    return codes, launches
+    return codes, (launches, steps(stats, N_BATCHES))
 
 
 def phase_paired_path(genome, workdir, device="cuda"):
@@ -767,7 +802,7 @@ def phase_paired_path(genome, workdir, device="cuda"):
           f"({200 * pairs_proper / n:.2f}%; counted {stats.pairs_proper}, "
           f"broken {stats.pairs_broken}); "
           + summary(stats, N_BATCHES_NEW, launches, wall))
-    return codes, launches
+    return codes, (launches, steps(stats, N_BATCHES_NEW))
 
 
 def phase_topn_path(genome, workdir, device="cuda"):
@@ -793,7 +828,7 @@ def phase_topn_path(genome, workdir, device="cuda"):
           f"{c['mapped']} ({100 * c['mapped'] / n:.2f}%), truth-correct "
           f"{c['correct']} ({100 * c['correct'] / n:.2f}%), secondaries "
           f"{c['secondary']}; " + summary(stats, N_BATCHES_NEW, launches, wall))
-    return codes, launches
+    return codes, (launches, steps(stats, N_BATCHES_NEW))
 
 
 def phase_e2e_path(genome, workdir, device="cuda"):
@@ -817,7 +852,7 @@ def phase_e2e_path(genome, workdir, device="cuda"):
           f"({100 * c['mapped'] / n:.2f}%), truth-correct {c['correct']} "
           f"({100 * c['correct'] / n:.2f}%), clipped CIGARs {c['clipped']}; "
           + summary(stats, N_BATCHES_NEW, launches, wall))
-    return codes, launches
+    return codes, (launches, steps(stats, N_BATCHES_NEW))
 
 
 def phase_bisulfite_path(genome, workdir, device="cuda"):
@@ -839,7 +874,7 @@ def phase_bisulfite_path(genome, workdir, device="cuda"):
           f"mapped {c['mapped']} ({100 * c['mapped'] / n:.2f}%), "
           f"truth-correct {c['correct']} ({100 * c['correct'] / n:.2f}%); "
           + summary(stats, N_BATCHES_NEW, launches, wall))
-    return codes, launches
+    return codes, (launches, steps(stats, N_BATCHES_NEW))
 
 
 def phase_long_path(genome, workdir, device="cuda"):
@@ -857,11 +892,11 @@ def phase_long_path(genome, workdir, device="cuda"):
     check(stats.first_batch_reads == LONG_BATCH,
           f"first batch {stats.first_batch_reads} reads, expected {LONG_BATCH}")
     # one score pass (K1), two corridor fetches (K2) and one traceback (K4)
-    # per batch
-    check(launches == {"sw_score": N_BATCHES_NEW,
-                       "gather_windows": 2 * N_BATCHES_NEW,
-                       "sw_align": N_BATCHES_NEW},
-          f"long-read launches {launches}")
+    # per step
+    n_steps = steps(stats, N_BATCHES_NEW)
+    check(launches == {"sw_score": n_steps, "gather_windows": 2 * n_steps,
+                       "sw_align": n_steps},
+          f"long-read launches {launches} for {n_steps} steps")
     c = synthetic.alignment_counts(sam, genome, tol=16)
     check(c["records"] == n, f"SAM holds {c['records']} records, expected {n}")
     check(c["mapped"] >= 0.90 * n, f"only {c['mapped']}/{n} reads mapped")
@@ -875,7 +910,7 @@ def phase_long_path(genome, workdir, device="cuda"):
           f"({100 * c['correct'] / c['mapped']:.2f}% of mapped), CIGARs "
           f"consume SEQ and NM = edits on all; "
           + summary(stats, N_BATCHES_NEW, launches, wall))
-    return codes, launches
+    return codes, (launches, steps(stats, N_BATCHES_NEW))
 
 
 def sam_records(path):
@@ -951,12 +986,13 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
               f"{name}: SAM differs from the unsharded run's")
         S = int(flags[-1])
         per = 1 if shard_tail_cap(BATCH, S) else S    # pool, or S tails
-        check(counts == {"sw_score": per * n_batches,
-                         "gather_windows": 2 * per * n_batches,
-                         "sw_align": per * n_batches},
+        n_steps = steps(stats, n_batches)
+        check(counts == {"sw_score": per * n_steps,
+                         "gather_windows": 2 * per * n_steps,
+                         "sw_align": per * n_steps},
               f"{name}: launches {counts}, expected {per} K1, {2 * per} "
-              f"K2 and {per} K4 per batch")
-        launches[name] = (counts, n_batches)
+              f"K2 and {per} K4 per step ({n_steps} steps)")
+        launches[name] = (counts, n_steps)
         rows.append(f"{name} ({'pool' if per == 1 else f'{S} tails'}): "
                     f"SAM equal; " + summary(stats, n_batches, counts, wall))
 
@@ -968,7 +1004,9 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
         mapper.map_batch(single_codes[:BATCH],
                          np.full(BATCH, READ_LEN, np.int32))
         torch.cuda.synchronize()
-    (a, kw), = cap.calls["sw_score"]
+    # the first call is the step graph's eager warm-up, on tensors that
+    # hold this batch (the capture's own call follows it)
+    (a, kw), *_ = cap.calls["sw_score"]
     q, lens = a[0], a[1]
     S, Gs = sidx.genome.shape
     real = int((lens > 0).sum())
@@ -1090,10 +1128,12 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
     # once each
     per = (1 if mapper.tail_cap(batch)
            and mapper.shards.genome.numel() < 2**31 else n_shards)
-    check(launches == {"sw_score": 2 * per, "gather_windows": 4 * per,
-                       "sw_align": 2 * per},
+    n_steps = 2 + len(mapper.graphs.captures)   # and the graph's warm-up
+    check(launches == {"sw_score": n_steps * per,
+                       "gather_windows": 2 * n_steps * per,
+                       "sw_align": n_steps * per},
           f"gigabase launches {launches}, expected {per} K1, {2 * per} "
-          f"K2 and {per} K4 per batch")
+          f"K2 and {per} K4 per step ({n_steps} steps)")
     check(mapped.sum() >= 0.99 * n, f"only {mapped.sum()}/{n} reads mapped")
     check(correct.sum() >= 0.95 * n,
           f"only {correct.sum()}/{n} reads truth-correct")
@@ -1108,7 +1148,7 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
           f"{ {k: round(v, 3) for k, v in sec.items()} }; peak device "
           f"memory {peak:.3f} GiB, peak host memory of the process "
           f"{host_peak:.3f} GiB")
-    return launches, 2, {"seconds": sec, "peak_gib": peak,
+    return launches, n_steps, {"seconds": sec, "peak_gib": peak,
                          "host_peak_gib": host_peak,
                          "mapped": int(mapped.sum()),
                          "correct": int(correct.sum()), "past_2_31": past}
@@ -1127,11 +1167,11 @@ def phase_runtime(workdir, device="cuda"):
     launches, rows, runs = {}, [], {}
 
     def run(name, out, *flags, n_batches=N_BATCHES,
-            qry=("-q", path("reads.fq"))):
+            qry=("-q", path("reads.fq")), k=1):
         stats, counts, wall = run_cli(name, [
             "map", "-r", path("ref.fa"), *qry, "-o", path(out), "--device",
             device, "--no-progress", *flags])
-        launches[name] = (counts, n_batches)
+        launches[name] = (counts, steps(stats, n_batches, k))
         rows.append(f"{name}: " + summary(stats, n_batches, counts, wall))
         # reads/s as the run ended, and the device step a batch
         runs[name] = (stats.reads_per_sec(),
@@ -1149,7 +1189,11 @@ def phase_runtime(workdir, device="cuda"):
         qry=("-1", path("r1.fq"), "-2", path("r2.fq")))
     check(sam_records(path("pe_t4.sam")) == sam_records(path("pe.sam")),
           "paired -t 4: SAM differs from phase 7's (-t 1)")
-    run("megabatch 4 -t 4", "mb.sam", "--megabatch", "4", "-t", "4")
+    st = run("megabatch 4 -t 4", "mb.sam", "--megabatch", "4", "-t", "4",
+             k=4)
+    check(st.graph_replays == -(-N_BATCHES // 4),
+          f"--megabatch 4: {st.graph_replays} graph replays for "
+          f"{N_BATCHES} batches")
     check(sam_records(path("mb.sam")) == single,
           "--megabatch 4 -t 4: SAM differs from -t 1")
     run("bam -t 4", "out.bam", "--bam", "-t", "4")
@@ -1221,6 +1265,7 @@ def child(argv):
         "launches": launches, "reads_in": stats.reads_in,
         "reads_per_sec": stats.reads_per_sec(), "gcups": stats.gcups(),
         "step_ms": stats.step_device_ms, "timing": stats.timing,
+        "graph_captures": stats.graph_captures,
         "wall": wall, "peak_bytes": torch.cuda.max_memory_allocated()}))
     return 0
 
@@ -1309,11 +1354,13 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
         parts = []
         for i, (r, err) in enumerate(procs):
             n_b = -(-r["reads_in"] // BATCH)     # batches it mapped
+            n_steps = n_b + r["graph_captures"]
             per = r["launches"]
-            check(per == {"sw_score": n_b, "gather_windows": 2 * n_b,
-                          "sw_align": n_b},
-                  f"{name} process {i}: launches {per} for {n_b} batches")
-            launches[f"{name} p{i}"] = (per, n_b)
+            check(per == {"sw_score": n_steps, "gather_windows": 2 * n_steps,
+                          "sw_align": n_steps},
+                  f"{name} process {i}: launches {per} for {n_b} batches "
+                  f"and {r['graph_captures']} graph warm-up step(s)")
+            launches[f"{name} p{i}"] = (per, n_steps)
             if name == "shard-across-hosts":
                 check(f"this host holds shards [{i}]" in err,
                       f"process {i} does not hold only shard {i}")
@@ -1454,6 +1501,7 @@ def phase_bench(card):
     import torch
 
     from nextgenmap_tpu_torch import bench
+    from nextgenmap_tpu_torch.models.step_graph import StepGraphs
 
     repo = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
@@ -1481,6 +1529,9 @@ def phase_bench(card):
     check(r["gcups"] > 0, f"bench: GCUPS {r['gcups']}")
     for name, k in r["launches"].items():
         check(k > 0, f"the bench never launched {name}")
+    check(r["graph_replays"] == r["batches_run"],
+          f"the bench replayed its graph {r['graph_replays']} times for "
+          f"{r['batches_run']} batches")
 
     # the same workload in this process: a sweep makes no sync, and batch
     # 0 maps alike on the card and on the CPU
@@ -1497,7 +1548,8 @@ def phase_bench(card):
     on_cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x  # noqa: E731
     w_cpu = w._replace(tables=tuple(map(on_cpu, w.tables)),
                        lens=w.lens.cpu(), matrices=w.matrices.cpu(),
-                       scalars=tuple(map(on_cpu, w.scalars)))
+                       scalars=tuple(map(on_cpu, w.scalars)),
+                       graphs=StepGraphs("cpu"))
     t1 = time.perf_counter()
     a = bench.step(w, staged[0][0])
     torch.cuda.synchronize()
@@ -1516,7 +1568,10 @@ def phase_bench(card):
           f" ms, walls {r['walls']} s; stream span {span:.3f} ms a batch "
           f"(fixed {span_fixed:.1f} ms; {r['spans_ms']} ms); K1 real slots "
           f"{r['k1_real_slots_per_batch']:.2f} a batch; set-up {r['setup_s']}"
-          f"; launches {r['launches']} over {r['batches_run']} batches; "
+          f"; launches {r['launches']} over {r['batches_run']} batches, "
+          f"{r['graph_replays']} graph replays (capture "
+          f"{r['graph_captures'][0]['seconds']:.3f} s, graph pool "
+          f"{r['graph_captures'][0]['pool_bytes'] / 2**20:.1f} MiB); "
           f"process {wall:.1f} s; no sync in a 2-batch sweep; batch 0 all "
           f"{len(a._fields)} fields cuda == cpu ({t2 - t1:.3f} s cuda, "
           f"{t3 - t2:.3f} s cpu)")
@@ -1562,6 +1617,191 @@ def phase_graft(card):
     return launches, 3
 
 
+def _fields(res) -> list:
+    """[(rank, field, tensor)] of a MapResult or a top-n tuple of them."""
+    ranks = (res,) if hasattr(res, "_fields") else res
+    return [(j, f, getattr(r, f)) for j, r in enumerate(ranks)
+            for f in r._fields]
+
+
+def replay_records(fn, names) -> dict:
+    """{name: kernel records whose name holds it} of one fn() under
+    torch.profiler.  A window that recorded no kernel at all is run again
+    (CUPTI now and then hands one back empty; tools/timing.py), at most
+    WINDOWS times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nextgenmap_tpu_torch.tools.timing import WINDOWS
+
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            return {n: sum(e.count for e in kernels if n in e.key)
+                    for n in names}
+        time.sleep(0.5)
+    raise RuntimeError(f"torch.profiler recorded no kernel in {WINDOWS} "
+                       "windows")
+
+
+def phase_graphs(genome, cfg, card, device="cuda"):
+    """Phase 19: each one-device path through its step graph against the
+    same Mapper state's eager step.  Returns {path: (kernel launches of
+    one replay, steps in it)}."""
+    import torch
+
+    from nextgenmap_tpu_torch import synthetic
+    from nextgenmap_tpu_torch.bench import KERNELS
+    from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
+    from nextgenmap_tpu_torch.models.mapper import Mapper
+    from nextgenmap_tpu_torch.models.step_graph import StepGraphs
+    from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
+
+    class Codes:
+        codes = genome
+
+    n = GRAPH_BATCHES
+    single = synthetic.simulate_reads(genome, n * BATCH, READ_LEN, 0.02,
+                                      seed=SEED + 9)[0]
+    pairs = synthetic.simulate_pairs(genome, n * BATCH // 2, READ_LEN, 0.02,
+                                     insert_mean=350, insert_sd=40,
+                                     seed=SEED + 10)[0]
+    single, pairs = (x.reshape(n, BATCH, READ_LEN) for x in (single, pairs))
+    host = KmerIndex.build(genome, k=cfg.kmer, skip=cfg.kmer_skip,
+                           max_freq=cfg.max_kmer_freq, canonical=True,
+                           allow_u32=True)
+    # (path, config, Mapper method, reads [n, B, L], K batches a call)
+    # (the first three share one Mapper, so its three graphs share a pool)
+    cases = (("single", cfg, "map_batch", single, 1),
+             ("paired", cfg, "map_batch_paired", pairs, 1),
+             ("--megabatch 4", cfg, "map_batch_scan", single, n),
+             ("-n 2", cfg.replace(topn=2), "map_batch_topn", single, 1),
+             ("--index-shards 4 (pool)", cfg.replace(index_shards=4),
+              "map_batch", single, 1),
+             ("--index-shards 2 (full tails)", cfg.replace(index_shards=2),
+              "map_batch", single, 1))
+    mappers, kept, launches, rows = {}, [], {}, []
+
+    def counts():
+        return {name: k.launches for name, k in KERNELS.items()}
+
+    t_all = time.perf_counter()
+    for path, c, method, reads, k in cases:
+        if (c.topn, c.index_shards) not in mappers:
+            if c.index_shards > 1:
+                index = ShardedIndex.build(host, genome, c.index_shards,
+                                           ShardedIndex.halo_for(c))
+                graph = Mapper(c, Codes, READ_LEN, index, device=device)
+            else:
+                graph = Mapper(c, Codes, READ_LEN, device=device)
+                index = (graph.state.offsets.cpu().numpy(),
+                         graph.state.positions.cpu().numpy())
+            mappers.clear()     # one config's pair of mappers at a time
+            kept.clear()
+            eager = Mapper(c, Codes, READ_LEN, index, device=device)
+            eager.graphs = StepGraphs(eager.device, eager=True)
+            mappers[c.topn, c.index_shards] = (graph, eager)
+        graph, eager = mappers[c.topn, c.index_shards]
+        check(not graph.graphs.eager, f"{path}: the graph mapper is eager")
+        lens = np.full(BATCH, READ_LEN, np.int32)
+        if k > 1:
+            groups = [reads, reads[::-1].copy()]
+            lens = np.tile(lens, (k, 1))
+        else:
+            groups = [reads[0], reads[1]]
+
+        def call(m, codes, lengths):
+            if method == "map_batch_scan":
+                return m.map_batch_scan(codes, lengths)
+            return getattr(m, method)(codes, lengths)
+
+        n_caps = len(graph.graphs.captures)
+        first = call(graph, groups[0], lens)
+        snap = [t.clone() for _, _, t in _fields(first)]
+        kept.append((path, first, snap))
+        check(len(graph.graphs.captures) == n_caps + 1,
+              f"{path}: the first call captured no graph")
+        codes_d = torch.from_numpy(groups[1]).to(device)
+        lens_d = torch.from_numpy(lens).to(device)
+        torch.cuda.synchronize()
+        replays, c0 = graph.graphs.replays, counts()
+        torch.cuda.set_sync_debug_mode("error")     # a sync now raises
+        try:
+            second = call(graph, codes_d, lens_d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        by_graph = {name: v - c0[name] for name, v in counts().items()}
+        check(graph.graphs.replays == replays + 1
+              and len(graph.graphs.captures) == n_caps + 1,
+              f"{path}: the second call did not replay the first's graph")
+        for kp, res, sn in kept:
+            for (j, f, t), old in zip(_fields(res), sn):
+                check(torch.equal(t, old), f"{kp}: rank {j} field {f} "
+                      f"changed after {path}'s replay")
+        want = [call(eager, groups[0], lens)]
+        torch.cuda.synchronize()
+        c1 = counts()
+        torch.cuda.set_sync_debug_mode("error")     # the eager step too
+        try:
+            want.append(call(eager, codes_d, lens_d))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        by_eager = {name: v - c1[name] for name, v in counts().items()}
+        check(by_graph == by_eager and all(by_graph.values()),
+              f"{path}: a replay launched {by_graph}, the eager step "
+              f"{by_eager}")
+        for got, ref in zip((first, second), want):
+            for (j, f, a), (_, _, b) in zip(_fields(got), _fields(ref)):
+                check(torch.equal(a, b),
+                      f"{path}: graph and eager differ in rank {j} field {f}")
+        recorded = replay_records(lambda: call(graph, codes_d, lens_d),
+                                  list(KERNELS))
+        check(recorded == by_graph, f"{path}: a replay under torch.profiler "
+              f"recorded kernels {recorded}, its capture counted {by_graph}")
+        launches[f"graphs {path}"] = (by_graph, k)
+
+        # host ms a batch over the same batches, eager and graph in turn
+        ms = {"eager": [], "graph": []}
+        for r in range(GRAPH_ROUNDS):
+            order = ("eager", "graph") if r % 2 == 0 else ("graph", "eager")
+            for name in order:
+                m = graph if name == "graph" else eager
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if k > 1:
+                    call(m, groups[r % 2], lens)
+                else:
+                    for b in range(n):
+                        call(m, reads[b], lens)
+                torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.perf_counter() - t0) / n)
+        cap = graph.graphs.captures[-1]
+        rows.append(
+            f"{path}: graph == eager in all fields on 2 "
+            f"{'groups' if k > 1 else 'batches'}, replay without sync, "
+            f"launches a replay {by_graph} (eager step {by_eager}, "
+            f"profiled replay {recorded}); host ms "
+            f"a batch eager {[round(x, 3) for x in ms['eager']]}, graph "
+            f"{[round(x, 3) for x in ms['graph']]}; capture "
+            f"{cap['seconds']:.3f} s, graph pool +"
+            f"{cap['pool_bytes'] / 2**20:.1f} MiB")
+    mappers.clear()
+    kept.clear()
+    torch.cuda.empty_cache()
+    print(f"[19 graphs] one captured graph per step ({card}; "
+          f"{time.perf_counter() - t_all:.1f} s): " + "; ".join(rows))
+    return launches
+
+
 def main():
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nextgenmap_tpu_torch")):
@@ -1599,9 +1839,7 @@ def main():
                             ("end-to-end", phase_e2e_path),
                             ("bisulfite", phase_bisulfite_path),
                             ("long", phase_long_path)):
-            codes[path], counts = phase(genome, workdir)
-            launches[path] = (counts, N_BATCHES if path == "single"
-                              else N_BATCHES_NEW)
+            codes[path], launches[path] = phase(genome, workdir)
         phase_cuda_equals_cpu(genome, codes, cfg, ref_path)
         (sharded, k1_pool, k2_flat, (k1_sh_err, k2_sh_err),
          sharded_memory) = phase_sharded_cli(genome, workdir, codes["single"],
@@ -1614,6 +1852,7 @@ def main():
         launches.update(phase_parallel(workdir, t1, sharded_memory))
     launches["bench"] = phase_bench(card)
     launches["graft"] = phase_graft(card)
+    launches.update(phase_graphs(genome, cfg, card))
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m == "nextgenmap_tpu"
                        or m.startswith("nextgenmap_tpu."))

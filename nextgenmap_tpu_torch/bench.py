@@ -16,6 +16,11 @@ The protocol, written for CUDA:
     [N, B, L] tensor before any timing; the step takes slices of it, its
     integer scalars as Python numbers and its float ones as float32
     tensors made once on the device (no copy and no sync a batch);
+  * the step is one captured CUDA graph (``models/step_graph.py``, K = 1),
+    as root bench.py calls the jitted ``map_step``: a call copies the batch
+    into the graph's static input, replays it and clones its outputs.  The
+    capture (with its eager warm-up step) is set-up, reported apart as the
+    JAX bench's compile is;
   * each batch adds its counters (mapped, truth-correct: within 5 bp of the
     simulated origin on the right strand, candidates, and K1's real slots)
     to a device tensor; one fetch after the sweep brings them back;
@@ -58,6 +63,7 @@ from nextgenmap_tpu_torch.io.simulate import random_genome, simulate_reads_fast
 from nextgenmap_tpu_torch.models.mapper import (
     MapResult, default_slot_cap, map_step, score_matrices,
 )
+from nextgenmap_tpu_torch.models.step_graph import StepGraphs, take
 from nextgenmap_tpu_torch.native import build
 from nextgenmap_tpu_torch.ops.candidate import pack_offsets
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
@@ -92,6 +98,7 @@ class Workload(NamedTuple):
     scalars: tuple            # gap penalties, sensitivity, max_freq, filters
     statics: dict             # map_step's keyword arguments
     slot_cap: int             # the score pass's slots (the default cap)
+    graphs: StepGraphs        # the step's graph (eager on the CPU)
 
 
 def workload(genome_size: int, batch: int, device,
@@ -128,7 +135,7 @@ def workload(genome_size: int, batch: int, device,
         g, (genome_d, off, pos),
         torch.full((batch,), read_len, dtype=torch.int32, device=dev),
         torch.from_numpy(score_matrices(cfg)).to(dev), scalars, statics,
-        default_slot_cap(batch))
+        default_slot_cap(batch), StepGraphs(dev))
 
 
 def stage_reads(w: Workload, n_batches: int, seed: int,
@@ -146,9 +153,13 @@ def stage_reads(w: Workload, n_batches: int, seed: int,
 
 
 def step(w: Workload, reads: torch.Tensor) -> MapResult:
-    """map_step on one [B, L] batch of reads."""
-    return map_step(*w.tables, reads, w.lens, w.matrices, *w.scalars,
-                    **w.statics)
+    """map_step on one [B, L] batch of reads, through the graph."""
+    def one(r, lens):
+        return map_step(*w.tables, r, lens, w.matrices, *w.scalars,
+                        **w.statics)
+
+    return take(w.graphs.run("map_step", one, reads[None], w.lens[None],
+                             **w.statics), 0)
 
 
 def batch_counters(w: Workload, r: MapResult, truth_pos: torch.Tensor,
@@ -242,8 +253,8 @@ def run(genome_size: int = GENOME_SIZE, batch: int = BATCH,
     """The bench at the given size.  Returns summarize()'s figures, and the
     per-batch counters of the N sweep ([N, 4] int64, columns COUNTERS) and
     of the n1 sweep, the walls and stream spans of both timed sweeps, the
-    set-up seconds, and each kernel's launches over every sweep, warm ones
-    included."""
+    set-up seconds (the graph's capture among them), each kernel's launches
+    and the graph's replays over every sweep, warm ones included."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     setup = {}
@@ -262,9 +273,15 @@ def run(genome_size: int = GENOME_SIZE, batch: int = BATCH,
     if cuda:
         torch.cuda.synchronize()
     setup["reads_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step(w, warm[0][0])     # the capture, with its eager warm-up step
+    if cuda:
+        torch.cuda.synchronize()
+    setup["capture_s"] = time.perf_counter() - t0
 
     for k in KERNELS.values():
         k.launches = 0
+    replays0 = w.graphs.replays
     n1 = n_batches // 3
     walls, spans, counters, warm_walls = {}, {}, {}, {}
     for n in (n1, n_batches):
@@ -277,7 +294,9 @@ def run(genome_size: int = GENOME_SIZE, batch: int = BATCH,
         genome_size=genome_size, counters=counters[n_batches],
         counters_n1=counters[n1], warm_walls=warm_walls, spans_ms=spans,
         setup_s=setup, batches_run=2 * (n1 + n_batches),
-        launches={name: k.launches for name, k in KERNELS.items()})
+        launches={name: k.launches for name, k in KERNELS.items()},
+        graph_replays=w.graphs.replays - replays0,
+        graph_captures=w.graphs.captures)
     if cuda:
         res["span_fit_ms"] = fit(spans, n1, n_batches)
     return res
@@ -304,7 +323,7 @@ def main(argv=None) -> int:
     s = r["setup_s"]
     log(f"set-up: kernel build {s['kernel_build_s']:.2f} s, index on the "
         f"device {s['index_s']:.2f} s, reads simulated and staged "
-        f"{s['reads_s']:.2f} s")
+        f"{s['reads_s']:.2f} s, step graph captured {s['capture_s']:.2f} s")
     if r["t_batch"] <= 0:
         log(f"the fit is not positive: walls {r['walls']}")
         return 1

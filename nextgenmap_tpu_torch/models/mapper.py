@@ -52,6 +52,7 @@ from nextgenmap_tpu_torch.index.device_build import (
     build_index_device, concat_tables,
 )
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
+from nextgenmap_tpu_torch.models.step_graph import StepGraphs, take
 from nextgenmap_tpu_torch.ops.candidate import (
     candidate_search_canonical, candidate_search_dual, pack_offsets,
 )
@@ -350,7 +351,9 @@ def default_slot_cap(batch: int) -> int:
 
 def _f32(x, device) -> torch.Tensor:
     """A float32 scalar tensor, like the reference's jnp.float32 arguments,
-    so that comparisons against it round as the reference's do."""
+    so that comparisons against it round as the reference's do.  A float32
+    tensor on `device` is taken as it is; a Python number is copied there,
+    a synchronising copy on a card (the Mapper passes its `Scalars`)."""
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
@@ -1071,6 +1074,28 @@ def map_step_sharded_topn(
                               core_hi, topn=topn, read_len=read_len)
 
 
+class Scalars(NamedTuple):
+    """The steps' float scalars as float32 and the insert bounds as int32
+    tensors on one device, made once (the reference's jnp.float32 and
+    jnp.int32 arguments): from a Python number each step call would copy
+    them to the card, a synchronising copy that no graph can capture."""
+
+    sensitivity: torch.Tensor
+    min_identity: torch.Tensor
+    min_residues: torch.Tensor
+    pair_cutoff: torch.Tensor
+    min_insert: torch.Tensor
+    max_insert: torch.Tensor
+
+    @classmethod
+    def of(cls, cfg: NgmConfig, device) -> "Scalars":
+        return cls(*(_f32(x, device) for x in (
+            cfg.sensitivity, cfg.min_identity, cfg.min_residues,
+            cfg.pair_score_cutoff)), *(
+            torch.tensor(x, dtype=I32, device=device)
+            for x in (cfg.min_insert_size, cfg.max_insert_size)))
+
+
 def score_matrices(cfg: NgmConfig) -> np.ndarray:
     """[2, 8, 8] int32 substitution matrices, selected per candidate by
     strand (they differ only in bisulfite mode)."""
@@ -1121,6 +1146,13 @@ class Mapper:
     on the devices of its column.  --shard-across-hosts places the grid
     across cfg.dist_nprocs processes, this one holding only its own
     columns' shards (`index` is then its ShardedIndex subset).
+
+    On one device slot every step (map_batch, map_batch_paired,
+    map_batch_topn, the shard loop, map_batch_scan) runs through `graphs`
+    (models/step_graph.py): one captured CUDA graph per step on a card, the
+    eager step on the CPU.  The tools and the tests that want the eager
+    step on a card replace `graphs` with ``StepGraphs(device, eager=True)``.
+    The dp and grid steps run eagerly.
     """
 
     def __init__(self, cfg: NgmConfig, genome, read_len: int,
@@ -1132,6 +1164,8 @@ class Mapper:
         self.slots = device_slots(device, cfg.devices)
         self.devices = distinct(self.slots)
         self.device = self.slots[0]
+        self.graphs = StepGraphs(self.device)
+        self._scalars = {d: Scalars.of(cfg, d) for d in self.devices}
         mats = score_matrices(cfg)
         self.simple_matrix = matrices_are_simple(mats)
         self.band = cfg.corridor_for(read_len)
@@ -1294,27 +1328,37 @@ class Mapper:
             canonical=self.canonical,
         )
 
-    def _common_args(self, codes: np.ndarray, lengths: np.ndarray,
-                     device: torch.device | None = None) -> tuple:
-        """The positional arguments every step shares, for one [B, L] batch
-        on `device` (default: the first): the tables (the six stacked ones
-        when sharded), the reads, the matrices and the scalars."""
-        cfg = self.cfg
-        dev = device or self.device
-        reads = _on(codes, np.uint8, dev)
-        lens = _on(lengths, np.int32, dev)
+    def _tables(self, dev) -> tuple:
+        """(the tables a step takes before the reads: the six stacked ones
+        when sharded, the matrices) on `dev`."""
         if self.shards is not None:
-            tables, mats = tuple(self.shards), self.matrices
-        else:
-            st, off = self._replicas[dev]
-            tables = (st.genome, off, st.positions)
-            mats = st.matrices
-        return (
-            *tables, reads, lens, mats,
-            cfg.gap_read_penalty, cfg.gap_ref_penalty, cfg.gap_extend_penalty,
-            cfg.sensitivity, cfg.max_kmer_freq, cfg.min_identity,
-            cfg.min_residues,
-        )
+            return tuple(self.shards), self.matrices
+        st, off = self._replicas[dev]
+        return (st.genome, off, st.positions), st.matrices
+
+    def _scalar_args(self, dev, paired: bool = False) -> tuple:
+        """The positional arguments a step takes after the matrices: the
+        integer gap costs and max_freq as Python ints (statics of a graph),
+        the float scalars (and the paired step's insert bounds and cutoff)
+        as this device's tensors."""
+        cfg = self.cfg
+        s = self._scalars[dev]
+        args = (cfg.gap_read_penalty, cfg.gap_ref_penalty,
+                cfg.gap_extend_penalty, s.sensitivity, cfg.max_kmer_freq,
+                s.min_identity, s.min_residues)
+        return args + ((s.min_insert, s.max_insert, s.pair_cutoff)
+                       if paired else ())
+
+    def _common_args(self, codes: np.ndarray, lengths: np.ndarray,
+                     device: torch.device | None = None,
+                     paired: bool = False) -> tuple:
+        """The positional arguments of a step, for one [B, L] batch on
+        `device` (default: the first): the tables, the reads, the matrices
+        and the scalars, with the paired step's three more if `paired`."""
+        dev = device or self.device
+        tables, mats = self._tables(dev)
+        return (*tables, _on(codes, np.uint8, dev), _on(lengths, np.int32, dev),
+                mats, *self._scalar_args(dev, paired))
 
     def tail_cap(self, batch: int) -> int:
         """Rows of the cross-shard tail pool for a batch (0: full per-shard
@@ -1325,25 +1369,47 @@ class Mapper:
             return 0
         return shard_tail_cap(batch, self.cfg.index_shards)
 
-    def _map_sharded(self, codes, lengths, paired: bool) -> MapResult:
-        cfg = self.cfg
-        pair_args = ((cfg.min_insert_size, cfg.max_insert_size,
-                      cfg.pair_score_cutoff) if paired else ())
-        return map_step_sharded(
-            *self._common_args(codes, lengths), *pair_args, paired=paired,
-            read_len=self.read_len, compact_cap=self.tail_cap(codes.shape[0]),
-            **self.statics(),
-        )
+    def _run_steps(self, codes_k, lengths_k, paired: bool = False,
+                   topn: int = 0):
+        """The one-device step (unsharded, or the shard loop; paired, or
+        top-n with `topn` ranks) on each of K batches, codes_k [K, B, L]
+        and lengths_k [K, B] (numpy, taken on the host without a copy, or
+        tensors on any device), through `graphs`: the results stacked
+        [K, ...] on the first device."""
+        reads_k = torch.as_tensor(codes_k).to(torch.uint8)
+        lens_k = torch.as_tensor(lengths_k).to(I32)
+        dev = self.device
+        tables, mats = self._tables(dev)
+        scalars = self._scalar_args(dev, paired)
+        kw = self.statics()
+        if self.shards is not None:
+            kw["read_len"] = self.read_len
+            if topn:
+                name, fn = "map_step_sharded_topn", map_step_sharded_topn
+                kw["topn"] = topn
+            else:
+                name, fn = "map_step_sharded", map_step_sharded
+                kw.update(paired=paired,
+                          compact_cap=self.tail_cap(reads_k.shape[1]))
+        elif topn:
+            name, fn = "map_step_topn", map_step_topn
+            kw["topn"] = topn
+        elif paired:
+            name, fn = "map_step_paired", map_step_paired
+        else:
+            name, fn = "map_step", map_step
+
+        def step(reads, lengths):
+            return fn(*tables, reads, lengths, mats, *scalars, **kw)
+
+        return self.graphs.run(name, step, reads_k, lens_k, **kw)
 
     def _step(self, codes, lengths, paired: bool, device=None) -> MapResult:
-        """The unsharded step on one device's replica."""
-        args = self._common_args(codes, lengths, device)
-        if not paired:
-            return map_step(*args, **self.statics())
-        cfg = self.cfg
-        return map_step_paired(*args, cfg.min_insert_size,
-                               cfg.max_insert_size, cfg.pair_score_cutoff,
-                               **self.statics())
+        """The unsharded step, eagerly, on one device's replica (a dp
+        slice)."""
+        args = self._common_args(codes, lengths, device, paired)
+        return (map_step_paired if paired else map_step)(
+            *args, **self.statics())
 
     def _map_dp(self, codes, lengths, paired: bool) -> MapResult:
         """The reference's dp step: one contiguous slice per slot, each
@@ -1376,7 +1442,8 @@ class Mapper:
             reads, lens, pre = inputs[dev]
             cands.append(cs_cands_step(
                 col.genome, col.offsets, col.positions, reads, lens,
-                cfg.sensitivity, cfg.max_kmer_freq, pre, **cand_statics))
+                self._scalars[dev].sensitivity, cfg.max_kmer_freq, pre,
+                **cand_statics))
         row_dev = self._grid[d][0].genome.device
         best = torch.stack([c.best.to(row_dev) for c in cands])
         return inputs, cands, best.max(dim=0).values
@@ -1391,18 +1458,19 @@ class Mapper:
         tail = dict(band=self.band, min_kmer_hits=max(1, cfg.kmer_min),
                     end_to_end=cfg.end_to_end,
                     simple_matrix=self.simple_matrix)
-        scalars = (cfg.gap_read_penalty, cfg.gap_ref_penalty,
-                   cfg.gap_extend_penalty, cfg.sensitivity, cfg.min_identity,
-                   cfg.min_residues)
         per_shard = []
         for col, cand in zip(self._grid[d], cands):
             dev = col.genome.device
             reads, lens, pre = inputs[dev]
+            s = self._scalars[dev]
+            scalars = (cfg.gap_read_penalty, cfg.gap_ref_penalty,
+                       cfg.gap_extend_penalty, s.sensitivity, s.min_identity,
+                       s.min_residues)
             if paired:
                 r = map_step_paired_from_cands(
                     col.genome, reads, lens, col.matrices, *scalars,
-                    cfg.min_insert_size, cfg.max_insert_size,
-                    cfg.pair_score_cutoff, cand, best.to(dev), pre[0],
+                    s.min_insert, s.max_insert, s.pair_cutoff, cand,
+                    best.to(dev), pre[0],
                     diag_bin_log2=cfg.diag_bin_log2, **tail)
             else:
                 r = map_step_from_cands(
@@ -1441,11 +1509,9 @@ class Mapper:
     def _map(self, codes, lengths, paired: bool) -> MapResult:
         if self._grid is not None:
             return self._map_grid(codes, lengths, paired)
-        if self.shards is not None:
-            return self._map_sharded(codes, lengths, paired)
         if self._runner is not None:
             return self._map_dp(codes, lengths, paired)
-        return self._step(codes, lengths, paired)
+        return take(self._run_steps(codes[None], lengths[None], paired), 0)
 
     def map_batch(self, codes: np.ndarray, lengths: np.ndarray) -> MapResult:
         """Map one [B, L] batch; the result stays on the mapper's (first)
@@ -1460,11 +1526,21 @@ class Mapper:
     def supports_megabatch(self) -> bool:
         """--megabatch applies where the reference's does: on one device,
         unsharded or on the shard loop without --bs-mapping (the runner also
-        leaves -n > 1 out).  The port dispatches a group's batches back to
-        back with map_batch / map_batch_paired, so the results are the
-        per-batch ones."""
+        leaves -n > 1 out).  There map_batch_scan runs a group of K batches
+        as one dispatch, one graph of K steps on a card."""
         return (len(self.slots) == 1 and self._grid is None
                 and (self.shards is None or not self.cfg.bs_mapping))
+
+    def map_batch_scan(self, codes_k: np.ndarray, lengths_k: np.ndarray,
+                       paired: bool = False) -> MapResult:
+        """K stacked [B, L] batches in ONE dispatch (the reference's
+        map_step_scan, or its sharded megascan): fields come back stacked
+        [K, ...], each batch's row equal to map_batch's (or
+        map_batch_paired's) result."""
+        if not self.supports_megabatch():
+            raise ValueError("map_batch_scan runs on one device, unsharded "
+                             "or on the shard loop without --bs-mapping")
+        return self._run_steps(codes_k, lengths_k, paired)
 
     def topn(self) -> int:
         """Ranks per read of map_batch_topn: -n, at most max_cmrs."""
@@ -1477,9 +1553,5 @@ class Mapper:
             raise ValueError(
                 "--index-shards with -n/--topn > 1 runs on a single device "
                 "(sequential shard loop); drop --devices")
-        if self.shards is not None:
-            return map_step_sharded_topn(
-                *self._common_args(codes, lengths), read_len=self.read_len,
-                topn=self.topn(), **self.statics())
-        return map_step_topn(*self._common_args(codes, lengths),
-                             topn=self.topn(), **self.statics())
+        return take(self._run_steps(codes[None], lengths[None],
+                                    topn=self.topn()), 0)

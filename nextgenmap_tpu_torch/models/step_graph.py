@@ -1,0 +1,245 @@
+"""One captured CUDA graph per mapping step: the port's counterpart of the
+reference's ``jax.jit`` on its steps (``nextgenmap_tpu/models/mapper.py``:
+``map_step``, ``map_step_paired``, ``map_step_topn``, the sharded steps)
+and of ``map_step_scan`` (``--megabatch K``: K batches as one program, a
+``lax.scan`` whose body is ``map_step``).
+
+Eagerly a step is a few hundred small launches, and the host's dispatch of
+them, not the card, sets its pace.  On a card ``StepGraphs`` captures K
+calls of a step, on the K [B, L] slices of static inputs, into one
+``torch.cuda.CUDAGraph``, keyed as ``jax.jit`` keys its cache: the step's
+name, K, B, L, its statics (``topn``, ``paired``, ``compact_cap`` where they
+apply) and the device.
+
+A new key, on its first call:
+
+  * allocates the static inputs, ``reads [K, B, L]`` uint8 and ``lengths
+    [K, B]`` int32, and copies the batches in;
+  * runs the step once eagerly on a side stream (the ``torch.cuda.graphs``
+    warm-up): the kernels build (``native/build.py``), K4's plan cache
+    fills (its ``cudaFuncSetAttribute``), and the caching allocator sizes
+    cub's sort workspaces, so that the capture records the step's work
+    and nothing of its first-call set-up;
+  * captures the K steps, and one copy of their outputs, stacked [K, ...]
+    as ``map_step_scan``'s results are, into one packed byte buffer
+    (``capture_error_mode="thread_local"``: the runner's parse, emitter and
+    render threads may touch CUDA meanwhile).
+
+A call copies the batches into the static inputs on the current stream
+(non-blocking: from the host the copy is staged, so the caller may reuse its
+array at once), replays the graph, and clones the packed buffer: one copy,
+whose typed views are the fields it returns.  The clone is what lets a
+result outlive the next replay.  Two consumers would be safe without it,
+because they read a result on the same stream before the next replay is
+queued behind it: the bench (its counters are computed from the outputs
+right away) and the runtime's ``Fetch`` (its copies to pinned memory are
+queued at once).  A result a caller holds across calls, as the tests and
+``Mapper.map_batch``'s users do, is not; the clone stays everywhere, since
+it costs one copy of the packed buffer.
+
+All graphs of one ``StepGraphs`` (one ``Mapper``) share one private memory
+pool (``torch.cuda.graph_pool_handle()``).  That is safe: each graph's
+outputs stay alive in its entry, so no capture reuses them, and the
+replays are serialised on one stream, so one graph's intermediates are
+dead when another's overwrite them.  Each capture logs its seconds and the
+pool memory it added (``captures``).
+
+The kernel wrappers count their launches where they launch.  Under a
+graph the wrapper runs only at capture, which executes nothing, so the
+counts a capture added are taken back, kept as the graph's nodes, and
+added again at every replay, which launches them; the warm-up counts as
+the eager step it is.
+
+``eager=True``, and every device but a card, runs the step eagerly over
+the K slices and stacks the results: on the CPU, which the caller must ask
+for, that is the device's way of running a step, not a fallback.  On a
+card a failed capture or replay raises; nothing runs the eager step in its
+place.  Only the tools and the tests ask for ``eager`` on a card.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import torch
+
+from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
+from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
+from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
+from nextgenmap_tpu_torch.utils.logging import get_logger
+
+log = get_logger("ngm-torch.graph")
+
+# the kernel wrappers a mapping step calls (K1, K2, K4)
+KERNELS = (sw_score, gather_genome_windows, sw_align)
+
+
+def leaves(tree) -> list:
+    """The tensors of a result (a MapResult, or a tuple of them), in
+    order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in leaves(sub)]
+
+
+def rebuild(tree, it):
+    """A result of `tree`'s structure with its tensors taken from `it`."""
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    vals = [rebuild(sub, it) for sub in tree]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+
+
+def stack_results(results: list):
+    """K results of one structure -> one, every tensor stacked [K, ...]
+    (at K = 1 views of the result, no copy)."""
+    if len(results) == 1:
+        return rebuild(results[0], (t[None] for t in leaves(results[0])))
+    it = iter(torch.stack(ts) for ts in zip(*(leaves(r) for r in results)))
+    return rebuild(results[0], it)
+
+
+def take(stacked, k: int):
+    """Batch k of a stacked result (views)."""
+    return rebuild(stacked, (t[k] for t in leaves(stacked)))
+
+
+class _Layout(NamedTuple):
+    """Where each stacked output lies in the packed byte buffer: leaves in
+    order of falling item size, so every offset is aligned for its type."""
+
+    tree: object          # the step's result structure, empty leaves
+    order: list           # leaf indices in packing order
+    slots: list           # per leaf: (byte offset, dtype, [K, ...] shape)
+    nbytes: int
+
+    @classmethod
+    def of(cls, result, K: int) -> "_Layout":
+        ls = leaves(result)
+        order = sorted(range(len(ls)), key=lambda i: -ls[i].element_size())
+        slots, off = [None] * len(ls), 0
+        for i in order:
+            t = ls[i]
+            slots[i] = (off, t.dtype, (K, *t.shape))
+            off += K * t.numel() * t.element_size()
+        return cls(rebuild(result, (torch.empty(0) for _ in ls)), order,
+                   slots, off)
+
+    def pack(self, results: list, out: torch.Tensor) -> None:
+        """The K results' tensors into `out`, one concatenation."""
+        per = [leaves(r) for r in results]
+        torch.cat([per[k][i].contiguous().view(-1).view(torch.uint8)
+                   for i in self.order for k in range(len(results))],
+                  out=out)
+
+    def unpack(self, flat: torch.Tensor):
+        """Typed [K, ...] views of a packed buffer, in the result's
+        structure."""
+        return rebuild(self.tree, (
+            flat[off:off + torch.Size(shape).numel() * dt.itemsize]
+            .view(dt).view(shape) for off, dt, shape in self.slots))
+
+
+class _Entry(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    reads: torch.Tensor       # [K, B, L] uint8, static
+    lengths: torch.Tensor     # [K, B] int32, static
+    out: torch.Tensor         # the packed outputs, static
+    layout: _Layout
+    nodes: tuple              # (wrapper, kernel nodes in the graph)
+
+
+def _counts() -> list:
+    return [k.launches for k in KERNELS]
+
+
+class StepGraphs:
+    """The captured steps of one device (see the module)."""
+
+    def __init__(self, device, *, eager: bool = False):
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.eager = eager or dev.type != "cuda"
+        self._pool = None
+        self._entries: dict = {}
+        self.replays = 0
+        # one dict per capture: key, seconds (warm-up and capture), bytes
+        # the graph pool grew by
+        self.captures: list = []
+
+    def run(self, name: str, step, reads_k: torch.Tensor,
+            lengths_k: torch.Tensor, **statics):
+        """step(reads [B, L], lengths [B]) on each of the K batches of
+        reads_k [K, B, L] (uint8) and lengths_k [K, B] (int32), on any
+        device: the results stacked [K, ...] on this one.  `statics` are
+        whatever else the step closes over that shapes its program (its
+        keyword arguments)."""
+        K, B, L = reads_k.shape
+        if self.eager:
+            reads_k = reads_k.to(self.device)
+            lengths_k = lengths_k.to(self.device)
+            return stack_results([step(reads_k[k], lengths_k[k])
+                                  for k in range(K)])
+        key = (name, K, B, L, tuple(sorted(statics.items())), self.device)
+        entry = self._entries.get(key)
+        with torch.cuda.device(self.device):
+            if entry is None:
+                entry = self._capture(key, step, reads_k, lengths_k)
+            else:
+                entry.reads.copy_(reads_k, non_blocking=True)
+                entry.lengths.copy_(lengths_k, non_blocking=True)
+            entry.graph.replay()
+            flat = entry.out.clone()
+        for k, n in entry.nodes:
+            k.launches += n
+        self.replays += 1
+        return entry.layout.unpack(flat)
+
+    def _capture(self, key, step, reads_k, lengths_k) -> _Entry:
+        dev = self.device
+        K, B, L = reads_k.shape
+        t0 = time.perf_counter()
+        reads = torch.empty((K, B, L), dtype=torch.uint8, device=dev)
+        lengths = torch.empty((K, B), dtype=torch.int32, device=dev)
+        reads.copy_(reads_k)
+        lengths.copy_(lengths_k)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            probe = step(reads[0], lengths[0])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        layout = _Layout.of(probe, K)
+        del probe
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        before = _counts()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                results = [step(reads[k], lengths[k]) for k in range(K)]
+                out = torch.empty(layout.nbytes, dtype=torch.uint8,
+                                  device=dev)
+                layout.pack(results, out)
+                del results
+        finally:
+            after = _counts()
+            for k, n in zip(KERNELS, before):
+                k.launches = n
+        grown = torch.cuda.memory_reserved(dev) - reserved
+        sec = time.perf_counter() - t0
+        self.captures.append({"key": key[:4], "seconds": sec,
+                              "pool_bytes": grown})
+        log.info("step graph %s K=%d B=%d L=%d on %s: warm-up and capture "
+                 "%.3f s, graph pool +%.1f MiB", key[0], K, B, L, dev, sec,
+                 grown / 2**20)
+        entry = _Entry(graph, reads, lengths, out, layout, tuple(
+            (k, a - b) for k, a, b in zip(KERNELS, after, before) if a > b))
+        self._entries[key] = entry
+        return entry

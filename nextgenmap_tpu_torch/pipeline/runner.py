@@ -16,11 +16,14 @@ build it, else by the Python SamWriter; both give the same bytes.
 
 The pipeline is the reference's: a parse thread stays max(2, -t) batches
 ahead, and batch i+1 is dispatched to the device before batch i is emitted.
-Each dispatch ends with a ``Fetch``: one non-blocking copy of every result
-field into pinned host memory behind one CUDA event, which the emitter waits
-on before it reads the fields.  -t 1 emits on the main thread, -t 2 on a
-thread of its own, -t >= 3 renders in -t - 1 workers and writes from one
-committer thread in submit order.  The output bytes are the same for every
+A dispatch is one batch, or with ``--megabatch K`` K batches stacked into
+one ``Mapper.map_batch_scan`` call (one graph of K steps on a card; a short
+tail group padded with copies of its last batch, as the reference's
+``run_megabatched`` pads it).  Each dispatch ends with a ``Fetch``: one
+non-blocking copy of every result field into pinned host memory behind one
+CUDA event, which the emitter waits on before it reads the fields.  -t 1
+emits on the main thread, -t 2 on a thread of its own, -t >= 3 renders in
+-t - 1 workers and writes from one committer thread in submit order.  The output bytes are the same for every
 -t and --megabatch.
 """
 
@@ -76,6 +79,10 @@ class RunStats(MappingStats):
     # device time of each dispatch (a batch, or a --megabatch group) in ms,
     # from CUDA events around its step; empty on the CPU
     step_device_ms: list = field(default_factory=list)
+    # replays of the mapper's step graphs, and the graphs captured (each
+    # with its eager warm-up step), in this run (models/step_graph.py)
+    graph_replays: int = 0
+    graph_captures: int = 0
     # a --dist-nprocs part's ledger: its header's lines, and each emitted
     # batch's lines and bytes (what the merge interleaves by)
     header_lines: int = 0
@@ -390,16 +397,20 @@ def long_read_batch_size(cfg: NgmConfig, read_len: int,
 
 class Fetch:
     """The results of one dispatch (one batch, or a --megabatch group) on
-    their way to the host.  On the cards: one non-blocking copy of every
-    result field (on the first device, or already on the host) into pinned
-    host tensors, then one CUDA event recorded after the copies; the step
-    is bracketed by a pair of timing events on each device.  On the CPU:
-    the fields themselves.  `wait` is all the emitter calls: it waits on the
-    event (no CUDA work of its own) and reads the pinned memory."""
+    their way to the host: `results`, one result a batch, or with `rows` the
+    one result of a group, its fields stacked [K, ...], of which the first
+    `rows` batches are emitted (the rest pad the tail group).  On the
+    cards: one non-blocking copy of every result field (on the first
+    device, or already on the host) into pinned host tensors, then one CUDA
+    event recorded after the copies; the step is bracketed by a pair of
+    timing events on each device.  On the CPU: the fields themselves.
+    `wait` is all the emitter calls: it waits on the event (no CUDA work of
+    its own) and reads the pinned memory."""
 
     def __init__(self, results: list, devices: list,
-                 starts: list | None):
+                 starts: list | None, rows: int = 0):
         self.starts = starts
+        self.rows = rows
         self.ends = self.done = None
         if devices[0].type != "cuda":
             self.host = results
@@ -414,13 +425,17 @@ class Fetch:
         self.done.record(torch.cuda.current_stream(devices[0]))
 
     def wait(self, stats: MappingStats) -> list:
-        """The results as numpy arrays, once their copies have landed (the
-        wait is phase `fetch`)."""
+        """The results of the emitted batches as numpy arrays, once their
+        copies have landed (the wait is phase `fetch`)."""
         t0 = time.perf_counter()
         if self.done is not None:
             self.done.synchronize()
         stats.add_time("fetch", time.perf_counter() - t0)
-        return [_map_fields(lambda t: t.numpy(), r) for r in self.host]
+        host = [_map_fields(lambda t: t.numpy(), r) for r in self.host]
+        if not self.rows:
+            return host
+        return [_map_fields(lambda a, i=i: a[i], host[0])
+                for i in range(self.rows)]
 
     def device_ms(self) -> float | None:
         """The step's device time (after `wait`): the longest over the
@@ -972,35 +987,51 @@ def _map_reads(cfg, ref_path, qry, qry1, qry2, out_path, cmdline, paired,
     if group > 1:
         log.info("megabatch: %d batches per dispatch", group)
 
+    def dispatch(pending: list) -> None:
+        """One dispatch: a batch, or a --megabatch group as ONE call of
+        map_batch_scan (the reference's run_megabatched: a short tail group
+        is padded with copies of its last batch, and the padding is never
+        emitted); then its Fetch goes to the emitter."""
+        t0 = time.perf_counter()
+        start = _mark(mapper.devices)
+        if group == 1:
+            b, = pending
+            fetch = Fetch([step(b.codes, b.lengths)], mapper.devices, start)
+        else:
+            pad = [pending[-1]] * (group - len(pending))
+            res = mapper.map_batch_scan(
+                np.stack([b.codes for b in pending + pad]),
+                np.stack([b.lengths for b in pending + pad]),
+                paired=mode == "paired")
+            fetch = Fetch([res], mapper.devices, start, rows=len(pending))
+        t1 = time.perf_counter()
+        stats.add_time("dispatch", t1 - t0)
+        emitter.submit((pending, fetch))
+        stats.add_time("emit_wait", time.perf_counter() - t1)
+
+    graphs = mapper.graphs
+    replays0, captures0 = graphs.replays, len(graphs.captures)
     prof = _profiler(mapper.device) if profile_dir else None
     stats.start_time = time.time()
     parsed = _prefetch(batches, max(2, cfg.threads), stats)
     try:
         if prof is not None:
             prof.start()
-        pending, results, start = [], [], None
+        pending = []
         for batch in parsed:
-            t0 = time.perf_counter()
-            if not pending:
-                start = _mark(mapper.devices)
             pending.append(batch)
-            results.append(step(batch.codes, batch.lengths))
-            if len(pending) < group:
-                stats.add_time("dispatch", time.perf_counter() - t0)
-                continue
-            item = (pending, Fetch(results, mapper.devices, start))
-            pending, results = [], []
-            t1 = time.perf_counter()
-            stats.add_time("dispatch", t1 - t0)
-            emitter.submit(item)
-            stats.add_time("emit_wait", time.perf_counter() - t1)
-        if pending:   # the last, short group: no padding, no static shapes
-            emitter.submit((pending, Fetch(results, mapper.devices, start)))
+            if len(pending) == group:
+                dispatch(pending)
+                pending = []
+        if pending:   # the last, short group, padded to `group`
+            dispatch(pending)
         emitter.close()
         save_progress(complete=True)
     finally:
         emitter.abort()
         parsed.close()
+        stats.graph_replays = graphs.replays - replays0
+        stats.graph_captures = len(graphs.captures) - captures0
         if prof is not None:
             prof.stop()
         if cfg.bam or out_path not in (None, "-"):

@@ -1,12 +1,12 @@
-"""Where the bench's step time goes, on one CUDA card.
+"""Where the bench's step time goes, on one CUDA card: eager against graph.
 
     python -m nextgenmap_tpu_torch.tools.bench_breakdown [--rounds 3]
 
 On the bench's workload (``nextgenmap_tpu_torch/bench.py``: the 4.6 Mbp
-random genome, B = 4096, 100 bp reads), for the step's float scalars in
-two forms: "device" (float32 tensors made once on the card, as the bench
-passes them) and "python" (Python floats, as ``Mapper._common_args``
-passes them, which ``map_step`` copies to the card on every call):
+random genome, B = 4096, 100 bp reads), for the step in two forms:
+"graph" (one captured CUDA graph, ``models/step_graph.py``, as the bench
+runs it) and "eager" (the same step launched op by op, ``StepGraphs(...,
+eager=True)``):
 
   syncs      the synchronising operations torch reports in a 2-batch
              sweep and its one fetch (``set_sync_debug_mode("warn")``);
@@ -14,8 +14,14 @@ passes them, which ``map_step`` copies to the card on every call):
              two forms in turns for --rounds rounds;
   profile    6 batches under torch.profiler, after one window that pays
              the profiler's start-up: kernel time and kernel launches a
-             batch, the host's ``cudaLaunchKernel`` time a batch, and the
-             largest kernels by device time.
+             batch, graph replays a batch, the host time a batch of
+             ``cudaLaunchKernel`` and ``cudaGraphLaunch``, the device's
+             busy share (kernel time over the window's wall time), and the
+             largest kernels by device time;
+  clone      the graph's output copy a call makes: host ms and wall ms
+             (synchronised at the end) a call of its one clone of the
+             packed output buffer, against a clone of each field apart
+             (the same bytes, one copy a field), CLONES calls each.
 
 Prints the card's name and power limit, a line per form, and one JSON
 object as the last line.  Needs a CUDA card.
@@ -26,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 import warnings
 
 import torch
@@ -33,9 +40,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from nextgenmap_tpu_torch import bench
-from nextgenmap_tpu_torch.config import NgmConfig
+from nextgenmap_tpu_torch.models.step_graph import StepGraphs, leaves
 
 PROFILED = 6
+CLONES = 200
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch")
 
 
 def sync_count(w, staged) -> int:
@@ -52,26 +61,58 @@ def sync_count(w, staged) -> int:
 
 
 def profiled(w, staged) -> dict:
-    """Kernel time, kernel launches and cudaLaunchKernel's host time a
-    batch over PROFILED batches, and the five largest kernels."""
+    """Kernel time, kernel launches, graph replays and the launch calls'
+    host time a batch over PROFILED batches, the device's busy share, and
+    the five largest kernels."""
     for n in (2, PROFILED):     # the first window pays CUPTI's start-up
+        replays = w.graphs.replays
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             bench.sweep(w, *staged, n).cpu()
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        replays = w.graphs.replays - replays
     ka = prof.key_averages()
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
-    launch = [e for e in ka if e.key == "cudaLaunchKernel"]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    kernel_us = sum(e.self_device_time_total for e in kernels)
     return {
-        "kernel_ms": sum(e.self_device_time_total for e in kernels)
-        / 1e3 / PROFILED,
+        "kernel_ms": kernel_us / 1e3 / PROFILED,
         "kernels": sum(e.count for e in kernels) / PROFILED,
-        "launch_host_ms": sum(e.self_cpu_time_total for e in launch)
-        / 1e3 / PROFILED,
+        "graph_replays": replays / PROFILED,
+        "launch_host_ms": {
+            call: sum(e.self_cpu_time_total for e in ka if e.key == call)
+            / 1e3 / PROFILED for call in LAUNCH_CALLS},
+        "wall_ms": 1e3 * wall / PROFILED,
+        # None where the profiler recorded no kernel (not measured)
+        "device_busy": kernel_us / 1e6 / wall if kernel_us else None,
         "top_us": {e.key[:60]: e.self_device_time_total / PROFILED
                    for e in top},
     }
+
+
+def clone_ms(graphs: StepGraphs) -> dict:
+    """Host ms and wall ms a call of the packed clone and of the per-field
+    clones of the bench graph's outputs."""
+    (entry,) = graphs._entries.values()
+    fields = leaves(entry.layout.unpack(entry.out))
+    forms = {"packed": lambda: entry.out.clone(),
+             "per_field": lambda: [t.clone() for t in fields]}
+    out = {"fields": len(fields), "bytes": entry.layout.nbytes}
+    for name, fn in forms.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CLONES):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = {"host_ms": 1e3 * host / CLONES,
+                     "wall_ms": 1e3 * wall / CLONES}
+    return out
 
 
 def main(argv=None) -> int:
@@ -83,17 +124,19 @@ def main(argv=None) -> int:
         return 2
     card = bench.card_line()
     print(card)
-    cfg = NgmConfig()
     w = bench.workload(bench.GENOME_SIZE, bench.BATCH, "cuda")
-    forms = {"device": w, "python": w._replace(scalars=(
-        cfg.gap_read_penalty, cfg.gap_ref_penalty, cfg.gap_extend_penalty,
-        cfg.sensitivity, cfg.max_kmer_freq, cfg.min_identity,
-        cfg.min_residues))}
+    dev = w.lens.device
+    forms = {"graph": w, "eager": w._replace(graphs=StepGraphs(dev,
+                                                              eager=True))}
     staged = bench.stage_reads(w, bench.N_BATCHES, bench.READS_SEED)
     n1 = bench.N_BATCHES // 3
-    for f in forms.values():
-        bench.sweep(f, *staged, 4).cpu()    # K4's plan, the allocator
-    out = {name: {"syncs": sync_count(f, staged), "marginal_ms": []}
+    capture_s = {}
+    for name, f in forms.items():   # the capture, K4's plan, the allocator
+        t0 = time.perf_counter()
+        bench.sweep(f, *staged, 4).cpu()
+        capture_s[name] = time.perf_counter() - t0
+    out = {name: {"syncs": sync_count(f, staged), "marginal_ms": [],
+                  "first_sweep_s": capture_s[name]}
            for name, f in forms.items()}
     for r in range(a.rounds):
         for name in (list(forms) if r % 2 == 0 else list(forms)[::-1]):
@@ -104,13 +147,21 @@ def main(argv=None) -> int:
     for name, f in forms.items():
         out[name].update(profiled(f, staged))
         r = out[name]
-        print(f"[{name} scalars] {r['syncs']} syncs in a 2-batch sweep and "
-              f"its fetch; marginal ms a batch in turns {r['marginal_ms']}; "
+        busy = ("not measured" if r["device_busy"] is None
+                else f"{100 * r['device_busy']:.1f}%")
+        print(f"[{name}] {r['syncs']} syncs in a 2-batch sweep and its "
+              f"fetch; marginal ms a batch in turns {r['marginal_ms']}; "
               f"{r['kernel_ms']:.3f} ms of kernels in {r['kernels']:.0f} "
-              f"launches a batch, cudaLaunchKernel {r['launch_host_ms']:.3f}"
-              f" ms of host time a batch; largest kernels (us a batch) "
-              f"{r['top_us']}", flush=True)
-    print(json.dumps({"card": card, "forms": out}))
+              f"launches and {r['graph_replays']:.0f} graph replays a batch, "
+              f"device busy {busy} of {r['wall_ms']:.3f} ms a batch; host "
+              f"ms a batch {r['launch_host_ms']}; largest kernels (us a "
+              f"batch) {r['top_us']}", flush=True)
+    clone = clone_ms(w.graphs)
+    print(f"[clone] the packed buffer ({clone['bytes']} bytes) against its "
+          f"{clone['fields']} fields apart, ms a call: {clone['packed']} / "
+          f"{clone['per_field']}", flush=True)
+    print(json.dumps({"card": card, "captures": w.graphs.captures,
+                      "forms": out, "clone": clone}))
     return 0
 
 

@@ -18,14 +18,21 @@ The traceback runs as the mapper calls it, K4 (``ops/sw_align_kernel.py``);
 banded_sw_align``, a loop of torch calls a row) in its place, so both can
 be measured in one process on one card.
 
-For each cell, through ``Mapper.map_batch`` after one warm-up batch: the
-step time (host clock, synchronised) of WARM batches, median, min and max;
-the traceback's share of the step (a synchronise on each side of
-``sw_align``) and K1's real slots per batch (slots of length > 0)
-over TIMED batches; the device's busy share over PROFILED batches (kernel
-rows of torch.profiler over the window's wall time); the peak device memory
-of the cell (state and steps).  Prints the card's name and power limit, one
-line per cell, and one JSON object as the last line.  Needs a CUDA card.
+For each cell, through ``Mapper.map_batch``, in two forms on the same
+batches: "graph" (each step one captured CUDA graph, ``models/
+step_graph.py``, as the mapper runs it by default; its first batch
+captures) and "eager" (the same Mapper with ``StepGraphs(...,
+eager=True)``, the step launched op by op).  Per form: the step time (host
+clock, synchronised) of WARM batches, median, min and max; the device's
+busy share over PROFILED batches (kernel rows of torch.profiler over the
+window's wall time; "not measured" where the profiler recorded no kernel),
+the kernel launches and graph replays a batch there.  Eager only (a
+synchronise inside a graph cannot be): the traceback's share of the step
+(a synchronise on each side of ``sw_align``) and K1's real slots per batch
+(slots of length > 0) over TIMED batches.  And the peak device memory of
+the cell (state, steps and the graph's pool).  Prints the card's name and
+power limit, one line per cell, and one JSON object as the last line.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from nextgenmap_tpu_torch import synthetic
 from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
 from nextgenmap_tpu_torch.models import mapper as mapper_mod
+from nextgenmap_tpu_torch.models.step_graph import StepGraphs
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align
 from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
 
@@ -115,7 +123,7 @@ def run_cell(name: str, device="cuda") -> dict:
     size, shards, changes, read_len, batch = CELLS[name]
     torch.cuda.reset_peak_memory_stats()
     m, g = make_mapper(size, shards, changes, read_len, device)
-    n = 1 + WARM + TIMED + PROFILED
+    n = 1 + WARM + max(TIMED, PROFILED)
     if read_len > 250:
         codes, _, _ = synthetic.simulate_long_reads(
             g, n * batch, read_len, 0.03, 0.005, seed=SEED + 6)
@@ -123,31 +131,48 @@ def run_cell(name: str, device="cuda") -> dict:
         codes, _, _ = synthetic.simulate_reads(g, n * batch, read_len, 0.02,
                                                seed=SEED + 1)
     lens = np.full(batch, read_len, np.int32)
-    batches = iter(codes[i * batch:(i + 1) * batch] for i in range(n))
+    forms = {"graph": m.graphs, "eager": StepGraphs(m.device, eager=True)}
 
-    def step():
-        t = time.perf_counter()
-        m.map_batch(next(batches), lens)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
+    def steps(first: int, count: int) -> list:
+        out = []
+        for i in range(first, first + count):
+            t = time.perf_counter()
+            m.map_batch(codes[i * batch:(i + 1) * batch], lens)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return out
 
-    step()
-    warm = [step() for _ in range(WARM)]
-    with Instrument() as ins:
-        timed = sum(step() for _ in range(TIMED))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = sum(step() for _ in range(PROFILED))
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    return {
-        "step_ms": 1e3 * statistics.median(warm),
-        "step_ms_min": 1e3 * min(warm), "step_ms_max": 1e3 * max(warm),
-        "traceback_share": ins.tb_s / timed,
-        "k1_real_slots_per_batch": ins.slots / TIMED,
-        "device_busy": busy_us / 1e6 / wall,
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-    }
+    res = {}
+    for form, graphs in forms.items():
+        m.graphs = graphs
+        steps(0, 1)         # the graph's capture; the eager allocator
+        warm = steps(1, WARM)
+        replays, launched = graphs.replays, mapper_mod.sw_score.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = sum(steps(1 + WARM, PROFILED))
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        res[form] = {
+            "step_ms": 1e3 * statistics.median(warm),
+            "step_ms_min": 1e3 * min(warm), "step_ms_max": 1e3 * max(warm),
+            "device_busy": busy_us / 1e6 / wall if busy_us else None,
+            "kernel_launches_per_batch": kernels / PROFILED,
+            "k1_launches_per_batch": (mapper_mod.sw_score.launches
+                                      - launched) / PROFILED,
+            "graph_replays_per_batch": (graphs.replays - replays) / PROFILED,
+        }
+    with Instrument() as ins:       # eager, as the loop above left it
+        timed = sum(steps(1 + WARM, TIMED))
+    m.graphs = forms["graph"]
+    res.update(
+        traceback_share=ins.tb_s / timed,
+        k1_real_slots_per_batch=ins.slots / TIMED,
+        captures=forms["graph"].captures,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return res
 
 
 def main(argv=None) -> int:
@@ -182,12 +207,22 @@ def main(argv=None) -> int:
 
 
 def print_cell(name: str, r: dict) -> None:
-    print(f"[{name}] step {r['step_ms']:.2f} ms median of {WARM} "
-          f"({r['step_ms_min']:.2f}-{r['step_ms_max']:.2f}); traceback "
-          f"{100 * r['traceback_share']:.1f}% of {TIMED} steps; K1 real "
-          f"slots {r['k1_real_slots_per_batch']:.0f} per batch; device "
-          f"busy {100 * r['device_busy']:.1f}% over {PROFILED} steps; "
-          f"peak {r['peak_gib']:.3f} GiB", flush=True)
+    forms = []
+    for form in ("graph", "eager"):
+        f = r[form]
+        busy = ("not measured" if f["device_busy"] is None
+                else f"{100 * f['device_busy']:.1f}%")
+        forms.append(
+            f"{form}: step {f['step_ms']:.2f} ms median of {WARM} "
+            f"({f['step_ms_min']:.2f}-{f['step_ms_max']:.2f}), device busy "
+            f"{busy} over {PROFILED} steps, "
+            f"{f['kernel_launches_per_batch']:.0f} kernels, K1 "
+            f"{f['k1_launches_per_batch']:.0f} and "
+            f"{f['graph_replays_per_batch']:.0f} graph replays a batch")
+    print(f"[{name}] " + "; ".join(forms) + f"; traceback "
+          f"{100 * r['traceback_share']:.1f}% of {TIMED} eager steps; K1 "
+          f"real slots {r['k1_real_slots_per_batch']:.0f} per batch; peak "
+          f"{r['peak_gib']:.3f} GiB", flush=True)
 
 
 if __name__ == "__main__":

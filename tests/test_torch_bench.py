@@ -154,7 +154,7 @@ def test_fit_and_stdout_line_on_given_walls(monkeypatch, capsys):
                 genome_size=4_600_000, warm_walls=walls,
                 spans_ms={12: None, 36: None}, batches_run=96,
                 setup_s={"kernel_build_s": 0.0, "index_s": 1.0,
-                         "reads_s": 0.5},
+                         "reads_s": 0.5, "capture_s": 0.25},
                 launches={name: 0 for name in bench.KERNELS})
     monkeypatch.setattr(bench, "run", lambda device: full)
     assert bench.main(["--device", "cpu"]) == 0

@@ -37,6 +37,7 @@ import torch
 
 from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.models.mapper import Mapper
+from nextgenmap_tpu_torch.models.step_graph import StepGraphs
 from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
@@ -526,11 +527,10 @@ def test_mapper_cuda_equals_cpu(dev):
     cpu = Mapper(cfg, _G(), 100, device="cpu")
     launches = (sw_score.launches, gather_genome_windows.launches,
                 sw_align.launches)
-    a = gpu.map_batch(codes, lens)
-    torch.cuda.synchronize()
-    assert sw_score.launches == launches[0] + 1
-    assert gather_genome_windows.launches == launches[1] + 2
-    assert sw_align.launches == launches[2] + 1
+    a, n = steps_run(gpu, lambda: gpu.map_batch(codes, lens))
+    assert sw_score.launches == launches[0] + n
+    assert gather_genome_windows.launches == launches[1] + 2 * n
+    assert sw_align.launches == launches[2] + n
     b = cpu.map_batch(codes, lens)
     for f in a._fields:
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
@@ -610,6 +610,16 @@ def test_row_gather_plan_matches_the_kernels(dev):
     assert lib.ngm_row_gather_plan(4, 58_113, 1, buf) == -1
 
 
+def steps_run(m, call):
+    """(call(), the steps it ran on the card): the batch's, and the eager
+    warm-up step of each step graph it captured (models/step_graph.py), so
+    a path's kernels launch that many times each per node."""
+    c0 = len(m.graphs.captures)
+    out = call()
+    torch.cuda.synchronize()
+    return out, 1 + len(m.graphs.captures) - c0
+
+
 def _mappers(dev, cfg, g, read_len=100):
     class _G:
         codes = g
@@ -627,10 +637,9 @@ def test_paired_and_topn_cuda_equal_cpu(dev):
 
     codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=8)
     launches = (sw_score.launches, gather_genome_windows.launches)
-    a = gpu.map_batch_paired(codes, lens)
-    torch.cuda.synchronize()
-    assert sw_score.launches == launches[0] + 1
-    assert gather_genome_windows.launches == launches[1] + 2
+    a, n = steps_run(gpu, lambda: gpu.map_batch_paired(codes, lens))
+    assert sw_score.launches == launches[0] + n
+    assert gather_genome_windows.launches == launches[1] + 2 * n
     b = cpu.map_batch_paired(codes, lens)
     for f in a._fields:
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
@@ -638,10 +647,9 @@ def test_paired_and_topn_cuda_equal_cpu(dev):
 
     codes, _, _ = simulate_reads(g, 256, 100, 0.02, seed=9)
     launches = (sw_score.launches, gather_genome_windows.launches)
-    a = gpu.map_batch_topn(codes, lens)
-    torch.cuda.synchronize()
-    assert sw_score.launches == launches[0] + 1
-    assert gather_genome_windows.launches == launches[1] + 2
+    a, n = steps_run(gpu, lambda: gpu.map_batch_topn(codes, lens))
+    assert sw_score.launches == launches[0] + n
+    assert gather_genome_windows.launches == launches[1] + 2 * n
     b = cpu.map_batch_topn(codes, lens)
     for j, (ra, rb) in enumerate(zip(a, b)):
         for f in ra._fields:
@@ -665,10 +673,9 @@ def test_modes_cuda_equal_cpu(dev, change, read_len):
     codes, _, _ = simulate_long_reads(g, B, read_len, 0.02, 0.004, seed=11)
     for step in ("map_batch", "map_batch_paired", "map_batch_topn"):
         launches = (sw_score.launches, gather_genome_windows.launches)
-        a = getattr(gpu, step)(codes, lens)
-        torch.cuda.synchronize()
-        assert sw_score.launches == launches[0] + 1
-        assert gather_genome_windows.launches == launches[1] + 2
+        a, n = steps_run(gpu, lambda: getattr(gpu, step)(codes, lens))
+        assert sw_score.launches == launches[0] + n
+        assert gather_genome_windows.launches == launches[1] + 2 * n
         b = getattr(cpu, step)(codes, lens)
         ranks = (a, b) if step == "map_batch_topn" else ((a,), (b,))
         for j, (ra, rb) in enumerate(zip(*ranks)):
@@ -719,9 +726,8 @@ def test_sharded_step_cuda_equals_cpu(dev, step, compact_cap):
             read_len=100, compact_cap=compact_cap, **m.statics()),)
 
     launches = (sw_score.launches, gather_genome_windows.launches)
-    a = run(gpu)
-    torch.cuda.synchronize()
-    n = 1 if compact_cap else 3
+    a, steps = steps_run(gpu, lambda: run(gpu))
+    n = (1 if compact_cap else 3) * steps
     assert sw_score.launches == launches[0] + n
     assert gather_genome_windows.launches == launches[1] + 2 * n
     b = run(cpu)
@@ -804,3 +810,115 @@ def test_two_slots_on_one_card_equal_cpu(dev, shards):
         b = getattr(cpu, step)(codes, lens)
         for f in a._fields:
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (step, f)
+
+
+# the one-device step paths through their step graphs: (config changes,
+# the Mapper method, K batches a call)
+GRAPH_PATHS = {
+    "single": (dict(), "map_batch", 1),
+    "paired": (dict(), "map_batch_paired", 1),
+    "topn": (dict(topn=2), "map_batch_topn", 1),
+    "sharded-4-pool": (dict(index_shards=4), "map_batch", 1),
+    "sharded-4-pool-paired": (dict(index_shards=4), "map_batch_paired", 1),
+    "sharded-2-tails": (dict(index_shards=2), "map_batch", 1),
+    "sharded-2-topn": (dict(index_shards=2, topn=2), "map_batch_topn", 1),
+    "megabatch-3": (dict(), "map_batch_scan", 3),
+    "megabatch-3-paired": (dict(), "map_batch_scan", 3),
+}
+
+
+def _fields(res) -> list:
+    ranks = (res,) if hasattr(res, "_fields") else res
+    return [(j, f, getattr(r, f)) for j, r in enumerate(ranks)
+            for f in r._fields]
+
+
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_step_graph_equals_eager_on_card(dev, path):
+    """Each one-device path through its captured graph (the default) ==
+    the same Mapper state's eager step (its graphs replaced by
+    StepGraphs(..., eager=True)) on two successive batches,
+    in every field and rank; the second call replays the first call's
+    graph with no sync (set_sync_debug_mode("error"), inputs already on
+    the card; the eager step makes none either), launches each kernel as
+    often as the eager step does, and
+    leaves the first call's result unchanged (the clone)."""
+    from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
+    from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
+
+    changes, call, K = GRAPH_PATHS[path]
+    paired = path.endswith("paired")
+    g = repeat_genome(200_000, n_repeats=16, min_len=800, max_len=2000,
+                      seed=21)
+    cfg = NgmConfig(kmer=11, **changes)
+    B = 512
+    if cfg.index_shards > 1:
+        host = KmerIndex.build(g, k=11, skip=cfg.kmer_skip, max_freq=1000,
+                               canonical=True, allow_u32=True)
+        index = ShardedIndex.build(host, g, cfg.index_shards,
+                                   ShardedIndex.halo_for(cfg))
+    else:
+        index = None
+
+    class _G:
+        codes = g
+
+    graph = Mapper(cfg, _G(), 100, index, device=dev)
+    if index is None:
+        index = (graph.state.offsets.cpu().numpy(),
+                 graph.state.positions.cpu().numpy())
+    eager = Mapper(cfg, _G(), 100, index, device=dev)
+    eager.graphs = StepGraphs(eager.device, eager=True)
+    assert not graph.graphs.eager
+    sim = simulate_pairs if paired else simulate_reads
+    n = B // 2 if paired else B
+    batches = [sim(g, K * n, 100, 0.02, seed=22 + i)[0].reshape(K, B, 100)
+               for i in range(2)]
+    lens = np.full((K, B), 100, np.int32)
+    if K == 1:
+        batches, lens = [b[0] for b in batches], lens[0]
+
+    def run(m, codes, lengths):
+        if call == "map_batch_scan":
+            return m.map_batch_scan(codes, lengths, paired=paired)
+        return getattr(m, call)(codes, lengths)
+
+    def counts():
+        return [k.launches for k in (sw_score, gather_genome_windows,
+                                     sw_align)]
+
+    first = run(graph, batches[0], lens)
+    kept = [(j, f, t.clone()) for j, f, t in _fields(first)]
+    assert len(graph.graphs.captures) == 1 and graph.graphs.replays == 1
+    codes_d = torch.from_numpy(batches[1]).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    torch.cuda.synchronize()
+    c0 = counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = run(graph, codes_d, lens_d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    c1 = counts()
+    assert len(graph.graphs.captures) == 1 and graph.graphs.replays == 2
+    for (j, f, t), (_, _, now) in zip(kept, _fields(first)):
+        assert torch.equal(t, now), (j, f)
+    run(eager, batches[0], lens)
+    torch.cuda.synchronize()
+    c2 = counts()
+    torch.cuda.set_sync_debug_mode("error")     # the eager step makes none
+    try:
+        want = run(eager, codes_d, lens_d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, c1)] == [b - a for a, b in
+                                                zip(c2, counts())]
+    assert c1[0] > c0[0] and c1[2] > c0[2]
+    for got, ref in ((first, run(eager, batches[0], lens)), (second, want)):
+        for (j, f, a), (_, _, b) in zip(_fields(got), _fields(ref)):
+            assert a.device == b.device
+            assert torch.equal(a, b), (path, j, f)
+    mapped = (second if hasattr(second, "_fields") else second[0]).mapped
+    assert int(mapped.sum()) >= 0.9 * mapped.numel()

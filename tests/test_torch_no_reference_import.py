@@ -8,7 +8,7 @@ that ``jax`` is absent: the CLI on the CPU (single-end, ``-1/-2`` and
 input with ``--resume --profile``; ``--devices 2``, the two processes of
 ``--dist-nprocs 2`` one after the other, ``--shard-across-hosts`` in one
 process), the ``index --index-shards 2`` verb, importing the mapper, the
-index-shard module and the other parallel modules (mesh, dp,
+step graphs (models/step_graph.py), the index-shard module and the other parallel modules (mesh, dp,
 distributed), the K3 probe tool (which exits 2 without a card),
 importing the kernel timing tools, the bench's run() at a tiny size and
 the graft entry's step on the CPU.
@@ -100,6 +100,9 @@ CASES = {
         "fn, args = graft_entry.entry(device='cpu')\n"
         "assert int(fn(*args).mapped.sum()) >= 60\n"),
     "import_mapper": lambda d: "import nextgenmap_tpu_torch.models.mapper\n",
+    "import_step_graph": lambda d: (
+        "from nextgenmap_tpu_torch.models.step_graph import StepGraphs\n"
+        "assert StepGraphs('cpu').eager\n"),
     "import_parallel": lambda d: (
         "import nextgenmap_tpu_torch.parallel.distributed\n"
         "import nextgenmap_tpu_torch.parallel.dp\n"

@@ -3,9 +3,10 @@
   * -t 1, 2 and 4 (the one-late emitter on the main thread, the emitter
     thread, the pool of -t - 1 render workers): SAM equal to the JAX CLI's
     for single-end, paired and -n 2, with spies on the emitter kinds;
-  * --megabatch 2 (groups of two batches per dispatch) against the JAX
-    CLI's --megabatch 2, and --megabatch 2 -t 4 --index-shards 2 (the pool
-    renders whole groups) against the port's -t 1 run;
+  * --megabatch 2 and 3 (a group of batches per map_batch_scan call, the
+    short tail group padded) at -t 1 and 4 against the JAX CLI's
+    --megabatch, and --megabatch 2 -t 4 --index-shards 2 (the pool renders
+    whole groups) against the port's -t 1 run;
   * an error in the emitter thread, in a render worker and in the parse
     thread ends the run with that error;
   * the alignment and cell counters behind GCUPS equal the JAX run's, for
@@ -93,8 +94,10 @@ def port(data, case, out, *extra):
 @pytest.fixture
 def spies(monkeypatch):
     """Record each emitter the runner builds: ("emitter", threaded) or
-    ("pool", workers), and the batch count of each dispatch."""
-    made, groups = [], []
+    ("pool", workers), the batches each dispatch emits, and the batches
+    each Mapper.map_batch_scan call maps (a padded tail group counts its
+    padding)."""
+    made, groups, scans = [], [], []
 
     class Emitter(runner._Emitter):
         def __init__(self, emit, threaded):
@@ -107,19 +110,26 @@ def spies(monkeypatch):
             super().__init__(workers, render, commit)
 
     class Fetch(runner.Fetch):
-        def __init__(self, results, device, start):
-            groups.append(len(results))
-            super().__init__(results, device, start)
+        def __init__(self, results, device, start, rows=0):
+            groups.append(rows or len(results))
+            super().__init__(results, device, start, rows)
+
+    scan = runner.Mapper.map_batch_scan
+
+    def map_batch_scan(self, codes_k, lengths_k, paired=False):
+        scans.append(len(codes_k))
+        return scan(self, codes_k, lengths_k, paired)
 
     monkeypatch.setattr(runner, "_Emitter", Emitter)
     monkeypatch.setattr(runner, "_PoolEmitter", Pool)
     monkeypatch.setattr(runner, "Fetch", Fetch)
-    return made, groups
+    monkeypatch.setattr(runner.Mapper, "map_batch_scan", map_batch_scan)
+    return made, groups, scans
 
 
 @pytest.mark.parametrize("case", ["single", "paired", "topn"])
 def test_threads_sam_equals_jax(data, jax_ref, spies, case):
-    made, groups = spies
+    made, groups, scans = spies
     want, _ = jax_ref(case)
     for t in ("1", "2", "4"):
         got, stats = port(data, case, f"{case}_t{t}.sam", "-t", t)
@@ -127,30 +137,44 @@ def test_threads_sam_equals_jax(data, jax_ref, spies, case):
         assert stats.reads_in == (N_SINGLE if case != "paired"
                                   else 2 * N_PAIRS)
     assert made == [("emitter", False), ("emitter", True), ("pool", 3)]
-    assert set(groups) == {1}
+    assert set(groups) == {1} and scans == []
 
 
-@pytest.mark.parametrize("case", ["single", "paired"])
-def test_megabatch_equals_jax(data, jax_ref, spies, case):
-    _, groups = spies
-    want, _ = jax_ref(case, "--megabatch", "2")
-    got, _ = port(data, case, f"{case}_mb2.sam", "--megabatch", "2")
+@pytest.mark.parametrize("case,k,threads", [
+    pytest.param("single", 2, "1", id="single"),
+    pytest.param("paired", 2, "1", id="paired"),
+    pytest.param("single", 2, "4", id="single-tail1-t4"),
+    pytest.param("single", 3, "1", id="single-tail2of3"),
+])
+def test_megabatch_equals_jax(data, jax_ref, spies, case, k, threads):
+    """--megabatch K: each group is one map_batch_scan call of K batches,
+    the short tail group padded with copies of its last batch; SAM equal
+    to the JAX CLI's --megabatch K (which pads its tail the same way), and
+    no padding emitted."""
+    _, groups, scans = spies
+    want, _ = jax_ref(case, "--megabatch", str(k))
+    got, stats = port(data, case, f"{case}_mb{k}_t{threads}.sam",
+                      "--megabatch", str(k), "-t", threads)
     assert got == want
     n = -(-(N_SINGLE if case == "single" else 2 * N_PAIRS) // B)
-    assert groups == [2] * (n // 2) + [1] * (n % 2)
+    tail = [n % k] if n % k else []
+    assert groups == [k] * (n // k) + tail
+    assert scans == [k] * len(groups)
+    assert stats.reads_in == (N_SINGLE if case == "single" else 2 * N_PAIRS)
 
 
 def test_megabatch_pool_sharded_equals_serial(data, spies):
     """--megabatch 2 -t 4 --index-shards 2: the pool renders groups of two
     batches; the SAM equals the port's -t 1 run (the reference's pool
     breaks on a mapper that cannot megabatch, so no JAX run here)."""
-    made, groups = spies
+    made, groups, scans = spies
     base, _ = port(data, "single", "sh.sam", "--index-shards", "2")
     got, _ = port(data, "single", "sh_mb.sam", "--index-shards", "2",
                   "--megabatch", "2", "-t", "4")
     assert got == base
     assert made == [("emitter", False), ("pool", 3)]
     assert groups == [1] * 5 + [2, 2, 1]
+    assert scans == [2, 2, 2]
 
 
 def test_megabatch_off_for_topn_and_bisulfite_shards():
