@@ -105,11 +105,12 @@ the repository).  Phases, one line of output each:
               two on phase 7's pairs (equal to phase 7's), and two of
               --shard-across-hosts --index-shards 2 --dist-nprocs 2 joined
               by a gloo group on localhost (SAM equal to phase 13's
-              sharded-2, each holding only its shard); K1 and K4 once and
+              sharded-2, each holding only its shard, two graph replays a
+              batch in each: the CS, then the tails); K1 and K4 once and
               K2 twice a batch in each, and each one's peak device memory against
               phase 13's sharded-2 run.  Then the dp step on the slots
-              [cuda:0, cuda:0] (run_mapping; the slices one after the
-              other, K1 and K4 once a slice) on phases 6 and 7's
+              [cuda:0, cuda:0] (run_mapping; the two slices one graph, one
+              replay a batch, K1 and K4 once a slice) on phases 6 and 7's
               inputs, SAM equal to theirs, reads/s and the device step
               beside phase 15's -t 1; --devices 2 through the CLI where the
               machine has two cards, else a line saying it has one
@@ -129,12 +130,18 @@ the repository).  Phases, one line of output each:
               the CPU's in every field; dryrun_multichip(4) on four slots
               (of cuda:0 on one card): the local ("dp", "ish") grid and
               the --shard-across-hosts layout equal, and each equal to the
-              CPU's; K1, K2 and K4 launched
+              CPU's; K1, K2 and K4 launched, on one card as often as
+              entry()'s step and each leg's one graph (2 rows of 2 shards)
+              and its warm-up row predict
  19. graphs   the one-dispatch step (models/step_graph.py: each step one
               captured CUDA graph, --megabatch K one graph of K steps), for
               single, paired, -n 2, --index-shards 4 (the pool),
-              --index-shards 2 (full tails) and --megabatch 4 (a graph of 4
-              steps) on phase 6's genome: the graph's results equal the
+              --index-shards 2 (full tails), --megabatch 4 (a graph of 4
+              steps), the dp step on [cuda:0, cuda:0] (dp-2: one graph of
+              its two slices of 2048) and the grid [2, 2] on four slots of
+              cuda:0 (one graph of its two rows, each the shard loop with
+              full tails), single and paired, on phase 6's genome: the
+              graph's results equal the
               same Mapper state's eager step (StepGraphs(..., eager=True))
               in every field and rank on two successive batches, the first
               unchanged after the second replay; a replay, and the eager
@@ -146,8 +153,8 @@ the repository).  Phases, one line of output each:
               ms a batch, eager against graph, in alternating rounds over
               the same batches; each capture's seconds and graph-pool bytes
 
-Every mapping path from phase 6 on runs its one-device steps through step
-graphs, as the CLI does by default (the dp and grid steps run eagerly).
+Every mapping path from phase 6 on runs its steps through step graphs, as
+the CLI does by default, the dp and grid steps included.
 The kernel wrappers count a launch where they launch; a graph's replay adds
 the launches its capture recorded (phase 19 holds that against the kernel
 records of a replay under torch.profiler), and the eager warm-up step before each
@@ -1266,6 +1273,7 @@ def child(argv):
         "reads_per_sec": stats.reads_per_sec(), "gcups": stats.gcups(),
         "step_ms": stats.step_device_ms, "timing": stats.timing,
         "graph_captures": stats.graph_captures,
+        "graph_replays": stats.graph_replays,
         "wall": wall, "peak_bytes": torch.cuda.max_memory_allocated()}))
     return 0
 
@@ -1354,12 +1362,22 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
         parts = []
         for i, (r, err) in enumerate(procs):
             n_b = -(-r["reads_in"] // BATCH)     # batches it mapped
-            n_steps = n_b + r["graph_captures"]
+            caps = r["graph_captures"]
+            if name == "shard-across-hosts":
+                # two graphs a batch, the exchange of the best between
+                # them: phase 1 (the CS, no K1, K2 or K4) and phase 2 (the
+                # tails), whose warm-up alone launches kernels
+                check(r["graph_replays"] == 2 * n_b and caps % 2 == 0,
+                      f"{name} process {i}: {r['graph_replays']} graph "
+                      f"replays and {caps} captures for {n_b} batches, "
+                      f"expected two replays a batch")
+                caps //= 2
+            n_steps = n_b + caps
             per = r["launches"]
             check(per == {"sw_score": n_steps, "gather_windows": 2 * n_steps,
                           "sw_align": n_steps},
                   f"{name} process {i}: launches {per} for {n_b} batches "
-                  f"and {r['graph_captures']} graph warm-up step(s)")
+                  f"and {caps} graph warm-up step(s)")
             launches[f"{name} p{i}"] = (per, n_steps)
             if name == "shard-across-hosts":
                 check(f"this host holds shards [{i}]" in err,
@@ -1367,6 +1385,7 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
             merge = r["timing"].get("merge")
             parts.append(
                 f"p{i} {r['reads_in']} reads in {n_b} batch(es), "
+                f"{r['graph_replays']} graph replays, "
                 f"{r['reads_per_sec']:.0f} reads/s, {r['gcups']:.3f} GCUPS, "
                 f"device step {sum(r['step_ms']) / n_b:.1f} ms per batch, "
                 f"peak {r['peak_bytes'] / 2**30:.3f} GiB, wall "
@@ -1394,11 +1413,16 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
             cfg, path("ref.fa"), out_path=path(out), device=slots, **qry))
         check(sam_records(path(out)) == want,
               f"{name}: SAM differs from the one-slot run's")
-        check(counts == {"sw_score": 2 * n_b, "gather_windows": 4 * n_b,
-                         "sw_align": 2 * n_b},
-              f"{name}: launches {counts}, expected 2 K1, 4 K2 and 2 K4 a "
-              f"batch")
-        launches[name] = (counts, n_b)
+        # a slice is a step: two a batch, one in each capture's warm-up
+        n_steps = 2 * n_b + stats.graph_captures
+        check(counts == {"sw_score": n_steps, "gather_windows": 2 * n_steps,
+                         "sw_align": n_steps}
+              and stats.graph_replays == n_b,
+              f"{name}: launches {counts} and {stats.graph_replays} graph "
+              f"replays, expected 1 K1, 2 K2 and 1 K4 a slice over {n_b} "
+              f"batches of 2 slices and {stats.graph_captures} warm-up "
+              f"slice(s), and one replay a batch")
+        launches[name] = (counts, n_steps)
         rows.append(f"{name}: " + summary(stats, n_b, counts, wall))
     rows.append(f"phase 15's -t 1 on one slot: {t1[0]:.0f} reads/s, device "
                 f"step {t1[1]:.1f} ms per batch")
@@ -1415,8 +1439,8 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
     else:
         rows.append(f"--devices 2 through the CLI not run: this machine has "
                     f"{n_cards} CUDA card (it needs 2)")
-    print("[16 parallel b] the dp step on the slots [cuda:0, cuda:0], the "
-          "slices one after the other, SAM equal to phases 6 and 7: "
+    print("[16 parallel b] the dp step on the slots [cuda:0, cuda:0], its "
+          "two slices one graph a batch, SAM equal to phases 6 and 7: "
           + "; ".join(rows))
     return launches
 
@@ -1581,8 +1605,10 @@ def phase_bench(card):
 def phase_graft(card):
     """Phase 18: the graft entry's entry() on the card against the CPU, then
     dryrun_multichip(4) on four slots (of cuda:0 on one card), both legs,
-    against the CPU's.  Returns ({kernel: launches}, batches) of the card's
-    calls: entry()'s step and one batch of each leg."""
+    against the CPU's.  Returns ({kernel: launches}, steps) of the card's
+    calls: entry()'s step, and of each leg on one card the grid's one
+    graph: its two rows a batch and the one row of its capture's warm-up,
+    each row a step that runs both shards' tails."""
     import torch
 
     from nextgenmap_tpu_torch import graft_entry
@@ -1599,6 +1625,14 @@ def phase_graft(card):
     launches = {name: k.launches for name, k in KERNELS.items()}
     for name, k in launches.items():
         check(k > 0, f"the graft entry never launched {name}")
+    n_steps = 1 + 2 * (2 + 1)        # entry(); per leg 2 rows + 1 warm-up
+    if torch.cuda.device_count() == 1:
+        k1 = 1 + 2 * (2 + 1) * 2     # a row runs 2 shard tails
+        check(launches == {"sw_score": k1, "gather_windows": 2 * k1,
+                           "sw_align": k1},
+              f"graft: launches {launches}, expected {k1} K1 and K4 and "
+              f"{2 * k1} K2 (entry()'s step, then per leg one graph of 2 "
+              f"rows of 2 shards and its warm-up row)")
     mapped = int(got.mapped.sum())
     check(mapped >= 60, f"graft entry: only {mapped}/64 mapped")
     check(legs[1] is not None, "dryrun_multichip(4) ran one leg")
@@ -1614,7 +1648,7 @@ def phase_graft(card):
           f" on {graft_entry.slots(4)}: both legs equal, and equal to the "
           f"CPU's, proper {int(legs[0].proper.sum())}/64; launches {launches}"
           f"; {wall:.2f} s")
-    return launches, 3
+    return launches, n_steps
 
 
 def _fields(res) -> list:
@@ -1652,9 +1686,11 @@ def replay_records(fn, names) -> dict:
 
 
 def phase_graphs(genome, cfg, card, device="cuda"):
-    """Phase 19: each one-device path through its step graph against the
-    same Mapper state's eager step.  Returns {path: (kernel launches of
-    one replay, steps in it)}."""
+    """Phase 19: each path through its step graph against the same Mapper
+    state's eager step: the one-device paths, the dp step on [cuda:0,
+    cuda:0] and the grid [2, 2] on four slots of cuda:0 (each one graph a
+    batch).  Returns {path: (kernel launches of one replay, steps in
+    it)}."""
     import torch
 
     from nextgenmap_tpu_torch import synthetic
@@ -1677,38 +1713,47 @@ def phase_graphs(genome, cfg, card, device="cuda"):
     host = KmerIndex.build(genome, k=cfg.kmer, skip=cfg.kmer_skip,
                            max_freq=cfg.max_kmer_freq, canonical=True,
                            allow_u32=True)
-    # (path, config, Mapper method, reads [n, B, L], K batches a call)
+    # (path, config, Mapper method, reads [n, B, L], K batches a call,
+    # slots of the card, steps a replay runs: batches, slices or rows)
     # (the first three share one Mapper, so its three graphs share a pool)
-    cases = (("single", cfg, "map_batch", single, 1),
-             ("paired", cfg, "map_batch_paired", pairs, 1),
-             ("--megabatch 4", cfg, "map_batch_scan", single, n),
-             ("-n 2", cfg.replace(topn=2), "map_batch_topn", single, 1),
+    grid = cfg.replace(index_shards=2)
+    cases = (("single", cfg, "map_batch", single, 1, 1, 1),
+             ("paired", cfg, "map_batch_paired", pairs, 1, 1, 1),
+             ("--megabatch 4", cfg, "map_batch_scan", single, n, 1, n),
+             ("-n 2", cfg.replace(topn=2), "map_batch_topn", single, 1, 1,
+              1),
              ("--index-shards 4 (pool)", cfg.replace(index_shards=4),
-              "map_batch", single, 1),
-             ("--index-shards 2 (full tails)", cfg.replace(index_shards=2),
-              "map_batch", single, 1))
+              "map_batch", single, 1, 1, 1),
+             ("--index-shards 2 (full tails)", grid, "map_batch", single, 1,
+              1, 1),
+             ("dp-2", cfg, "map_batch", single, 1, 2, 2),
+             ("dp-2 paired", cfg, "map_batch_paired", pairs, 1, 2, 2),
+             ("grid 2x2", grid, "map_batch", single, 1, 4, 2),
+             ("grid 2x2 paired", grid, "map_batch_paired", pairs, 1, 4, 2))
     mappers, kept, launches, rows = {}, [], {}, []
 
     def counts():
         return {name: k.launches for name, k in KERNELS.items()}
 
     t_all = time.perf_counter()
-    for path, c, method, reads, k in cases:
-        if (c.topn, c.index_shards) not in mappers:
+    for path, c, method, reads, k, n_slots, n_steps in cases:
+        where = ([torch.device(device, 0)] * n_slots if n_slots > 1
+                 else device)
+        if (c.topn, c.index_shards, n_slots) not in mappers:
             if c.index_shards > 1:
                 index = ShardedIndex.build(host, genome, c.index_shards,
                                            ShardedIndex.halo_for(c))
-                graph = Mapper(c, Codes, READ_LEN, index, device=device)
+                graph = Mapper(c, Codes, READ_LEN, index, device=where)
             else:
-                graph = Mapper(c, Codes, READ_LEN, device=device)
+                graph = Mapper(c, Codes, READ_LEN, device=where)
                 index = (graph.state.offsets.cpu().numpy(),
                          graph.state.positions.cpu().numpy())
             mappers.clear()     # one config's pair of mappers at a time
             kept.clear()
-            eager = Mapper(c, Codes, READ_LEN, index, device=device)
+            eager = Mapper(c, Codes, READ_LEN, index, device=where)
             eager.graphs = StepGraphs(eager.device, eager=True)
-            mappers[c.topn, c.index_shards] = (graph, eager)
-        graph, eager = mappers[c.topn, c.index_shards]
+            mappers[c.topn, c.index_shards, n_slots] = (graph, eager)
+        graph, eager = mappers[c.topn, c.index_shards, n_slots]
         check(not graph.graphs.eager, f"{path}: the graph mapper is eager")
         lens = np.full(BATCH, READ_LEN, np.int32)
         if k > 1:
@@ -1767,7 +1812,7 @@ def phase_graphs(genome, cfg, card, device="cuda"):
                                   list(KERNELS))
         check(recorded == by_graph, f"{path}: a replay under torch.profiler "
               f"recorded kernels {recorded}, its capture counted {by_graph}")
-        launches[f"graphs {path}"] = (by_graph, k)
+        launches[f"graphs {path}"] = (by_graph, n_steps)
 
         # host ms a batch over the same batches, eager and graph in turn
         ms = {"eager": [], "graph": []}

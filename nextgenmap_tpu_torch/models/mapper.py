@@ -35,7 +35,7 @@ tests/test_torch_long_reads.py).
 The Mapper also runs the reference's several-device steps: the dp step
 (each batch in contiguous slices, one per device slot) and the ("dp",
 "ish") step of index shards on a grid of slots, within one process or
-across processes (tests/test_torch_dp.py,
+across processes (tests/test_torch_dp.py, tests/test_torch_dp_graphs.py,
 tests/test_torch_cross_host_shard.py).
 """
 
@@ -52,7 +52,9 @@ from nextgenmap_tpu_torch.index.device_build import (
     build_index_device, concat_tables,
 )
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
-from nextgenmap_tpu_torch.models.step_graph import StepGraphs, take
+from nextgenmap_tpu_torch.models.step_graph import (
+    StepGraphs, leaves, rebuild, take,
+)
 from nextgenmap_tpu_torch.ops.candidate import (
     candidate_search_canonical, candidate_search_dual, pack_offsets,
 )
@@ -64,7 +66,7 @@ from nextgenmap_tpu_torch.ops.scoring import matrices_are_simple, score_matrix
 from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.parallel.dp import (
-    SliceRunner, concat_results, split_batch,
+    join_slices, pick, slices_by_device, split_batch,
 )
 from nextgenmap_tpu_torch.parallel.index_shard import (
     ShardedIndex, ShardExchange, ShardTables, grid_layout, log_local_shards,
@@ -1140,19 +1142,24 @@ class Mapper:
     `device` is one device, with cfg.devices slots of it (``--devices``:
     that many cards, or CPU slots), or an explicit list of slots
     (parallel/mesh.py).  With several slots each batch splits into
-    contiguous slices, one per slot, mapped in turn (parallel/dp.py)
-    from a replica of the tables on each device; with S > 1 as well, the
-    slots form the ("dp", "ish") grid [slots / S, S], each shard's tables
-    on the devices of its column.  --shard-across-hosts places the grid
-    across cfg.dist_nprocs processes, this one holding only its own
-    columns' shards (`index` is then its ShardedIndex subset).
+    contiguous slices, one per slot (parallel/dp.py), mapped from a replica
+    of the tables on each device; with S > 1 as well, the slots form the
+    ("dp", "ish") grid [slots / S, S] (`_grid`, its rows of devices), each
+    shard's tables on the devices of its column.  --shard-across-hosts
+    places the grid across cfg.dist_nprocs processes, this one holding only
+    its own columns' shards (`index` is then its ShardedIndex subset).
 
-    On one device slot every step (map_batch, map_batch_paired,
-    map_batch_topn, the shard loop, map_batch_scan) runs through `graphs`
-    (models/step_graph.py): one captured CUDA graph per step on a card, the
-    eager step on the CPU.  The tools and the tests that want the eager
-    step on a card replace `graphs` with ``StepGraphs(device, eager=True)``.
-    The dp and grid steps run eagerly.
+    Every step runs through `graphs` (models/step_graph.py): on a card one
+    captured CUDA graph per step and device, on the CPU the eager step.
+    On one slot that is each step (map_batch, map_batch_paired,
+    map_batch_topn, the shard loop, map_batch_scan); the dp step is one
+    graph per distinct device, its slices stacked K; a grid on one device
+    in one process is one graph of its rows, each row the shard loop with
+    full per-shard tails on the row's slice; a grid across devices or
+    processes is a phase-1 graph per device, the cross-shard best maxed
+    on the host, and a phase-2 graph per device.  The tools and the tests
+    that want the eager step on a card replace `graphs` with
+    ``StepGraphs(device, eager=True)``; that makes every step eager.
     """
 
     def __init__(self, cfg: NgmConfig, genome, read_len: int,
@@ -1170,8 +1177,11 @@ class Mapper:
         self.simple_matrix = matrices_are_simple(mats)
         self.band = cfg.corridor_for(read_len)
         self.shards = None
-        self._grid = None       # [dp][S'] ShardColumns of the grid step
-        self._runner = None     # SliceRunner of the dp slices
+        self._grid = None       # [dp][S'] devices of the grid's rows
+        # {device: its slices} of a batch split over slots: the dp slots,
+        # or a one-device grid's rows
+        self._groups = None
+        self._plan = None       # {device: its share} of a phased grid
         if cfg.index_shards > 1:
             self._init_sharded(index, mats)
             return
@@ -1221,7 +1231,7 @@ class Mapper:
                 MapperState(*(t.to(dev) for t in self.state)),
                 self._offsets.to(dev))
         if len(self.slots) > 1:
-            self._runner = SliceRunner([[d] for d in self.slots])
+            self._groups = slices_by_device(self.slots)
 
     def _init_sharded(self, index, mats) -> None:
         """Split (or take) the ShardedIndex and place one stacked copy of it
@@ -1260,17 +1270,21 @@ class Mapper:
         width = -(-sidx.positions.shape[1] // 8) * 8
         self.hit_cap = cfg.resolved_read_hits(
             width // (2 if sidx.dual else 1), self.read_len)
-        if layout is not None:
-            self._init_grid(sidx, mats, *layout)
+        if layout is not None and self._init_grid(sidx, mats, *layout):
             return
         self.shards = ShardTables.from_index(sidx, self.device)
         self.matrices = torch.from_numpy(mats).to(self.device)
 
-    def _init_grid(self, sidx, mats, rows, own) -> None:
-        """Place shard s's tables on the devices of its column (once per
-        device), and the merge's range metadata where the merge runs: the
-        first device, or the host when the shards are gathered across
-        processes."""
+    def _init_grid(self, sidx, mats, rows, own) -> bool:
+        """The ("dp", "ish") grid of `rows` [dp][S'] (devices) over the
+        shards `own`.  On one device in one process the rows are the
+        batch's slices, and False: the grid takes the shard loop's one
+        stacked copy of the shards.  Else True, with shard s's tables on
+        the devices of its column (once per device), each device's share
+        of the grid (`_plan`: {device: [(row, [(column, ShardColumn)])]},
+        rows in order), and the merge's range metadata where the merge
+        runs: the first device, or the host when the shards are gathered
+        across processes."""
         cfg = self.cfg
         have = sidx.own_ids()
         if not set(own) <= set(have):
@@ -1279,6 +1293,13 @@ class Mapper:
                 f"subset holds {have}")
         if cfg.shard_hosts:
             log_local_shards(sidx)
+        self._grid = rows
+        self._exchange = ShardExchange(cfg.dist_nprocs if cfg.shard_hosts
+                                       else 1)
+        devices = distinct([d for row in rows for d in row])
+        if len(devices) == 1 and self._exchange.nprocs == 1:
+            self._groups = {self.device: list(range(len(rows)))}
+            return False
         cols: dict = {}
 
         def column(dev, s):
@@ -1292,16 +1313,18 @@ class Mapper:
                                   (mats, np.int32))))
             return cols[dev, s]
 
-        self._grid = [[column(dev, s) for dev, s in zip(row, own)]
-                      for row in rows]
-        self._exchange = ShardExchange(cfg.dist_nprocs if cfg.shard_hosts
-                                       else 1)
+        plan: dict = {}
+        for d, row in enumerate(rows):
+            for j, (dev, s) in enumerate(zip(row, own)):
+                plan.setdefault(dev, {}).setdefault(d, []).append(
+                    (j, column(dev, s)))
+        self._plan = {dev: list(share.items()) for dev, share in plan.items()}
         self._home = (torch.device("cpu") if self._exchange.nprocs > 1
                       else self.device)
         self._grid_meta = tuple(
             torch.from_numpy(np.asarray(a, np.int64)).to(self._home)
             for a in (sidx.base, sidx.core_lo, sidx.core_hi))
-        self._runner = SliceRunner(rows)
+        return True
 
     def _host_tables(self, index) -> tuple:
         """(offsets, positions) arrays of a host index (see the class)."""
@@ -1364,21 +1387,23 @@ class Mapper:
         """Rows of the cross-shard tail pool for a batch (0: full per-shard
         tails).  Without --bs-mapping the reference's default shard loop
         takes shard_tail_cap's pool; with it, the reference's default loop
-        runs full per-shard tails."""
-        if self.cfg.bs_mapping:
+        runs full per-shard tails, and so do the grid's rows (the
+        reference's mesh step never pools)."""
+        if self.cfg.bs_mapping or self._grid is not None:
             return 0
         return shard_tail_cap(batch, self.cfg.index_shards)
 
     def _run_steps(self, codes_k, lengths_k, paired: bool = False,
-                   topn: int = 0):
+                   topn: int = 0, device=None):
         """The one-device step (unsharded, or the shard loop; paired, or
         top-n with `topn` ranks) on each of K batches, codes_k [K, B, L]
         and lengths_k [K, B] (numpy, taken on the host without a copy, or
-        tensors on any device), through `graphs`: the results stacked
-        [K, ...] on the first device."""
+        tensors on any device), through `graphs`, on `device`'s replica of
+        the tables (default: the first device's): the results stacked
+        [K, ...] on that device."""
         reads_k = torch.as_tensor(codes_k).to(torch.uint8)
         lens_k = torch.as_tensor(lengths_k).to(I32)
-        dev = self.device
+        dev = self.device if device is None else device
         tables, mats = self._tables(dev)
         scalars = self._scalar_args(dev, paired)
         kw = self.statics()
@@ -1402,105 +1427,140 @@ class Mapper:
         def step(reads, lengths):
             return fn(*tables, reads, lengths, mats, *scalars, **kw)
 
-        return self.graphs.run(name, step, reads_k, lens_k, **kw)
-
-    def _step(self, codes, lengths, paired: bool, device=None) -> MapResult:
-        """The unsharded step, eagerly, on one device's replica (a dp
-        slice)."""
-        args = self._common_args(codes, lengths, device, paired)
-        return (map_step_paired if paired else map_step)(
-            *args, **self.statics())
+        return self.graphs.run(name, step, reads_k, lens_k, device=dev, **kw)
 
     def _map_dp(self, codes, lengths, paired: bool) -> MapResult:
-        """The reference's dp step: one contiguous slice per slot, each
-        mapped on its slot's device (its own slot caps, as under the
-        reference's shard_map), concatenated in slice order on the first
-        device with the overflow counters summed."""
-        parts = split_batch(codes, lengths, len(self.slots), paired)
-        outs = self._runner.run(
-            lambda i: self._step(*parts[i], paired, self.slots[i]))
-        return concat_results(outs, self.device)
+        """The reference's dp step, or the rows of a grid on one device:
+        one contiguous slice per slot (per row), the K slices of each
+        device as one step of K batches (one graph on a card), each slice a
+        step with its own slot caps, as under the reference's shard_map;
+        joined in slot order on the first device, the overflow counters
+        summed."""
+        n = sum(len(ix) for ix in self._groups.values())
+        reads, lens = split_batch(codes, lengths, n, paired)
+        return join_slices({
+            dev: self._run_steps(pick(reads, ix), pick(lens, ix), paired,
+                                 device=dev)
+            for dev, ix in self._groups.items()}, self._groups, self.device)
 
-    def _grid_phase1(self, d: int, codes, lengths):
-        """Phase 1 of grid row d's slice: the CS of each of its shards on
-        the shard's device, k-mers extracted once per device.  Returns
-        ({device: (reads, lengths, _pre_extract)}, [CandState] per shard,
-        the best bucket count over these shards on the row's first device)."""
-        cfg = self.cfg
-        st = self.statics()
+    def _phase1_step(self, dev, share, b: int):
+        """Phase 1 of `dev`'s share of the grid, a step on the slices of its
+        rows ([n b, L], row after row): per row, (its columns' CandStates,
+        the row's rc), and each read's best bucket count over these
+        columns [n b].  The k-mers are extracted once per row."""
+        cfg, st = self.cfg, self.statics()
         cand_statics = {k: st[k] for k in _CAND_STATICS}
-        inputs, cands = {}, []
-        for col in self._grid[d]:
-            dev = col.genome.device
-            if dev not in inputs:
-                reads = _on(codes, np.uint8, dev)
-                lens = _on(lengths, np.int32, dev)
-                inputs[dev] = (reads, lens, _pre_extract(
-                    reads, lens, k=cfg.kmer, read_stride=st["read_stride"],
-                    bs=cfg.bs_mapping, bs_cutoff=cfg.bs_cutoff,
-                    canonical=self.canonical))
-            reads, lens, pre = inputs[dev]
-            cands.append(cs_cands_step(
-                col.genome, col.offsets, col.positions, reads, lens,
-                self._scalars[dev].sensitivity, cfg.max_kmer_freq, pre,
-                **cand_statics))
-        row_dev = self._grid[d][0].genome.device
-        best = torch.stack([c.best.to(row_dev) for c in cands])
-        return inputs, cands, best.max(dim=0).values
+        sens = self._scalars[dev].sensitivity
 
-    def _grid_tails(self, d: int, inputs, cands, best, paired: bool):
-        """Phase 2 of grid row d: each shard's FULL tail (the reference's
-        mesh step runs map_step per shard, never a pool) re-gated by the
-        cross-shard best, with slot caps from the slice; the per-shard
-        results stacked [S', B_d] on the row's first device."""
+        def step(reads, lengths):
+            carry, best = [], []
+            for i, (_, cols) in enumerate(share):
+                r, n = reads[i * b:(i + 1) * b], lengths[i * b:(i + 1) * b]
+                pre = _pre_extract(r, n, k=cfg.kmer,
+                                   read_stride=st["read_stride"],
+                                   bs=cfg.bs_mapping, bs_cutoff=cfg.bs_cutoff,
+                                   canonical=self.canonical)
+                cands = tuple(cs_cands_step(
+                    col.genome, col.offsets, col.positions, r, n, sens,
+                    cfg.max_kmer_freq, pre, **cand_statics) for _, col in cols)
+                carry.append((cands, pre[0]))
+                best.append(torch.stack([c.best for c in cands]).max(
+                    dim=0).values)
+            return tuple(carry), torch.cat(best)
+
+        return step
+
+    def _phase2_step(self, dev, share, b: int, paired: bool, carry):
+        """Phase 2 of `dev`'s share, a step on its rows' slices, the
+        cross-shard best [n b] and phase 1's `carry` (flat, in its leaf
+        order): each column's FULL tail (the reference's mesh step runs
+        map_step per shard, never a pool) re-gated by the best, with slot
+        caps from the row's slice; per row its columns' results stacked
+        [columns, b]."""
         cfg = self.cfg
-        row_dev = self._grid[d][0].genome.device
+        s = self._scalars[dev]
+        scalars = (cfg.gap_read_penalty, cfg.gap_ref_penalty,
+                   cfg.gap_extend_penalty, s.sensitivity, s.min_identity,
+                   s.min_residues)
         tail = dict(band=self.band, min_kmer_hits=max(1, cfg.kmer_min),
                     end_to_end=cfg.end_to_end,
                     simple_matrix=self.simple_matrix)
-        per_shard = []
-        for col, cand in zip(self._grid[d], cands):
-            dev = col.genome.device
-            reads, lens, pre = inputs[dev]
-            s = self._scalars[dev]
-            scalars = (cfg.gap_read_penalty, cfg.gap_ref_penalty,
-                       cfg.gap_extend_penalty, s.sensitivity, s.min_identity,
-                       s.min_residues)
-            if paired:
-                r = map_step_paired_from_cands(
-                    col.genome, reads, lens, col.matrices, *scalars,
-                    s.min_insert, s.max_insert, s.pair_cutoff, cand,
-                    best.to(dev), pre[0],
-                    diag_bin_log2=cfg.diag_bin_log2, **tail)
-            else:
-                r = map_step_from_cands(
-                    col.genome, reads, lens, col.matrices, *scalars, cand,
-                    best.to(dev), pre[0], **tail)
-            per_shard.append(MapResult(*(t.to(row_dev) for t in r)))
-        return _stack(per_shard, MapResult)
+
+        def step(reads, lengths, best, *flat):
+            out = []
+            for i, ((_, cols), (cands, rc)) in enumerate(
+                    zip(share, rebuild(carry, iter(flat)))):
+                r, n = reads[i * b:(i + 1) * b], lengths[i * b:(i + 1) * b]
+                bst = best[i * b:(i + 1) * b]
+                per_shard = []
+                for (_, col), cand in zip(cols, cands):
+                    if paired:
+                        res = map_step_paired_from_cands(
+                            col.genome, r, n, col.matrices, *scalars,
+                            s.min_insert, s.max_insert, s.pair_cutoff, cand,
+                            bst, rc, diag_bin_log2=cfg.diag_bin_log2, **tail)
+                    else:
+                        res = map_step_from_cands(
+                            col.genome, r, n, col.matrices, *scalars, cand,
+                            bst, rc, **tail)
+                    per_shard.append(res)
+                out.append(_stack(per_shard, MapResult))
+            return tuple(out)
+
+        return step
 
     def _map_grid(self, codes, lengths, paired: bool) -> MapResult:
         """The ("dp", "ish") step (the reference's
-        make_index_sharded_map_step): phase 1 on each shard column of each
-        row's slice; the per-read best counts maxed over every shard (a
-        row's columns here, the other processes' shards through
-        ShardExchange); each shard's full tail; the rows' per-shard results
-        joined and gathered over the processes; merge_sharded_results over
-        the whole batch.  In one process this runs on the first device;
-        across processes on the host, where every process merges the same
-        batch."""
+        make_index_sharded_map_step, which merges each dp row after its
+        all_gather over "ish").  On one device in one process, the rows
+        through _map_dp: each row the shard loop (map_step_sharded) with
+        full per-shard tails on its slice, merged per row.  Across devices
+        or processes, in two steps a device: phase 1 on each of its (row,
+        column) pairs; the per-read best counts maxed over every shard on
+        the host (this process's devices, then every process's shards
+        through ShardExchange); phase 2, each shard's full tail; the rows'
+        per-shard results joined, gathered over the processes and merged
+        over the whole batch, on the first device or, across processes, on
+        the host, where every process merges the same batch."""
+        if self._plan is None:
+            return self._map_dp(codes, lengths, paired)
         home = self._home
-        parts = split_batch(codes, lengths, len(self._grid), paired)
-        p1 = self._runner.run(lambda d: self._grid_phase1(d, *parts[d]))
-        best = self._exchange.max_best(
-            torch.cat([b.to(home) for *_, b in p1]))
-        bests = torch.split(best, [c.shape[0] for c, _ in parts])
-        stks = self._runner.run(lambda d: self._grid_tails(
-            d, p1[d][0], p1[d][1], bests[d], paired))
+        reads, lens = split_batch(torch.as_tensor(codes),
+                                  torch.as_tensor(lengths),
+                                  len(self._grid), paired)
+        dp, b = lens.shape
+        ins, p1 = {}, {}
+        for dev, share in self._plan.items():
+            rows = [d for d, _ in share]
+            ins[dev] = (pick(reads, rows).reshape(1, len(rows) * b, -1)
+                        .to(torch.uint8),
+                        pick(lens, rows).reshape(1, -1).to(I32))
+            p1[dev] = take(self.graphs.run(
+                "grid_phase1", self._phase1_step(dev, share, b), *ins[dev],
+                device=dev), 0)
+        best = [None] * dp
+        for dev, share in self._plan.items():
+            rows_best = p1[dev][1].to(home).reshape(len(share), b)
+            for (d, _), bst in zip(share, rows_best):
+                best[d] = bst if best[d] is None else torch.maximum(best[d],
+                                                                    bst)
+        best = self._exchange.max_best(torch.stack(best))      # [dp, b]
+        per_row = [[None] * len(row) for row in self._grid]
+        for dev, share in self._plan.items():
+            carry = p1[dev][0]
+            out = self.graphs.run(
+                "grid_phase2", self._phase2_step(dev, share, b, paired, carry),
+                *ins[dev], pick(best, [d for d, _ in share]).reshape(1, -1),
+                *(t[None] for t in leaves(carry)), device=dev, paired=paired)
+            out = rebuild(out, (t[0].to(home) for t in leaves(out)))
+            for (d, cols), stk in zip(share, out):
+                for i, (j, _) in enumerate(cols):
+                    per_row[d][j] = MapResult(*(t[i] for t in stk))
+        stks = [_stack(row, MapResult) for row in per_row]  # [S', b] each
         local = MapResult(*(
-            torch.stack([getattr(s, f).to(home) for s in stks]).sum(
-                dim=0, dtype=torch.int32) if f.endswith("overflow")
-            else torch.cat([getattr(s, f).to(home) for s in stks], dim=1)
+            torch.stack([getattr(r, f) for r in stks]).sum(dim=0, dtype=I32)
+            if f.endswith("overflow")
+            else torch.cat([getattr(r, f) for r in stks], dim=1)
             for f in MapResult._fields))
         return merge_sharded_results(self._exchange.gather_shards(local),
                                      *self._grid_meta, paired=paired,
@@ -1509,7 +1569,7 @@ class Mapper:
     def _map(self, codes, lengths, paired: bool) -> MapResult:
         if self._grid is not None:
             return self._map_grid(codes, lengths, paired)
-        if self._runner is not None:
+        if self._groups is not None:
             return self._map_dp(codes, lengths, paired)
         return take(self._run_steps(codes[None], lengths[None], paired), 0)
 

@@ -1,20 +1,28 @@
 """One captured CUDA graph per mapping step: the port's counterpart of the
 reference's ``jax.jit`` on its steps (``nextgenmap_tpu/models/mapper.py``:
-``map_step``, ``map_step_paired``, ``map_step_topn``, the sharded steps)
-and of ``map_step_scan`` (``--megabatch K``: K batches as one program, a
-``lax.scan`` whose body is ``map_step``).
+``map_step``, ``map_step_paired``, ``map_step_topn``, the sharded steps),
+of ``map_step_scan`` (``--megabatch K``: K batches as one program, a
+``lax.scan`` whose body is ``map_step``), and of the jitted ``shard_map``
+steps over several devices (``nextgenmap_tpu/parallel/dp.py``'s dp step,
+``nextgenmap_tpu/parallel/index_shard.py``'s ("dp", "ish") step).
 
 Eagerly a step is a few hundred small launches, and the host's dispatch of
 them, not the card, sets its pace.  On a card ``StepGraphs`` captures K
-calls of a step, on the K [B, L] slices of static inputs, into one
+calls of a step, on the K slices of its static inputs, into one
 ``torch.cuda.CUDAGraph``, keyed as ``jax.jit`` keys its cache: the step's
-name, K, B, L, its statics (``topn``, ``paired``, ``compact_cap`` where they
-apply) and the device.
+name, K, B, L (the first input, the reads, is [K, B, L]), the shapes of
+any further inputs, its statics (``topn``, ``paired``, ``compact_cap``
+where they apply) and the device.  One ``StepGraphs`` serves every device
+of a ``Mapper``: ``run`` takes the device (default: the first), so the dp
+step is one replay per distinct device, its slices there stacked K, and
+the ("dp", "ish") grid one replay on one device, or one per device and
+phase across devices (``models/mapper.py``).
 
 A new key, on its first call:
 
-  * allocates the static inputs, ``reads [K, B, L]`` uint8 and ``lengths
-    [K, B]`` int32, and copies the batches in;
+  * allocates the static inputs on the device, ``reads [K, B, L]`` uint8,
+    ``lengths [K, B]`` int32 and any further [K, ...] input, and copies
+    the inputs in;
   * runs the step once eagerly on a side stream (the ``torch.cuda.graphs``
     warm-up): the kernels build (``native/build.py``), K4's plan cache
     fills (its ``cudaFuncSetAttribute``), and the caching allocator sizes
@@ -25,24 +33,27 @@ A new key, on its first call:
     (``capture_error_mode="thread_local"``: the runner's parse, emitter and
     render threads may touch CUDA meanwhile).
 
-A call copies the batches into the static inputs on the current stream
-(non-blocking: from the host the copy is staged, so the caller may reuse its
-array at once), replays the graph, and clones the packed buffer: one copy,
-whose typed views are the fields it returns.  The clone is what lets a
-result outlive the next replay.  Two consumers would be safe without it,
-because they read a result on the same stream before the next replay is
-queued behind it: the bench (its counters are computed from the outputs
-right away) and the runtime's ``Fetch`` (its copies to pinned memory are
-queued at once).  A result a caller holds across calls, as the tests and
-``Mapper.map_batch``'s users do, is not; the clone stays everywhere, since
-it costs one copy of the packed buffer.
+A call, under ``torch.cuda.device(d)`` and on d's current stream, copies
+the inputs into the static ones (non-blocking: from the host the copy is
+staged, so the caller may reuse its array at once; from another card it
+is ordered after that card's stream), replays the graph, and clones the
+packed buffer: one copy, whose typed views are the fields it returns.
+Nothing in a call waits for the card, so calls on several devices, queued
+one after the other from one thread, run on their cards at once.  The
+clone is what lets a result outlive the next replay.  Two consumers would
+be safe without it, because they read a result on the same stream before
+the next replay is queued behind it: the bench (its counters are computed
+from the outputs right away) and the runtime's ``Fetch`` (its copies to
+pinned memory are queued at once).  A result a caller holds across calls,
+as the tests and ``Mapper.map_batch``'s users do, is not; the clone stays
+everywhere, since it costs one copy of the packed buffer.
 
-All graphs of one ``StepGraphs`` (one ``Mapper``) share one private memory
-pool (``torch.cuda.graph_pool_handle()``).  That is safe: each graph's
-outputs stay alive in its entry, so no capture reuses them, and the
-replays are serialised on one stream, so one graph's intermediates are
-dead when another's overwrite them.  Each capture logs its seconds and the
-pool memory it added (``captures``).
+The graphs of one device share one private memory pool
+(``torch.cuda.graph_pool_handle()``, one per device).  That is safe: each
+graph's outputs stay alive in its entry, so no capture reuses them, and a
+device's replays are serialised on its stream, so one graph's
+intermediates are dead when another's overwrite them.  Each capture logs
+its seconds and the pool memory it added (``captures``).
 
 The kernel wrappers count their launches where they launch.  Under a
 graph the wrapper runs only at capture, which executes nothing, so the
@@ -143,8 +154,8 @@ class _Layout(NamedTuple):
 
 class _Entry(NamedTuple):
     graph: torch.cuda.CUDAGraph
-    reads: torch.Tensor       # [K, B, L] uint8, static
-    lengths: torch.Tensor     # [K, B] int32, static
+    inputs: tuple             # static: reads [K, B, L] uint8, lengths
+                              # [K, B] int32, then any further [K, ...]
     out: torch.Tensor         # the packed outputs, static
     layout: _Layout
     nodes: tuple              # (wrapper, kernel nodes in the graph)
@@ -154,43 +165,49 @@ def _counts() -> list:
     return [k.launches for k in KERNELS]
 
 
+def _resolve(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class StepGraphs:
-    """The captured steps of one device (see the module)."""
+    """The captured steps of a Mapper's devices (see the module)."""
 
     def __init__(self, device, *, eager: bool = False):
-        dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
-        self.eager = eager or dev.type != "cuda"
-        self._pool = None
+        self.device = _resolve(device)
+        self.eager = eager or self.device.type != "cuda"
+        self._pools: dict = {}      # device -> its graphs' memory pool
         self._entries: dict = {}
         self.replays = 0
         # one dict per capture: key, seconds (warm-up and capture), bytes
         # the graph pool grew by
         self.captures: list = []
 
-    def run(self, name: str, step, reads_k: torch.Tensor,
-            lengths_k: torch.Tensor, **statics):
-        """step(reads [B, L], lengths [B]) on each of the K batches of
-        reads_k [K, B, L] (uint8) and lengths_k [K, B] (int32), on any
-        device: the results stacked [K, ...] on this one.  `statics` are
-        whatever else the step closes over that shapes its program (its
-        keyword arguments)."""
-        K, B, L = reads_k.shape
-        if self.eager:
-            reads_k = reads_k.to(self.device)
-            lengths_k = lengths_k.to(self.device)
-            return stack_results([step(reads_k[k], lengths_k[k])
+    def run(self, name: str, step, *inputs_k: torch.Tensor, device=None,
+            **statics):
+        """step(reads [B, L], lengths [B], ...) on each of the K batches of
+        its inputs: reads_k [K, B, L] (uint8), lengths_k [K, B] (int32) and
+        any further [K, ...] tensors, on any device: the results stacked
+        [K, ...] on `device` (default: this StepGraphs' device).
+        `statics` are whatever else the step closes over that shapes its
+        program (its keyword arguments)."""
+        dev = self.device if device is None else _resolve(device)
+        K, B, L = inputs_k[0].shape
+        if self.eager or dev.type != "cuda":
+            on = [x.to(dev) for x in inputs_k]
+            return stack_results([step(*(x[k] for x in on))
                                   for k in range(K)])
-        key = (name, K, B, L, tuple(sorted(statics.items())), self.device)
+        key = (name, K, B, L, tuple(sorted(statics.items())), dev,
+               tuple(tuple(x.shape) for x in inputs_k[2:]))
         entry = self._entries.get(key)
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(dev):
             if entry is None:
-                entry = self._capture(key, step, reads_k, lengths_k)
+                entry = self._capture(key, dev, step, inputs_k)
             else:
-                entry.reads.copy_(reads_k, non_blocking=True)
-                entry.lengths.copy_(lengths_k, non_blocking=True)
+                for x, x_k in zip(entry.inputs, inputs_k):
+                    x.copy_(x_k, non_blocking=True)
             entry.graph.replay()
             flat = entry.out.clone()
         for k, n in entry.nodes:
@@ -198,32 +215,31 @@ class StepGraphs:
         self.replays += 1
         return entry.layout.unpack(flat)
 
-    def _capture(self, key, step, reads_k, lengths_k) -> _Entry:
-        dev = self.device
-        K, B, L = reads_k.shape
+    def _capture(self, key, dev, step, inputs_k) -> _Entry:
+        K, B, L = inputs_k[0].shape
         t0 = time.perf_counter()
-        reads = torch.empty((K, B, L), dtype=torch.uint8, device=dev)
-        lengths = torch.empty((K, B), dtype=torch.int32, device=dev)
-        reads.copy_(reads_k)
-        lengths.copy_(lengths_k)
+        inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev)
+                       for x in inputs_k)
+        for x, x_k in zip(inputs, inputs_k):
+            x.copy_(x_k)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            probe = step(reads[0], lengths[0])
+            probe = step(*(x[0] for x in inputs))
         torch.cuda.current_stream(dev).wait_stream(side)
         layout = _Layout.of(probe, K)
         del probe
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        if dev not in self._pools:
+            self._pools[dev] = torch.cuda.graph_pool_handle()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         before = _counts()
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
+            with torch.cuda.graph(graph, pool=self._pools[dev],
                                   capture_error_mode="thread_local"):
-                results = [step(reads[k], lengths[k]) for k in range(K)]
+                results = [step(*(x[k] for x in inputs)) for k in range(K)]
                 out = torch.empty(layout.nbytes, dtype=torch.uint8,
                                   device=dev)
                 layout.pack(results, out)
@@ -234,12 +250,12 @@ class StepGraphs:
                 k.launches = n
         grown = torch.cuda.memory_reserved(dev) - reserved
         sec = time.perf_counter() - t0
-        self.captures.append({"key": key[:4], "seconds": sec,
-                              "pool_bytes": grown})
+        self.captures.append({"key": key[:4], "device": str(dev),
+                              "seconds": sec, "pool_bytes": grown})
         log.info("step graph %s K=%d B=%d L=%d on %s: warm-up and capture "
                  "%.3f s, graph pool +%.1f MiB", key[0], K, B, L, dev, sec,
                  grown / 2**20)
-        entry = _Entry(graph, reads, lengths, out, layout, tuple(
+        entry = _Entry(graph, inputs, out, layout, tuple(
             (k, a - b) for k, a, b in zip(KERNELS, after, before) if a > b))
         self._entries[key] = entry
         return entry

@@ -8,7 +8,7 @@ array of ``torch.device``:
   position-range shards over the columns.
 
 A slot is a place a slice of the batch runs, so a device may fill several
-(``[cuda:0, cuda:0]`` runs two slices on one card, one after the other:
+(``[cuda:0, cuda:0]`` runs two slices on one card, as one step graph:
 ``parallel/dp.py``).  On the CPU every slot is the CPU.
 """
 

@@ -1,5 +1,5 @@
-"""What two slices of a batch on two slots of one card cost, run in worker
-threads or one after the other, against the whole batch on one slot.
+"""What the dp step's two slices of a batch on two slots of one card cost,
+as one step graph and eagerly, against the whole batch on one slot.
 
     python -m nextgenmap_tpu_torch.tools.dp_overlap [--rounds 4] [--batches 3]
 
@@ -8,12 +8,12 @@ repeats, its index built on the device, and `--batches` batches of 4096
 100 bp reads at 2% SNPs, seeded the same way.  Three variants map every
 batch through ``Mapper.map_batch``:
 
-  one slot   the Mapper on [cuda:0]
-  threads    the Mapper on [cuda:0, cuda:0], each slice in a worker thread
-             under a CUDA stream of its own (``ThreadedRunner`` below, the
-             port's first runner of the slices)
-  loop       the same Mapper, the slices one after the other on the
-             current stream (the port's ``parallel/dp.py::SliceRunner``)
+  one slot     the Mapper on [cuda:0], its step one graph
+  dp-2 graph   the Mapper on [cuda:0, cuda:0]: the two slices of 2048 as
+               one graph of K = 2 (``models/step_graph.py``), as the port
+               runs the dp step
+  dp-2 eager   the same Mapper state with ``StepGraphs(..., eager=True)``:
+               the two slices launched op by op, one after the other
 
 Each variant maps one warm-up batch, then in every round all batches; the
 order of the variants turns around every round.  Per batch: the wall time
@@ -32,7 +32,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,46 +39,12 @@ import torch
 from nextgenmap_tpu_torch import synthetic
 from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.models import mapper as mapper_mod
-from nextgenmap_tpu_torch.parallel.dp import SliceRunner
+from nextgenmap_tpu_torch.models.step_graph import StepGraphs
 
 SEED = 2026            # chip_smoke.py's
 GENOME_SIZE = 4_600_000
 BATCH = 4096
 READ_LEN = 100
-
-
-class ThreadedRunner:
-    """fn(i) for each row in a worker thread of its own, on a CUDA stream of
-    its own; the caller's stream waits on each row's event, and every result
-    tensor is recorded on the caller's stream for the allocator."""
-
-    def __init__(self, rows):
-        self.rows = rows
-        self.pool = ThreadPoolExecutor(max_workers=len(rows))
-        self.streams = [torch.cuda.Stream(device=r[0]) for r in rows]
-
-    def _task(self, fn, i, caller):
-        s = self.streams[i]
-        s.wait_stream(caller)
-        with torch.cuda.stream(s), torch.cuda.device(s.device):
-            out = fn(i)
-            ev = torch.cuda.Event()
-            ev.record(s)
-        return out, ev
-
-    def run(self, fn) -> list:
-        futures = [self.pool.submit(self._task, fn, i,
-                                    torch.cuda.current_stream(s.device))
-                   for i, s in enumerate(self.streams)]
-        outs = []
-        for f in futures:
-            out, ev = f.result()
-            torch.cuda.current_stream(ev.device).wait_event(ev)
-            for t in out:
-                if isinstance(t, torch.Tensor) and t.is_cuda:
-                    t.record_stream(torch.cuda.current_stream(t.device))
-            outs.append(out)
-        return outs
 
 
 def time_batch(mapper, codes, lengths):
@@ -122,18 +87,18 @@ def main(argv: list[str] | None = None) -> int:
     dev = torch.device("cuda", 0)
     one = mapper_mod.Mapper(cfg, Genome, READ_LEN, device=dev)
     two = mapper_mod.Mapper(cfg, Genome, READ_LEN, device=[dev, dev])
-    rows = [[dev], [dev]]
-    runners = {"threads": ThreadedRunner(rows), "loop": SliceRunner(rows)}
+    graphs = {"dp-2 graph": two.graphs,
+              "dp-2 eager": StepGraphs(dev, eager=True)}
 
     def use(name):
         if name != "one slot":
-            two._runner = runners[name]
+            two.graphs = graphs[name]
             return two
         return one
 
     batches = [(codes[i * BATCH:(i + 1) * BATCH],
                 lengths[i * BATCH:(i + 1) * BATCH]) for i in range(a.batches)]
-    names = ["one slot", "threads", "loop"]
+    names = ["one slot", "dp-2 graph", "dp-2 eager"]
     want = []
     for name in names:                  # warm-up, and the one slot's results
         for b, (c, n) in enumerate(batches[:1] if name != "one slot"

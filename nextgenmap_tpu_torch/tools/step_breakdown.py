@@ -12,6 +12,11 @@ Cells (the inputs of ``chip_smoke.py``, seeded the same way):
               B = 614, W = 184 (phase 11)
   gigabase-4  the 2^31 + 2^27 base genome in 4 shards (phase 14: k 13,
               index skip 2, read stride 1; full per-shard tails)
+  dp-2        single's input on the slots [cuda:0, cuda:0] (the dp step:
+              two slices of 2048, one graph of K = 2 on one card)
+  grid-2x2    single's input with --index-shards 2 on four slots of
+              cuda:0 (the ("dp", "ish") grid [2, 2]: two rows of 2048,
+              each the shard loop with full per-shard tails, one graph)
 
 The traceback runs as the mapper calls it, K4 (``ops/sw_align_kernel.py``);
 ``--plain-traceback`` puts its plain version (``ops/sw_ref.py::
@@ -59,20 +64,23 @@ from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
 
 SEED = 2026            # chip_smoke.py's
 WARM, TIMED, PROFILED = 6, 3, 2
-CELLS = {   # name: (genome size, shards, config changes, read length, batch)
-    "single": (4_600_000, 1, {}, 100, 4096),
-    "sharded-4": (4_600_000, 4, {}, 100, 4096),
-    "sharded-2": (4_600_000, 2, {}, 100, 4096),
-    "long": (4_600_000, 1, {}, 1000, 614),
+CELLS = {   # name: (genome size, shards, config changes, read length, batch,
+            #        slots of the card)
+    "single": (4_600_000, 1, {}, 100, 4096, 1),
+    "sharded-4": (4_600_000, 4, {}, 100, 4096, 1),
+    "sharded-2": (4_600_000, 2, {}, 100, 4096, 1),
+    "long": (4_600_000, 1, {}, 1000, 614, 1),
     "gigabase-4": ((1 << 31) + (1 << 27), 4,
-                   dict(kmer_skip=2, read_kmer_skip=1), 100, 4096),
+                   dict(kmer_skip=2, read_kmer_skip=1), 100, 4096, 1),
+    "dp-2": (4_600_000, 1, {}, 100, 4096, 2),
+    "grid-2x2": (4_600_000, 2, {}, 100, 4096, 4),
 }
 
 
 def make_mapper(size: int, shards: int, changes: dict, read_len: int,
                 device):
     """(Mapper, genome codes) of a cell: the genome and index as
-    chip_smoke.py builds them."""
+    chip_smoke.py builds them.  `device` is a device or a list of slots."""
     cfg = NgmConfig(index_shards=shards, **changes)
     gen = (synthetic.repeat_genome if size < 1 << 28
            else synthetic.repeat_genome_large)
@@ -120,9 +128,11 @@ class Instrument:
 
 
 def run_cell(name: str, device="cuda") -> dict:
-    size, shards, changes, read_len, batch = CELLS[name]
+    size, shards, changes, read_len, batch, slots = CELLS[name]
     torch.cuda.reset_peak_memory_stats()
-    m, g = make_mapper(size, shards, changes, read_len, device)
+    m, g = make_mapper(size, shards, changes, read_len,
+                       [torch.device(device, 0)] * slots if slots > 1
+                       else device)
     n = 1 + WARM + max(TIMED, PROFILED)
     if read_len > 250:
         codes, _, _ = synthetic.simulate_long_reads(

@@ -774,10 +774,12 @@ def test_kernels_on_the_last_card(dev):
 
 @pytest.mark.parametrize("shards", [1, 2])
 def test_two_slots_on_one_card_equal_cpu(dev, shards):
-    """--devices on the slots [cuda:0] x 2 (the dp step, the slices in
-    turn) and [cuda:0] x 4 with 2 shards (the
-    ("dp", "ish") grid) equal the CPU's one-device run, with K1 and K2
-    launched once and twice per slice and shard."""
+    """--devices on the slots [cuda:0] x 2 (the dp step, its two slices one
+    graph) and [cuda:0] x 4 with 2 shards (the ("dp", "ish") grid, its two
+    rows one graph) equal the CPU's one-device run, with K1 and K2
+    launched once and twice per shard of each step run: the two slices
+    (rows) of the batch, and the one slice of each capture's eager
+    warm-up."""
     from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
     from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
 
@@ -802,9 +804,10 @@ def test_two_slots_on_one_card_equal_cpu(dev, shards):
             codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=seed)
         lens = np.full(256, 100, np.int32)
         launches = (sw_score.launches, gather_genome_windows.launches)
+        c0 = len(gpu.graphs.captures)
         a = getattr(gpu, step)(codes, lens)
         torch.cuda.synchronize()
-        n = 2 * shards
+        n = (2 + len(gpu.graphs.captures) - c0) * shards
         assert sw_score.launches == launches[0] + n
         assert gather_genome_windows.launches == launches[1] + 2 * n
         b = getattr(cpu, step)(codes, lens)
@@ -812,7 +815,7 @@ def test_two_slots_on_one_card_equal_cpu(dev, shards):
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (step, f)
 
 
-# the one-device step paths through their step graphs: (config changes,
+# the step paths through their step graphs: (config changes,
 # the Mapper method, K batches a call)
 GRAPH_PATHS = {
     "single": (dict(), "map_batch", 1),
@@ -824,7 +827,15 @@ GRAPH_PATHS = {
     "sharded-2-topn": (dict(index_shards=2, topn=2), "map_batch_topn", 1),
     "megabatch-3": (dict(), "map_batch_scan", 3),
     "megabatch-3-paired": (dict(), "map_batch_scan", 3),
+    "dp-2": (dict(), "map_batch", 1),
+    "dp-2-paired": (dict(), "map_batch_paired", 1),
+    "grid-2x2": (dict(index_shards=2), "map_batch", 1),
+    "grid-2x2-paired": (dict(index_shards=2), "map_batch_paired", 1),
 }
+# the paths on several slots of the card: the dp step ([cuda:0] x 2, one
+# graph of its two slices) and the grid [2, 2] (one graph of its two rows)
+GRAPH_SLOTS = {"dp-2": 2, "dp-2-paired": 2, "grid-2x2": 4,
+               "grid-2x2-paired": 4}
 
 
 def _fields(res) -> list:
@@ -835,7 +846,8 @@ def _fields(res) -> list:
 
 @pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
 def test_step_graph_equals_eager_on_card(dev, path):
-    """Each one-device path through its captured graph (the default) ==
+    """Each path through its captured graph (the default; the dp step and
+    the grid on several slots of the card, each one graph a batch) ==
     the same Mapper state's eager step (its graphs replaced by
     StepGraphs(..., eager=True)) on two successive batches,
     in every field and rank; the second call replays the first call's
@@ -863,11 +875,12 @@ def test_step_graph_equals_eager_on_card(dev, path):
     class _G:
         codes = g
 
-    graph = Mapper(cfg, _G(), 100, index, device=dev)
+    slots = [dev] * GRAPH_SLOTS.get(path, 1)
+    graph = Mapper(cfg, _G(), 100, index, device=slots)
     if index is None:
         index = (graph.state.offsets.cpu().numpy(),
                  graph.state.positions.cpu().numpy())
-    eager = Mapper(cfg, _G(), 100, index, device=dev)
+    eager = Mapper(cfg, _G(), 100, index, device=slots)
     eager.graphs = StepGraphs(eager.device, eager=True)
     assert not graph.graphs.eager
     sim = simulate_pairs if paired else simulate_reads
