@@ -7,7 +7,7 @@ Needs one CUDA card (exits non-zero without one, and outside a checkout of
 the repository).  Phases, one line of output each:
 
   1. card     the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build    nvcc builds the four hand-written kernels from the checkout,
+  2. build    nvcc builds the six hand-written kernels from the checkout,
               and g++ the port's host IO library
   3. K2       gather kernel == its plain PyTorch version on the card (exact),
               at 2048x148, 4096x148, 4096x206 and the long reads' 614x1184,
@@ -38,6 +38,25 @@ the repository).  Phases, one line of output each:
               starts) and call time, all as the mapping path calls it (no
               direction bytes); the plain version's call time, bound
               (operations or bytes, the larger) and share
+  4c. K5      the read front end == its plain version on the card (exact
+              in the rc and every k-mer output) at [4096,100], [4096,150]
+              and [614,1000] canonical, two strands and bisulfite with a
+              --bs-cutoff, k 13, stride 2, every batch with reads below L,
+              N bases, a poly-A and a tandem-repeat read and reads at
+              genome positions 1..k; device time, call time, bound
+              (bytes), share, the plain version's call time
+  4d. K6      candidate search == its plain version on the card (exact in
+              every Candidates field) on each of its routes that takes the
+              shape: the bench's own input (4.6 Mbp random genome, packed,
+              H 128: the main row), phase 6's repeat genome at the rule's
+              H (canonical packed, plain CSR, 1000 bp, bisulfite with two
+              tables), bisulfite at the collapsed ceiling H 4608, two
+              strands at H 8200 (the global route only), and a tandem-
+              repeat read that moves all three overflow counters (C 2);
+              negative diagonal buckets; the rule's route, each route's
+              block, device time, call time, bound (bytes), share, the
+              plain version's call time and, as a partial yardstick, one
+              torch.sort of [B, 2H] int32 votes
   5. K3       the dynamic-gather probe's kernel == its plain version (exact)
               at the probe's default 256 x 1024 and at its use case at the
               mapper's batch, 4096 x 2048, REP 32, along dim 0 and 1, with
@@ -86,8 +105,11 @@ the repository).  Phases, one line of output each:
               shards, 2 x 4096 reads (2% SNPs) through Mapper.map_batch on
               the card with full per-shard tails; >= 99% mapped, >= 95%
               truth-correct, some global positions past 2^31, K1, K2 and
-              K4 launched by every shard's tail; seconds of each stage, the
-              peak device memory and the process's peak host memory
+              K4 launched by every shard's tail, K5 once and K6 once a
+              shard a step; K6 == its plain version on both routes on the
+              arguments the shard loop gave it for shard 0, timed; seconds
+              of each stage, the peak device memory and the process's peak
+              host memory
  15. runtime  the CLI on phase 6's reads with -t 1, -t 2 and -t 4 (SAMs
               equal to phase 6's, the same alignment and cell counters),
               phase 7's pairs with -t 4 (SAM equal to phase 7's), --megabatch
@@ -146,12 +168,19 @@ the repository).  Phases, one line of output each:
               in every field and rank on two successive batches, the first
               unchanged after the second replay; a replay, and the eager
               step, with their inputs on the card under
-              torch.cuda.set_sync_debug_mode("error") (no sync); K1, K2 and
-              K4 launched by a replay as often as by the eager step, and a
-              third replay under torch.profiler records each of their
-              kernels as many times as the capture counted nodes; host
-              ms a batch, eager against graph, in alternating rounds over
-              the same batches; each capture's seconds and graph-pool bytes
+              torch.cuda.set_sync_debug_mode("error") (no sync); K1, K2,
+              K4, K5 and K6 launched by a replay as often as by the eager
+              step, and a third replay under torch.profiler records each
+              of their kernels as many times as the capture counted nodes
+              (a profiler window short of records, reported on stderr, is
+              run again, at most six windows); the phase runs in a process
+              of its own (this script with --graphs): late in this one,
+              torch.profiler stopped recording some kernels;
+              a bare replay of the graph under torch.profiler (its device
+              nodes, its kernels, the device's busy share) and the eager
+              step's records and busy share; host ms a batch, eager
+              against graph, in alternating rounds over the same batches;
+              each capture's seconds and graph-pool bytes
 
 Every mapping path from phase 6 on runs its steps through step graphs, as
 the CLI does by default, the dp and grid steps included.
@@ -178,7 +207,10 @@ shapes are under "other_shapes"; "variant" is the route the shape rule
 took there, and "routes" the figures of both routes: each with the
 block it launched (threads), the blocks and warps of that size an SM holds,
 and the route's capacity (warps an SM at blocks of up to 4 warps, which the
-shape rule reads).
+shape rule reads).  K5's row is the single-end path's [4096,100] canonical
+input; K6's row the bench's input on the rule's route ("variant"), with
+both routes under "routes" and its other shapes, one gigabase shard's
+among them, under "other_shapes".
 bound_ms is the least time the card could take: for K2 and K3 the bytes
 moved (each input byte read once, each output byte written once) over
 3.35 TB/s; for K1 the integer instructions its cells need (OPS_PER_CELL per
@@ -187,13 +219,21 @@ card's maximum SM clock (nvidia-smi); for K4 the larger of its integer
 instructions (K4_OPS_PER_CELL of its mode per cell of each real slot's
 qlen x W, as for K1) at that rate and its bytes (inputs read once, the
 op buffer and the fields written once; the mapping path's call writes no
-direction bytes) over 3.35 TB/s.
+direction bytes) over 3.35 TB/s; for K5 its bytes (the codes and lengths
+read once, the rc and the k-mer arrays written once); for K6 the bytes
+this run's data needs (an offsets entry of each valid k-mer column, 8
+bytes, 4 a hit position kept, the k-mers in, the Candidates out) over
+3.35 TB/s.  K5's and K6's library_ms is null: no one PyTorch call computes
+either; K6's row carries "sort_ms", one torch.sort of [B, 2H] int32 votes,
+as a partial yardstick.
 share = bound_ms / device_ms.
 
-Every CLI run must launch K1, K2 and K4, score real candidates, count
-alignments (GCUPS > 0) and time its device steps.  From phase 6 on, the
-traceback's plain version raises if a CUDA tensor reaches it, so every
-traceback of every mapping phase runs on K4.  After the last phase
+Every CLI run must launch K1, K2, K4, K5 and K6, score real candidates,
+count alignments (GCUPS > 0) and time its device steps; where a phase
+counts launches exactly, a step launches K5 once and K6 once an index
+shard.  From phase 6 on, the plain versions of the traceback, the read
+front and the candidate search raise if a CUDA tensor reaches them through
+their wrappers, so every mapping phase runs them on K4, K5 and K6.  After the last phase
 the script fails if jax or any module of the JAX package (nextgenmap_tpu)
 was imported.
 
@@ -607,6 +647,342 @@ def phase_align(rng, cfg, card):
     return err, timings
 
 
+# K5 (the read front end): (B, L, form, --bs-cutoff), the first the main
+# path's input; every batch has reads with N bases and below L
+K5_SHAPES = ((4096, 100, "canonical", 0), (4096, 150, "canonical", 0),
+             (LONG_BATCH, 1000, "canonical", 0), (4096, 100, "strands", 0),
+             (4096, 100, "bisulfite", 3))
+K5_MAIN = "canonical [4096,100] k13 stride 2"
+K6_MAIN = "bench canonical packed [4096,100] H128"
+
+
+def front_bytes(B, L, Q, canonical):
+    """K5's bytes: the codes and lengths read once, the rc and the k-mer
+    arrays written once (canonical 9 bytes a window, two strands 10)."""
+    return B * L + 4 * B + B * L + B * Q * (9 if canonical else 10)
+
+
+def phase_front(card):
+    """Phase 4c: K5 against its plain version (exact in every output) and
+    timed at K5_SHAPES."""
+    import torch
+
+    from nextgenmap_tpu_torch import synthetic
+    from nextgenmap_tpu_torch.ops.kmer_kernel import (
+        n_windows, read_kmers, read_kmers_plain,
+    )
+    from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
+
+    g, runs = synthetic.front_genome(1_000_000, seed=SEED)
+    err, rows, timings = 0, [], {}
+    for B, L, form, cut in K5_SHAPES:
+        bs = form == "bisulfite"
+        codes, lens = synthetic.front_reads(g, B, L, runs=runs, seed=B + L,
+                                            bisulfite=bs)
+        r, n = torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda()
+        kw = dict(k=13, stride=2, bs=bs, bs_cutoff=cut,
+                  canonical=form == "canonical")
+        k = lambda: read_kmers(r, n, **kw)  # noqa: E731
+        p = lambda: read_kmers_plain(r, n, **kw)  # noqa: E731
+        got, want = k(), p()
+        torch.cuda.synchronize()
+        got, want = [got[0], *got[1]], [want[0], *want[1]]
+        shape = (f"{form} [{B},{L}] k13 stride 2"
+                 + (f" cutoff {cut}" if cut else ""))
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"K5 output {i} differs from plain at {shape}")
+        err = max(err, max_abs_err(got, want))
+        Q = n_windows(L, 13, 2)
+        t = {"device_ms": device_ms(k), "call_ms": call_ms(k, 50),
+             "plain_ms": call_ms(p, 20),
+             "bound_ms": 1e3 * front_bytes(B, L, Q, form == "canonical")
+             / HBM_BYTES_PER_S}
+        timings[shape] = t
+        rows.append(f"{shape}: " + timing_row(
+            t["device_ms"], t["call_ms"], t["bound_ms"],
+            f", plain call {t['plain_ms'] * 1e3:.2f} us"))
+    print(f"[4c K5 read_kmers] exact in the rc and every k-mer output at "
+          f"every shape ({card}; bound: bytes at 3.35 TB/s); "
+          + "; ".join(rows))
+    return err, timings
+
+
+def cand_bytes(kms, lengths, offsets, positions, max_freq, *, packed,
+               split, fanout_cap, hit_cap, max_cmrs):
+    """K6's bytes for this data: an offsets entry of each valid k-mer
+    column (8 bytes packed, the CSR pair 8 unpacked), 4 a hit position
+    kept (min(total, H) a read), the k-mers and lengths read once, the
+    Candidates written once."""
+    import torch
+
+    from nextgenmap_tpu_torch.ops.candidate import _compact_hits
+
+    dual = len(kms) == 4
+    B, Q = kms[0].shape
+    if dual:
+        km = torch.stack([kms[0], kms[2]], dim=2).reshape(B, 2 * Q)
+        ok = torch.stack([kms[1], kms[3]], dim=2).reshape(B, 2 * Q)
+    else:
+        km, ok = kms[0], kms[2]
+    valid = _compact_hits(km, ok, offsets, positions, max_freq,
+                          fanout_cap=fanout_cap, hit_cap=hit_cap,
+                          packed_offsets=packed, table_split=split)[2]
+    n_in = sum(t.numel() * t.element_size() for t in kms) + 4 * B
+    Cw = min(max_cmrs, 2 * hit_cap)
+    return (8 * int(ok.sum()) + 4 * int(valid.sum()) + n_in
+            + 3 * 4 * B * Cw + 2 * 4 * B + 12)
+
+
+def cand_plain(kms, lengths, offsets, positions, sens, max_freq, *, k,
+               dual_tables, **statics):
+    """K6's plain version, as the wrapper calls it on a CPU tensor."""
+    from nextgenmap_tpu_torch.ops.candidate import (
+        candidate_search_canonical, candidate_search_dual,
+    )
+
+    if len(kms) == 4:
+        return candidate_search_dual(*kms, offsets, positions, sens,
+                                     max_freq, dual_tables=dual_tables,
+                                     **statics)
+    return candidate_search_canonical(*kms, lengths, offsets, positions,
+                                      sens, max_freq, k=k, **statics)
+
+
+def shard_cand_search(call):
+    """K6 against its plain version, exact on both routes, and timed, on
+    the arguments the gigabase shard loop gave it for shard 0 (a shard's
+    plain CSR of 4^13 + 1 int32 offsets and its positions)."""
+    import torch
+
+    from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
+    from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
+
+    a, kw = call
+    kms, n, off, pos, sens, max_freq = a
+    want = cand_plain(*a, **kw)
+    out = {}
+    for route in ("smem", "global"):
+        k = lambda route=route: candidate_search(*a, route=route, **kw)  # noqa: E731
+        got = k()
+        torch.cuda.synchronize()
+        for f in want._fields:
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"K6 {route} {f} differs from plain at a gigabase shard")
+        out[route] = (device_ms(k), call_ms(k, 50))
+    B, Q = kms[0].shape
+    return {"shape": f"one shard of the 2.28 Gbp layout, [{B},{Q}] k-mers, "
+                     f"CSR {off.numel()} offsets, {pos.numel()} positions, "
+                     f"H{kw['hit_cap']}",
+            "device_ms": out["smem"][0], "call_ms": out["smem"][1],
+            "global_ms": out["global"][0],
+            "plain_ms": call_ms(lambda: cand_plain(*a, **kw), 5),
+            "bound_ms": 1e3 * cand_bytes(
+                kms, n, off, pos, max_freq, packed=kw["packed_offsets"],
+                split=kw["dual_tables"], fanout_cap=kw["fanout_cap"],
+                hit_cap=kw["hit_cap"], max_cmrs=kw["max_cmrs"])
+            / HBM_BYTES_PER_S,
+            "err": max_abs_err(list(got), list(want))}
+
+
+def time_cand_search(call, plain, kms, H, shape, route):
+    """K6 on `route` against the plain version (exact in every field) and
+    its timing; returns (its Candidates, the timing dict)."""
+    import torch
+
+    from nextgenmap_tpu_torch.ops.candidate_kernel import plan
+    from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
+
+    k = lambda: call(route)  # noqa: E731
+    got, want = k(), plain()
+    torch.cuda.synchronize()
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"K6 {route} {f} differs from plain at {shape}")
+    B, Q = kms[0].shape
+    p = plan(B, Q, len(kms) == 4, H, route)
+    return got, {"device_ms": device_ms(k), "call_ms": call_ms(k, 50),
+                 "threads": p.threads, "reads_a_block": p.reads,
+                 "smem_bytes": p.smem_bytes, "scratch_bytes": 4 * p.scratch,
+                 "err": max_abs_err(list(got), list(want))}
+
+
+def phase_cand_search(card, genome, cfg):
+    """Phase 4d: K6 against its plain version (exact in every field) on
+    both routes where each takes the shape, and timed: the bench's input,
+    phase 6's repeat genome at the rule's H (canonical packed and plain
+    CSR, 1000 bp, bisulfite with two tables at the rule's H and at the
+    collapsed ceiling 4608), an H past the smem route, and a batch whose
+    tandem-repeat read moves all three overflow counters."""
+    import torch
+
+    from nextgenmap_tpu_torch import bench, synthetic
+    from nextgenmap_tpu_torch.index.device_build import (
+        build_index_device, concat_tables,
+    )
+    from nextgenmap_tpu_torch.ops.candidate import pack_offsets
+    from nextgenmap_tpu_torch.ops.candidate_kernel import (
+        candidate_search, plan,
+    )
+    from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
+    from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
+
+    sens = torch.tensor(cfg.sensitivity, dtype=torch.float32, device="cuda")
+    w = bench.workload(bench.GENOME_SIZE, bench.BATCH, "cuda")
+    bench_reads = bench.stage_reads(w, 1, bench.READS_SEED)[0][0]
+    gd = torch.from_numpy(genome).cuda()
+    off, pos = build_index_device(gd, k=cfg.kmer, skip=cfg.kmer_skip)
+    tabs = {"bench": (w.tables[1], w.tables[2], True),
+            "packed": (pack_offsets(off, cfg.max_kmer_freq,
+                                    cfg.max_kmer_fanout), pos, True),
+            "csr": (off, pos, False),
+            "plain": (*build_index_device(gd, k=cfg.kmer, skip=cfg.kmer_skip,
+                                          canonical=False), False)}
+    bs_off, bs_pos = concat_tables(
+        *build_index_device(gd, k=cfg.kmer, skip=cfg.kmer_skip,
+                            collapse="ct", canonical=False),
+        *build_index_device(gd, k=cfg.kmer, skip=cfg.kmer_skip,
+                            collapse="ga", canonical=False))
+    tabs["bisulfite"] = (pack_offsets(bs_off, cfg.max_kmer_freq,
+                                      cfg.max_kmer_fanout), bs_pos, True)
+    fg, runs = synthetic.front_genome(1_000_000, seed=7)
+    f_off, f_pos = build_index_device(torch.from_numpy(fg).cuda(),
+                                      k=cfg.kmer, skip=cfg.kmer_skip)
+    tabs["tandem"] = (pack_offsets(f_off, cfg.max_kmer_freq,
+                                   cfg.max_kmer_fanout), f_pos, True)
+    n_pos = int(pos.shape[0])
+    h100 = cfg.resolved_read_hits(n_pos, READ_LEN)
+    h1000 = cfg.resolved_read_hits(n_pos, LONG_LEN)
+    hbs = cfg.replace(bs_mapping=True).resolved_read_hits(
+        int(bs_pos.shape[0]) // 2, READ_LEN)
+
+    def reads(B, L, bs=False, g=genome, r=()):
+        c, n = synthetic.front_reads(g, B, L, runs=r, seed=B + L, bisulfite=bs)
+        return torch.from_numpy(c).cuda(), torch.from_numpy(n).cuda()
+
+    # (label, table, reads, form, H, C): the first the main row
+    check(w.statics["hit_cap"] == 128 and w.statics["packed_offsets"],
+          f"the bench's H is {w.statics['hit_cap']}, not 128")
+    cases = [
+        (K6_MAIN, "bench", (bench_reads, w.lens), "canonical", 128,
+         cfg.max_cmrs),
+        (f"repeat genome canonical packed [4096,100] H{h100}", "packed",
+         reads(BATCH, READ_LEN), "canonical", h100, cfg.max_cmrs),
+        (f"repeat genome canonical CSR [4096,100] H{h100}", "csr",
+         reads(BATCH, READ_LEN), "canonical", h100, cfg.max_cmrs),
+        (f"repeat genome canonical packed [{LONG_BATCH},1000] H{h1000}",
+         "packed", reads(LONG_BATCH, LONG_LEN), "canonical", h1000,
+         cfg.max_cmrs),
+        (f"bisulfite dual two tables [4096,100] H{hbs}", "bisulfite",
+         reads(BATCH, READ_LEN, True), "bisulfite", hbs, cfg.max_cmrs),
+        ("bisulfite dual two tables [1024,100] H4608", "bisulfite",
+         reads(1024, READ_LEN, True), "bisulfite", 4608, cfg.max_cmrs),
+        ("two strands CSR [1024,100] H8200 (past the smem route)", "plain",
+         reads(1024, READ_LEN), "strands", 8200, cfg.max_cmrs),
+        ("tandem read canonical packed [64,100] H128 C2 (all counters)",
+         "tandem", reads(64, READ_LEN, g=fg, r=runs), "canonical", 128, 2),
+    ]
+    err, rows, timings = 0, [], {}
+    for shape, tab, (r, n), form, H, C in cases:
+        bs = form == "bisulfite"
+        off_t, pos_t, packed = tabs[tab]
+        _, kms = read_kmers(r, n, k=cfg.kmer, stride=cfg.read_kmer_skip,
+                            bs=bs, bs_cutoff=0, canonical=form == "canonical")
+        statics = dict(k=cfg.kmer, fanout_cap=cfg.max_kmer_fanout,
+                       hit_cap=H, max_cmrs=C,
+                       diag_bin_log2=cfg.diag_bin_log2,
+                       stride=cfg.read_kmer_skip, packed_offsets=packed)
+
+        def call(route, kms=kms, n=n, off_t=off_t, pos_t=pos_t, bs=bs,
+                 statics=statics):
+            return candidate_search(kms, n, off_t, pos_t, sens,
+                                    cfg.max_kmer_freq, dual_tables=bs,
+                                    route=route, **statics)
+
+        def plain(kms=kms, n=n, off_t=off_t, pos_t=pos_t, bs=bs,
+                  statics=statics):
+            return cand_plain(kms, n, off_t, pos_t, sens, cfg.max_kmer_freq,
+                              dual_tables=bs, **statics)
+
+        B, Q = kms[0].shape
+        rule = plan(B, Q, len(kms) == 4, H).route
+        by_route = {}
+        for route in ("smem", "global"):
+            if route == "smem" and H > 8192:
+                try:
+                    plan(B, Q, len(kms) == 4, H, route)
+                except ValueError:
+                    continue
+                check(False, f"K6's smem route took H {H}")
+            got, by_route[route] = time_cand_search(
+                call, plain, kms, H, shape, route)
+            err = max(err, by_route[route].pop("err"))
+        valid = got.score > 0
+        check(bool(valid.any()) and set(got.strand[valid].tolist())
+              == {0, 1}, f"K6 found no candidate on both strands at {shape}")
+        if form == "canonical" and tab != "bench":
+            check(bool((got.bucket[valid] < 0).any()),
+                  f"no negative diagonal bucket at {shape}")
+        counters = [int(x) for x in (got.fanout_overflow, got.hit_overflow,
+                                     got.cmr_overflow)]
+        if tab == "tandem":
+            check(min(counters) > 0, f"the tandem read left a counter at 0: "
+                  f"{counters}")
+        t = dict(by_route[rule])
+        votes = torch.randint(-2**30, 2**30, (B, 2 * H), dtype=torch.int32,
+                              device="cuda")
+        t.update({
+            "variant": rule, "routes": by_route,
+            "plain_ms": call_ms(plain, 10),
+            "bound_ms": 1e3 * cand_bytes(
+                kms, n, off_t, pos_t, cfg.max_kmer_freq, packed=packed,
+                split=bs, fanout_cap=cfg.max_kmer_fanout, hit_cap=H,
+                max_cmrs=C) / HBM_BYTES_PER_S,
+            # a partial yardstick: one sort of [B, 2H] int32 votes
+            "sort_ms": device_ms(lambda v=votes: torch.sort(v, dim=1)),
+            "counters": counters})
+        timings[shape] = t
+        rows.append(f"{shape}: rule {rule}; " + "; ".join(
+            f"{route} device {v['device_ms'] * 1e3:.2f} us, call "
+            f"{v['call_ms'] * 1e3:.2f} us, {v['threads']} threads a read, "
+            f"{v['reads_a_block']} reads a block, {v['smem_bytes']} B "
+            f"shared" + (f", scratch {v['scratch_bytes']} B"
+                         if route == "global" else "")
+            for route, v in by_route.items())
+            + f"; bound {t['bound_ms'] * 1e3:.3f} us (bytes), share "
+            f"{t['bound_ms'] / t['device_ms']:.3f}; plain call "
+            f"{t['plain_ms']:.3f} ms; torch.sort of [{B},{2 * H}] int32 "
+            f"{t['sort_ms'] * 1e3:.2f} us; counters (fanout, hit, cmr) "
+            f"{counters}")
+    print(f"[4d K6 cand_search] exact in every Candidates field on both "
+          f"routes at every shape ({card}; bound: bytes at 3.35 TB/s; "
+          f"sensitivity {cfg.sensitivity} on the card); " + "; ".join(rows))
+    return err, timings
+
+
+def guard_plain_front():
+    """From here on, the plain versions of K5 and K6 raise if a CUDA tensor
+    reaches them through their wrappers: the mapping phases must run the
+    front on the kernels."""
+    import torch
+
+    from nextgenmap_tpu_torch.ops import candidate_kernel, kmer_kernel
+
+    def guard(name, fn):
+        def call(*a, **k):
+            check(not any(isinstance(x, torch.Tensor) and x.is_cuda
+                          for x in a),
+                  f"a CUDA tensor reached the plain {name}")
+            return fn(*a, **k)
+        return call
+
+    for mod, name in ((kmer_kernel, "read_kmers_plain"),
+                      (candidate_kernel, "candidate_search_canonical"),
+                      (candidate_kernel, "candidate_search_dual")):
+        setattr(mod, name, guard(name, getattr(mod, name)))
+
+
 def guard_plain_traceback():
     """From here on, the traceback's plain version raises if a CUDA tensor
     reaches it: the mapping phases must run every traceback on K4."""
@@ -705,25 +1081,27 @@ def run_cli(path, argv):
     return run_counted(path, lambda: cli.run(argv))
 
 
+def expected(n_steps, tails=1, shards=1):
+    """The launches of n_steps mapping steps: K1 once, K2 twice and K4
+    once a tail (a step of the shard loop runs a tail per shard, or one
+    pooled tail), K5 once, and K6 once an index shard."""
+    return {"sw_score": tails * n_steps, "gather_windows": 2 * tails * n_steps,
+            "sw_align": tails * n_steps, "read_kmers": n_steps,
+            "cand_search": shards * n_steps}
+
+
 def run_counted(path, run):
     """run() -> RunStats of one mapping run, with run_cli's checks."""
-    from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
-    from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
-    from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
+    from nextgenmap_tpu_torch.bench import KERNELS
 
-    sw_score.launches = 0
-    gather_genome_windows.launches = 0
-    sw_align.launches = 0
+    for k in KERNELS.values():
+        k.launches = 0
     t0 = time.perf_counter()
     stats = run()
     wall = time.perf_counter() - t0
-    launches = {"sw_score": sw_score.launches,
-                "gather_windows": gather_genome_windows.launches,
-                "sw_align": sw_align.launches}
-    check(launches["sw_score"] > 0, f"the {path} path never launched K1")
-    check(launches["gather_windows"] > 0,
-          f"the {path} path never launched K2")
-    check(launches["sw_align"] > 0, f"the {path} path never launched K4")
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    for name, n in launches.items():
+        check(n > 0, f"the {path} path never launched {name}")
     check(stats.slots_scored > 0, f"K1 scored no real candidate ({path})")
     check(stats.alignments_computed > 0 and stats.gcups() > 0,
           f"the {path} run counted no alignment (GCUPS {stats.gcups()})")
@@ -898,11 +1276,10 @@ def phase_long_path(genome, workdir, device="cuda"):
 
     check(stats.first_batch_reads == LONG_BATCH,
           f"first batch {stats.first_batch_reads} reads, expected {LONG_BATCH}")
-    # one score pass (K1), two corridor fetches (K2) and one traceback (K4)
-    # per step
+    # the front (K5, K6), one score pass (K1), two corridor fetches (K2)
+    # and one traceback (K4) per step
     n_steps = steps(stats, N_BATCHES_NEW)
-    check(launches == {"sw_score": n_steps, "gather_windows": 2 * n_steps,
-                       "sw_align": n_steps},
+    check(launches == expected(n_steps),
           f"long-read launches {launches} for {n_steps} steps")
     c = synthetic.alignment_counts(sam, genome, tol=16)
     check(c["records"] == n, f"SAM holds {c['records']} records, expected {n}")
@@ -934,14 +1311,16 @@ def sam_body(records):
 
 class Capture:
     """Within `with`, record the arguments of every call the mapper makes
-    to the K1 and K2 wrappers (which it still calls), to rerun a kernel on
-    exactly the inputs a path gave it."""
+    to the K1, K2 and K6 wrappers (which it still calls), to rerun a kernel
+    on exactly the inputs a path gave it."""
+
+    NAMES = ("sw_score", "gather_genome_windows", "candidate_search")
 
     def __enter__(self):
         from nextgenmap_tpu_torch.models import mapper
 
-        self.mod, self.calls = mapper, {"sw_score": [], "gather_windows": []}
-        self.orig = (mapper.sw_score, mapper.gather_genome_windows)
+        self.mod, self.calls = mapper, {name: [] for name in self.NAMES}
+        self.orig = {name: getattr(mapper, name) for name in self.NAMES}
 
         def rec(name, fn):
             def call(*a, **k):
@@ -949,12 +1328,13 @@ class Capture:
                 return fn(*a, **k)
             return call
 
-        mapper.sw_score = rec("sw_score", self.orig[0])
-        mapper.gather_genome_windows = rec("gather_windows", self.orig[1])
+        for name, fn in self.orig.items():
+            setattr(mapper, name, rec(name, fn))
         return self
 
     def __exit__(self, *exc):
-        self.mod.sw_score, self.mod.gather_genome_windows = self.orig
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
 
 
 def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
@@ -994,11 +1374,10 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
         S = int(flags[-1])
         per = 1 if shard_tail_cap(BATCH, S) else S    # pool, or S tails
         n_steps = steps(stats, n_batches)
-        check(counts == {"sw_score": per * n_steps,
-                         "gather_windows": 2 * per * n_steps,
-                         "sw_align": per * n_steps},
+        check(counts == expected(n_steps, per, S),
               f"{name}: launches {counts}, expected {per} K1, {2 * per} "
-              f"K2 and {per} K4 per step ({n_steps} steps)")
+              f"K2 and {per} K4, one K5 and {S} K6 per step ({n_steps} "
+              f"steps)")
         launches[name] = (counts, n_steps)
         rows.append(f"{name} ({'pool' if per == 1 else f'{S} tails'}): "
                     f"SAM equal; " + summary(stats, n_batches, counts, wall))
@@ -1031,7 +1410,7 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
           "bound_ms": 1e3 * OPS_PER_CELL * cells / (INT32_LANES
                                                     * sm_clock_hz())}
     k1["shape"] = f"local [4096,100]xW48 ({real} real), the sharded pool"
-    (ga, _), *_ = cap.calls["gather_windows"]
+    (ga, _), *_ = cap.calls["gather_genome_windows"]
     g_flat, starts, T = ga
     check(g_flat.shape[0] == S * Gs, "K2 did not gather from the flattened "
           "stacked genome")
@@ -1065,10 +1444,8 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
     from nextgenmap_tpu_torch.config import NgmConfig
     from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
     from nextgenmap_tpu_torch.models.mapper import Mapper
+    from nextgenmap_tpu_torch.bench import KERNELS
     from nextgenmap_tpu_torch.native import hostio
-    from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
-    from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
-    from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
     from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
 
     check(hostio.lib() is not None,
@@ -1108,22 +1485,20 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
     codes, pos, strand = synthetic.simulate_reads(g, n, READ_LEN, 0.02,
                                                   seed=SEED + 8)
     lens = np.full(batch, READ_LEN, np.int32)
-    sw_score.launches = 0
-    gather_genome_windows.launches = 0
-    sw_align.launches = 0
+    for k in KERNELS.values():
+        k.launches = 0
     mapped, gpos, gstrand = [], [], []
-    for b in range(2):
-        t = time.perf_counter()
-        res = mapper.map_batch(codes[b * batch:(b + 1) * batch], lens)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        sec[f"batch {b + 1}"] = time.perf_counter() - t
-        mapped.append(res.mapped.cpu().numpy())
-        gpos.append(res.pos.cpu().numpy())
-        gstrand.append(res.strand.cpu().numpy())
-    launches = {"sw_score": sw_score.launches,
-                "gather_windows": gather_genome_windows.launches,
-                "sw_align": sw_align.launches}
+    with Capture() as cap:
+        for b in range(2):
+            t = time.perf_counter()
+            res = mapper.map_batch(codes[b * batch:(b + 1) * batch], lens)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            sec[f"batch {b + 1}"] = time.perf_counter() - t
+            mapped.append(res.mapped.cpu().numpy())
+            gpos.append(res.pos.cpu().numpy())
+            gstrand.append(res.strand.cpu().numpy())
+    launches = {name: k.launches for name, k in KERNELS.items()}
     mapped, gpos, gstrand = (np.concatenate(x) for x in
                              (mapped, gpos, gstrand))
     correct = mapped & (np.abs(gpos - pos) <= 5) & (gstrand == strand)
@@ -1136,11 +1511,11 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
     per = (1 if mapper.tail_cap(batch)
            and mapper.shards.genome.numel() < 2**31 else n_shards)
     n_steps = 2 + len(mapper.graphs.captures)   # and the graph's warm-up
-    check(launches == {"sw_score": n_steps * per,
-                       "gather_windows": 2 * n_steps * per,
-                       "sw_align": n_steps * per},
+    check(launches == expected(n_steps, per, n_shards),
           f"gigabase launches {launches}, expected {per} K1, {2 * per} "
-          f"K2 and {per} K4 per step ({n_steps} steps)")
+          f"K2 and {per} K4, one K5 and {n_shards} K6 per step ({n_steps} "
+          f"steps)")
+    k6 = shard_cand_search(cap.calls["candidate_search"][0])
     check(mapped.sum() >= 0.99 * n, f"only {mapped.sum()}/{n} reads mapped")
     check(correct.sum() >= 0.95 * n,
           f"only {correct.sum()}/{n} reads truth-correct")
@@ -1154,8 +1529,11 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
           f"launches {launches}; seconds "
           f"{ {k: round(v, 3) for k, v in sec.items()} }; peak device "
           f"memory {peak:.3f} GiB, peak host memory of the process "
-          f"{host_peak:.3f} GiB")
-    return launches, n_steps, {"seconds": sec, "peak_gib": peak,
+          f"{host_peak:.3f} GiB; K6 exact at {k6['shape']} on both routes: "
+          + timing_row(k6["device_ms"], k6["call_ms"], k6["bound_ms"],
+                       f", global route {k6['global_ms'] * 1e3:.2f} us, "
+                       f"plain call {k6['plain_ms']:.3f} ms"))
+    return launches, n_steps, {"seconds": sec, "peak_gib": peak, "k6": k6,
                          "host_peak_gib": host_peak,
                          "mapped": int(mapped.sum()),
                          "correct": int(correct.sum()), "past_2_31": past}
@@ -1234,10 +1612,11 @@ def phase_runtime(workdir, device="cuda"):
     with open(os.path.join(prof, traces[0])) as f:
         trace = f.read()
     for kern in ("sw_score_kernel", "gather_windows_kernel",
-                 "sw_align_kernel"):
+                 "sw_align_kernel", "read_kmers_kernel",
+                 "cand_search_kernel"):
         check(kern in trace, f"the trace names no {kern}")
-    rows[-1] += (f"; trace {len(trace) / 2**20:.1f} MiB names K1, K2 and "
-                 f"K4")
+    rows[-1] += (f"; trace {len(trace) / 2**20:.1f} MiB names K1, K2, K4, "
+                 f"K5 and K6")
     os.remove(os.path.join(prof, traces[0]))
 
     # W = 264: K1's warp kernel at 32 x 12 cells; the CPU runs its plain
@@ -1365,8 +1744,8 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
             caps = r["graph_captures"]
             if name == "shard-across-hosts":
                 # two graphs a batch, the exchange of the best between
-                # them: phase 1 (the CS, no K1, K2 or K4) and phase 2 (the
-                # tails), whose warm-up alone launches kernels
+                # them: phase 1 (K5 and the one shard's K6) and phase 2
+                # (the tails: K1, K2, K4), each with its warm-up step
                 check(r["graph_replays"] == 2 * n_b and caps % 2 == 0,
                       f"{name} process {i}: {r['graph_replays']} graph "
                       f"replays and {caps} captures for {n_b} batches, "
@@ -1374,8 +1753,7 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
                 caps //= 2
             n_steps = n_b + caps
             per = r["launches"]
-            check(per == {"sw_score": n_steps, "gather_windows": 2 * n_steps,
-                          "sw_align": n_steps},
+            check(per == expected(n_steps),
                   f"{name} process {i}: launches {per} for {n_b} batches "
                   f"and {caps} graph warm-up step(s)")
             launches[f"{name} p{i}"] = (per, n_steps)
@@ -1415,11 +1793,10 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
               f"{name}: SAM differs from the one-slot run's")
         # a slice is a step: two a batch, one in each capture's warm-up
         n_steps = 2 * n_b + stats.graph_captures
-        check(counts == {"sw_score": n_steps, "gather_windows": 2 * n_steps,
-                         "sw_align": n_steps}
-              and stats.graph_replays == n_b,
+        check(counts == expected(n_steps) and stats.graph_replays == n_b,
               f"{name}: launches {counts} and {stats.graph_replays} graph "
-              f"replays, expected 1 K1, 2 K2 and 1 K4 a slice over {n_b} "
+              f"replays, expected 1 K1, 2 K2, 1 K4, 1 K5 and 1 K6 a slice "
+              f"over {n_b} "
               f"batches of 2 slices and {stats.graph_captures} warm-up "
               f"slice(s), and one replay a batch")
         launches[name] = (counts, n_steps)
@@ -1627,12 +2004,11 @@ def phase_graft(card):
         check(k > 0, f"the graft entry never launched {name}")
     n_steps = 1 + 2 * (2 + 1)        # entry(); per leg 2 rows + 1 warm-up
     if torch.cuda.device_count() == 1:
-        k1 = 1 + 2 * (2 + 1) * 2     # a row runs 2 shard tails
-        check(launches == {"sw_score": k1, "gather_windows": 2 * k1,
-                           "sw_align": k1},
-              f"graft: launches {launches}, expected {k1} K1 and K4 and "
-              f"{2 * k1} K2 (entry()'s step, then per leg one graph of 2 "
-              f"rows of 2 shards and its warm-up row)")
+        k1 = 1 + 2 * (2 + 1) * 2     # a row runs 2 shard tails and CSs
+        check(launches == dict(expected(k1), read_kmers=n_steps),
+              f"graft: launches {launches}, expected {k1} K1, K4 and K6, "
+              f"{2 * k1} K2 and {n_steps} K5 (entry()'s step, then per leg "
+              f"one graph of 2 rows of 2 shards and its warm-up row)")
     mapped = int(got.mapped.sum())
     check(mapped >= 60, f"graft entry: only {mapped}/64 mapped")
     check(legs[1] is not None, "dryrun_multichip(4) ran one leg")
@@ -1658,18 +2034,21 @@ def _fields(res) -> list:
             for f in r._fields]
 
 
-def replay_records(fn, names) -> dict:
-    """{name: kernel records whose name holds it} of one fn() under
-    torch.profiler.  A window that recorded no kernel at all is run again
-    (CUPTI now and then hands one back empty; tools/timing.py), at most
-    WINDOWS times."""
+def replay_records(fn, want: dict):
+    """({name: kernel records whose name holds it} of one fn() under
+    torch.profiler, windows run).  A window whose counts differ from
+    `want` is reported on stderr, with every device record it holds, and
+    run again after a pause, at most WINDOWS times (CUPTI now and then
+    hands back a window short of records; tools/timing.py).  The counts of
+    the last window are returned whatever they are; the caller holds them
+    to `want`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from nextgenmap_tpu_torch.tools.timing import WINDOWS
 
-    for _ in range(WINDOWS):
+    for window in range(1, WINDOWS + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1677,12 +2056,14 @@ def replay_records(fn, names) -> dict:
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
-        if kernels:
-            return {n: sum(e.count for e in kernels if n in e.key)
-                    for n in names}
+        got = {n: sum(e.count for e in kernels if n in e.key) for n in want}
+        if got == want:
+            return got, window
+        print(f"chip_smoke: profiler window {window}: recorded {got}, want "
+              f"{want}; device records "
+              f"{[(e.key[:60], e.count) for e in kernels]}", file=sys.stderr)
         time.sleep(0.5)
-    raise RuntimeError(f"torch.profiler recorded no kernel in {WINDOWS} "
-                       "windows")
+    return got, WINDOWS
 
 
 def phase_graphs(genome, cfg, card, device="cuda"):
@@ -1699,6 +2080,7 @@ def phase_graphs(genome, cfg, card, device="cuda"):
     from nextgenmap_tpu_torch.models.mapper import Mapper
     from nextgenmap_tpu_torch.models.step_graph import StepGraphs
     from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
+    from nextgenmap_tpu_torch.tools.timing import device_profile
 
     class Codes:
         codes = genome
@@ -1808,11 +2190,16 @@ def phase_graphs(genome, cfg, card, device="cuda"):
             for (j, f, a), (_, _, b) in zip(_fields(got), _fields(ref)):
                 check(torch.equal(a, b),
                       f"{path}: graph and eager differ in rank {j} field {f}")
-        recorded = replay_records(lambda: call(graph, codes_d, lens_d),
-                                  list(KERNELS))
+        recorded, windows = replay_records(
+            lambda: call(graph, codes_d, lens_d), by_graph)
         check(recorded == by_graph, f"{path}: a replay under torch.profiler "
-              f"recorded kernels {recorded}, its capture counted {by_graph}")
+              f"recorded kernels {recorded} in each of {windows} windows, "
+              f"its capture counted {by_graph}")
         launches[f"graphs {path}"] = (by_graph, n_steps)
+        # the graph's own nodes (a bare replay), and the eager step's
+        bare = device_profile(list(graph.graphs._entries.values())[-1]
+                              .graph.replay)
+        op_by_op = device_profile(lambda: call(eager, codes_d, lens_d))
 
         # host ms a batch over the same batches, eager and graph in turn
         ms = {"eager": [], "graph": []}
@@ -1834,7 +2221,14 @@ def phase_graphs(genome, cfg, card, device="cuda"):
             f"{path}: graph == eager in all fields on 2 "
             f"{'groups' if k > 1 else 'batches'}, replay without sync, "
             f"launches a replay {by_graph} (eager step {by_eager}, "
-            f"profiled replay {recorded}); host ms "
+            f"profiled replay {recorded}, window {windows}); a bare replay: "
+            f"{bare['records']} device nodes ({bare['kernels']} kernels), "
+            f"device busy {bare['busy']:.3f} ({bare['device_ms']:.3f} of "
+            f"{bare['wall_ms']:.3f} ms); the eager step: "
+            f"{op_by_op['records']} device records ({op_by_op['kernels']} "
+            f"kernels), busy {op_by_op['busy']:.3f} "
+            f"({op_by_op['device_ms']:.3f} of {op_by_op['wall_ms']:.3f} ms);"
+            f" host ms "
             f"a batch eager {[round(x, 3) for x in ms['eager']]}, graph "
             f"{[round(x, 3) for x in ms['graph']]}; capture "
             f"{cap['seconds']:.3f} s, graph pool +"
@@ -1847,6 +2241,58 @@ def phase_graphs(genome, cfg, card, device="cuda"):
     return launches
 
 
+GRAPHS_TIMEOUT_S = 900   # phase 19's process, set-up included
+
+
+def graphs_child():
+    """Phase 19 in a process of its own (this script with --graphs), on
+    phase 6's genome: its line, then one JSON line {"graphs": {path:
+    [kernel launches of a replay, steps in it]}}.  Late in this script's
+    own process torch.profiler stopped recording some kernels (K5, K6 and
+    torch's own spin kernel) in every window while it recorded the rest
+    of a replay's nodes; a fresh process records them all (PERF.md §6,
+    PR 15), so the phase that counts a replay's records runs in one."""
+    import torch
+
+    from nextgenmap_tpu_torch import cli, synthetic
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    check(torch.cuda.is_available(), "phase 19's process sees no card")
+    cfg = cli.parse(map_argv("."))[2]
+    genome = synthetic.repeat_genome(GENOME_SIZE, n_repeats=120, min_len=1000,
+                                     max_len=2000, seed=SEED)
+    guard_plain_traceback()
+    guard_plain_front()
+    launches = phase_graphs(genome, cfg, card)
+    check("jax" not in sys.modules and not any(
+        m == "nextgenmap_tpu" or m.startswith("nextgenmap_tpu.")
+        for m in sys.modules), "phase 19's process imported the JAX package")
+    print(json.dumps({"graphs": {path: [counts, n] for path, (counts, n)
+                                 in launches.items()}}))
+    return 0
+
+
+def phase_graphs_process():
+    """Runs graphs_child; prints its phase line, returns {path: (kernel
+    launches of a replay, steps in it)}."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--graphs"], cwd=repo,
+        capture_output=True, text=True, timeout=GRAPHS_TIMEOUT_S)
+    check(proc.returncode == 0, f"phase 19's process exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        if ln.startswith("[19 "):
+            print(ln, flush=True)
+    return {path: (counts, n) for path, (counts, n)
+            in json.loads(lines[-1])["graphs"].items()}
+
+
 def main():
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "nextgenmap_tpu_torch")):
@@ -1856,6 +2302,8 @@ def main():
     sys.path.insert(0, repo)
     if sys.argv[1:2] == ["--child"]:
         return child(sys.argv[2:])
+    if sys.argv[1:2] == ["--graphs"]:
+        return graphs_child()
     card = phase_card()
     import torch
 
@@ -1871,9 +2319,15 @@ def main():
     k1 = k1_shapes[K1_MAIN]
     k4_err, k4_shapes = phase_align(rng, cfg, card)
     k4 = k4_shapes[K4_MAIN]
+    k5_err, k5_shapes = phase_front(card)
+    k5 = k5_shapes[K5_MAIN]
+    k6_err, k6_shapes = phase_cand_search(card, genome, cfg)
+    k6 = k6_shapes[K6_MAIN]
+    torch.cuda.empty_cache()
     k3_err, k3_shapes, k3_launches, empty_ms = phase_row_gather(card)
     k3 = k3_shapes[K3_MAIN]
     guard_plain_traceback()
+    guard_plain_front()
     codes, launches = {}, {}     # launches: {path: (counts, batches)}
     with tempfile.TemporaryDirectory() as workdir:
         ref_path = os.path.join(workdir, "ref.fa")
@@ -1890,14 +2344,17 @@ def main():
          sharded_memory) = phase_sharded_cli(genome, workdir, codes["single"],
                                              cfg, card)
         launches.update(sharded)
-        giga_counts, giga_batches, _ = phase_gigabase(card)
+        giga_counts, giga_batches, giga = phase_gigabase(card)
+        k6_err = max(k6_err, giga["k6"].pop("err"))
+        k6_shapes[giga["k6"].pop("shape")] = giga["k6"]
         launches["gigabase-4"] = (giga_counts, giga_batches)
         runtime, t1 = phase_runtime(workdir)
         launches.update(runtime)
         launches.update(phase_parallel(workdir, t1, sharded_memory))
     launches["bench"] = phase_bench(card)
     launches["graft"] = phase_graft(card)
-    launches.update(phase_graphs(genome, cfg, card))
+    torch.cuda.empty_cache()
+    launches.update(phase_graphs_process())
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m == "nextgenmap_tpu"
                        or m.startswith("nextgenmap_tpu."))
@@ -1965,6 +2422,37 @@ def main():
                     "bound_by", "forward_ms", "routes")}
                 | {"share": t["bound_ms"] / t["device_ms"]}
                 for shape, t in k4_shapes.items() if shape != K4_MAIN}),
+        row("read_kmers", "nextgenmap_tpu_torch/csrc/read_kmers.cu",
+            "nextgenmap_tpu/models/mapper.py:85", k5_err, k5,
+            total("read_kmers"), per_step("read_kmers"), "bytes", None,
+            replaces_kind="not a Pallas kernel: XLA-fused code under "
+            "jax.jit (_pre_extract with ops/kmer.py:149 "
+            "extract_kmers_canonical and :88 extract_kmers)",
+            shape=K5_MAIN + ": the single-end path's input",
+            other_shapes={
+                shape: {key: t[key] for key in (
+                    "device_ms", "call_ms", "plain_ms", "bound_ms")}
+                | {"share": t["bound_ms"] / t["device_ms"]}
+                for shape, t in k5_shapes.items() if shape != K5_MAIN}),
+        row("cand_search", "nextgenmap_tpu_torch/csrc/cand_search.cu",
+            "nextgenmap_tpu/ops/candidate.py:642", k6_err, k6,
+            total("cand_search"), per_step("cand_search"), "bytes", None,
+            replaces_kind="not a Pallas kernel: XLA-fused code under "
+            "jax.jit (candidate_search_canonical :642 and "
+            "candidate_search_dual :560, through _compact_hits :359 and "
+            "_select_candidates :487)",
+            variant=k6["variant"], routes=k6["routes"],
+            sort_ms=k6["sort_ms"], sort_is="a partial yardstick: one "
+            "torch.sort of the [B, 2H] int32 votes, one of K6's steps",
+            counters=k6["counters"],
+            shape=K6_MAIN + ": the bench's input",
+            other_shapes={
+                shape: {key: t[key] for key in (
+                    "variant", "device_ms", "call_ms", "plain_ms",
+                    "bound_ms", "sort_ms", "routes", "counters",
+                    "global_ms") if key in t}
+                | {"share": t["bound_ms"] / t["device_ms"]}
+                for shape, t in k6_shapes.items() if shape != K6_MAIN}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

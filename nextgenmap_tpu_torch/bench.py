@@ -66,7 +66,9 @@ from nextgenmap_tpu_torch.models.mapper import (
 from nextgenmap_tpu_torch.models.step_graph import StepGraphs, take
 from nextgenmap_tpu_torch.native import build
 from nextgenmap_tpu_torch.ops.candidate import pack_offsets
+from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
+from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
 from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 
@@ -81,7 +83,8 @@ TRUTH_TOL = 5             # bp between the mapped and the simulated position
 # the per-batch counters, in the columns of run()'s "counters"
 COUNTERS = ("mapped", "truth_correct", "n_candidates", "k1_real_slots")
 KERNELS = {"sw_score": sw_score, "gather_windows": gather_genome_windows,
-           "sw_align": sw_align}
+           "sw_align": sw_align, "read_kmers": read_kmers,
+           "cand_search": candidate_search}
 
 
 def log(*a) -> None:

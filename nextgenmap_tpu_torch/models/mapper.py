@@ -24,13 +24,14 @@ and differ in their tails:
 `end_to_end` (--end-to-end) scores and aligns in glocal mode: the whole
 read is aligned, with no clipping.
 
-On a CUDA device every corridor fetch goes through the hand-written gather
-kernel and every score pass, local or glocal, through the hand-written SW
-kernel; on the CPU their wrappers run the plain PyTorch versions.  Every
-output equals the reference's steps exactly (tests/test_torch_mapper.py,
-tests/test_torch_paired.py, tests/test_torch_topn.py,
-tests/test_torch_glocal.py, tests/test_torch_bisulfite.py,
-tests/test_torch_long_reads.py).
+On a CUDA device the read front end (the rc and the k-mers) is the
+hand-written kernel K5, the candidate search K6, every corridor fetch the
+gather kernel K2, every score pass, local or glocal, the SW kernel K1 and
+every traceback K4; on the CPU their wrappers run the plain PyTorch
+versions.  Every output equals the reference's steps exactly
+(tests/test_torch_mapper.py, tests/test_torch_paired.py,
+tests/test_torch_topn.py, tests/test_torch_glocal.py,
+tests/test_torch_bisulfite.py, tests/test_torch_long_reads.py).
 
 The Mapper also runs the reference's several-device steps: the dp step
 (each batch in contiguous slices, one per device slot) and the ("dp",
@@ -55,13 +56,10 @@ from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
 from nextgenmap_tpu_torch.models.step_graph import (
     StepGraphs, leaves, rebuild, take,
 )
-from nextgenmap_tpu_torch.ops.candidate import (
-    candidate_search_canonical, candidate_search_dual, pack_offsets,
-)
+from nextgenmap_tpu_torch.ops.candidate import pack_offsets
+from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
-from nextgenmap_tpu_torch.ops.kmer import (
-    extract_kmers, extract_kmers_canonical,
-)
+from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
 from nextgenmap_tpu_torch.ops.scoring import matrices_are_simple, score_matrix
 from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
@@ -99,36 +97,16 @@ class MapResult(NamedTuple):
     cmr_overflow: torch.Tensor     # [] int32
 
 
-def revcomp_batch(codes: torch.Tensor) -> torch.Tensor:
-    """[B, L] reverse complement (PAD stays PAD)."""
-    flipped = codes.flip(1)
-    return torch.where(flipped < 4, 3 - flipped, flipped).to(codes.dtype)
-
-
 def _pre_extract(reads, lengths, *, k, read_stride=1, bs=False, bs_cutoff=0,
                  canonical=True):
     """Left-shifted reverse complements and the read k-mers: canonical
     (canon, flip, ok), or (km_f, ok_f, km_r, ok_r) of the two strands, which
     bisulfite collapses C->T (forward) and G->A (reverse complement) with
-    the --bs-cutoff drop.  They depend on the reads only, so the shard loop
-    extracts them once for every shard."""
-    B, L = reads.shape
-    rc = revcomp_batch(reads)
-    # the flip moves right-padding to the front of short reads: shift each
-    # rc row left by (L - length) so it starts at column 0
-    idx = torch.arange(L, device=reads.device)[None, :] + (L - lengths)[:, None]
-    rc = torch.gather(torch.nn.functional.pad(rc, (0, L), value=4), 1, idx.long())
-    if canonical and not bs:
-        return rc, extract_kmers_canonical(reads, lengths, k,
-                                           stride=read_stride)
-    cut = bs_cutoff if bs else 0
-    km_f, ok_f = extract_kmers(reads, lengths, k, stride=read_stride,
-                               collapse="ct" if bs else "none",
-                               max_collapsed=cut)
-    km_r, ok_r = extract_kmers(rc, lengths, k, stride=read_stride,
-                               collapse="ga" if bs else "none",
-                               max_collapsed=cut)
-    return rc, (km_f, ok_f, km_r, ok_r)
+    the --bs-cutoff drop (kernel K5 on the card).  They depend on the reads
+    only, so the shard loop extracts them once for every shard."""
+    return read_kmers(reads.contiguous(), lengths.to(I32).contiguous(), k=k,
+                      stride=read_stride, bs=bs, bs_cutoff=bs_cutoff,
+                      canonical=canonical)
 
 
 def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
@@ -154,19 +132,13 @@ def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
         pre = _pre_extract(reads, lengths, k=k, read_stride=read_stride,
                            bs=bs, bs_cutoff=bs_cutoff, canonical=canonical)
     rc, kms = pre
-    common = dict(fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
-                  diag_bin_log2=diag_bin_log2, stride=read_stride,
-                  packed_offsets=packed_offsets)
-    if canonical and not bs:
-        cand = candidate_search_canonical(
-            *kms, lengths, offsets, positions, sensitivity, max_freq, k=k,
-            **common,
-        )
-    else:
-        cand = candidate_search_dual(
-            *kms, offsets, positions, sensitivity, max_freq, dual_tables=bs,
-            **common,
-        )
+    # (kernel K6 on the card)
+    cand = candidate_search(
+        kms, lengths, offsets, positions, sensitivity, max_freq, k=k,
+        fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
+        diag_bin_log2=diag_bin_log2, stride=read_stride,
+        packed_offsets=packed_offsets, dual_tables=bs,
+    )
     cs_score, strand = cand.score, cand.strand
     cand_valid = cs_score >= max(1, min_kmer_hits)
     if min_kmer_hits > 1:

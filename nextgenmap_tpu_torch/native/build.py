@@ -42,6 +42,12 @@ SIGNATURES = {
     "ngm_sw_align_plan": (I32, I32, I32, I32, I32, P),
     "ngm_row_gather": (P, P, I32, I32, I32, I32, P, P),
     "ngm_row_gather_plan": (I32, I32, I32, P),
+    "ngm_read_kmers": (P, P, I32, I32, I32, I32, I32, I32, I32, P, P, P, P,
+                       P, P, P),
+    "ngm_cand_search_plan": (I32, I32, I32, I32, I32, P),
+    "ngm_cand_search": (P, P, P, P, P, P, I64, P, I64, P, I32, I32, I32, I32,
+                        I32, I32, I32, I32, I32, I32, I32, I32, I32, I32, P,
+                        I64, P, P, P, P, P, P, P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -180,6 +180,55 @@ def simulate_long_reads(genome: np.ndarray, n: int, read_len: int,
     return codes, pos, strand
 
 
+POLY_A_LEN = 600
+TANDEM_PERIOD, TANDEM_COPIES = 20, 80
+
+
+def front_genome(size: int, seed: int = 0):
+    """repeat_genome (16 repeats of 800-2000 bp) with a poly-A run of
+    POLY_A_LEN at a quarter of it and a tandem repeat (a random
+    TANDEM_PERIOD-mer TANDEM_COPIES times) at half of it: a read from the
+    tandem repeat has more k-mer hits than a row may fan out, more than a
+    read may keep, and more eligible buckets than a read may return.
+    Returns (genome, (poly-A start, tandem start))."""
+    g = repeat_genome(size, n_repeats=16, min_len=800, max_len=2000,
+                      seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    a, b = size // 4, size // 2
+    g[a:a + POLY_A_LEN] = 0
+    g[b:b + TANDEM_PERIOD * TANDEM_COPIES] = np.tile(
+        rng.integers(0, 4, TANDEM_PERIOD), TANDEM_COPIES)
+    return g, (a, b)
+
+
+def front_reads(genome: np.ndarray, n: int, read_len: int, *, runs=(),
+                k: int = 13, seed: int = 0, bisulfite: bool = False):
+    """Reads for the front kernels' checks: simulate_reads (2% SNPs) or
+    simulate_bisulfite_reads, a tenth of them cut to a random length in
+    [0, read_len] with PAD after it, 0.5% of the bases N; then one read at
+    each start of `runs`, and k reads at genome positions 1..k behind a
+    random prefix of that length (their forward diagonals are negative).
+    Returns (codes [n, read_len] uint8, lengths [n] int32)."""
+    rng = np.random.default_rng(seed)
+    if bisulfite:
+        codes = simulate_bisulfite_reads(genome, n, read_len, seed=seed)[0]
+    else:
+        codes = simulate_reads(genome, n, read_len, 0.02, seed=seed)[0]
+    lens = np.full(n, read_len, np.int32)
+    short = rng.random(n) < 0.1
+    lens[short] = rng.integers(0, read_len + 1, int(short.sum()))
+    codes[rng.random(codes.shape) < 0.005] = 4
+    for i, s in enumerate(runs):
+        codes[i], lens[i] = genome[s:s + read_len], read_len
+    for d in range(1, k + 1):
+        row = len(runs) + d - 1
+        codes[row] = np.concatenate([rng.integers(0, 4, d),
+                                     genome[:read_len - d]])
+        lens[row] = read_len
+    codes[np.arange(read_len)[None, :] >= lens[:, None]] = 4
+    return codes, lens
+
+
 def write_fasta(path: str, name: str, codes: np.ndarray, width: int = 70) -> None:
     seq = _BASES[codes].tobytes()
     with open(path, "wb") as f:

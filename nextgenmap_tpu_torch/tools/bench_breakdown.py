@@ -17,7 +17,9 @@ eager=True)``):
              batch, graph replays a batch, the host time a batch of
              ``cudaLaunchKernel`` and ``cudaGraphLaunch``, the device's
              busy share (kernel time over the window's wall time), and the
-             largest kernels by device time;
+             largest kernels by device time; for the graph, a bare replay
+             of it (its device nodes, the kernels among them, and the
+             device's busy share of that replay);
   clone      the graph's output copy a call makes: host ms and wall ms
              (synchronised at the end) a call of its one clone of the
              packed output buffer, against a clone of each field apart
@@ -41,6 +43,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from nextgenmap_tpu_torch import bench
 from nextgenmap_tpu_torch.models.step_graph import StepGraphs, leaves
+from nextgenmap_tpu_torch.tools.timing import device_profile
 
 PROFILED = 6
 CLONES = 200
@@ -78,7 +81,14 @@ def profiled(w, staged) -> dict:
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     kernel_us = sum(e.self_device_time_total for e in kernels)
-    return {
+    nodes = {}
+    if not w.graphs.eager:      # the graph's own nodes: a bare replay
+        (entry,) = w.graphs._entries.values()
+        bare = device_profile(entry.graph.replay)
+        nodes = {"graph_nodes": bare["records"],
+                 "graph_kernels": bare["kernels"],
+                 "bare_replay_busy": bare["busy"]}
+    return {**nodes,
         "kernel_ms": kernel_us / 1e3 / PROFILED,
         "kernels": sum(e.count for e in kernels) / PROFILED,
         "graph_replays": replays / PROFILED,
@@ -155,7 +165,11 @@ def main(argv=None) -> int:
               f"launches and {r['graph_replays']:.0f} graph replays a batch, "
               f"device busy {busy} of {r['wall_ms']:.3f} ms a batch; host "
               f"ms a batch {r['launch_host_ms']}; largest kernels (us a "
-              f"batch) {r['top_us']}", flush=True)
+              f"batch) {r['top_us']}"
+              + (f"; a bare replay {r['graph_nodes']} device nodes "
+                 f"({r['graph_kernels']} kernels), busy "
+                 f"{100 * r['bare_replay_busy']:.1f}%"
+                 if "graph_nodes" in r else ""), flush=True)
     clone = clone_ms(w.graphs)
     print(f"[clone] the packed buffer ({clone['bytes']} bytes) against its "
           f"{clone['fields']} fields apart, ms a call: {clone['packed']} / "

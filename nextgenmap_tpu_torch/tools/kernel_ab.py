@@ -1,8 +1,9 @@
 """Side-by-side device times of K1 (SW score), K2 (window gather), K3
-(the dynamic-gather probe's kernel) and K4 (SW with traceback) built from
-several source trees, in one process on one CUDA card.
+(the dynamic-gather probe's kernel), K4 (SW with traceback), K5 (the read
+front end) and K6 (candidate search) built from several source trees, in
+one process on one CUDA card.
 
-    python -m nextgenmap_tpu_torch.tools.kernel_ab [NAME=CSRC_DIR ...] [--rounds 2] [--only k4]
+    python -m nextgenmap_tpu_torch.tools.kernel_ab [NAME=CSRC_DIR ...] [--rounds 2] [--only k4] [--only k5 --only k6]
 
 Each CSRC_DIR is a copy of the port's ``csrc/`` (another commit's, or a
 variant of one); ``repo`` (the port's own ``csrc/``) is always included.
@@ -23,15 +24,21 @@ K4_SHAPES ([4096,100]xW48, [2048,150]xW56, [614,1000]xW184,
 that takes the shape ("NAME smem", "NAME global"), without the direction
 bytes, as its mapping path calls it; an older tree without them with the
 [L, S, W] direction bytes its mapping path wrote.  Every K4 result is held
-equal to the plain ``banded_sw_align`` in all 11 fields first.  Rounds
+equal to the plain ``banded_sw_align`` in all 11 fields first.  K5 at
+K5_SHAPES and K6 at K6_SHAPES (on the bench's 4.6 Mbp random genome and
+its packed tables, K6 on each route that takes the shape: "NAME smem",
+"NAME global"), each held equal to its plain version in every output; a
+tree without them (older than K5 and K6) is left out of their rows.  Rounds
 alternate the trees' order (A B ..., then ... B A) so that a drift of the
 card's clock favours none.
 
 Prints the card's name and power limit, one line per kernel and shape, and
 one JSON object as the last line: {"card": ..., "k1": {shape: {tree: [ms per
-round]}}, "k2": {...}, "k3": {...}, "k4": {...}, "k3_floors": {shape:
+round]}}, "k2": {...}, "k3": {...}, "k4": {...}, "k5": {...}, "k6": {...},
+"k3_floors": {shape:
 {"bytes_ms": ..., "gather_ms": ...}}, "k4_bounds": {shape: ms},
-"k4_plans": {shape: {tree route: plan}}}.  K3's floors are its bytes (12 R
+"k4_plans": {shape: {tree route: plan}}, "k6_plans": {...}}.  K3's
+floors are its bytes (12 R
 W over 3.35 TB/s) and its gathers from shared memory without bank conflicts
 (REP R W loads, a warp of 32 a clock on each of 132 SMs at the card's
 maximum SM clock).  K4's bound is chip_smoke.py's: 20 (local) or 18
@@ -39,7 +46,10 @@ maximum SM clock).  K4's bound is chip_smoke.py's: 20 (local) or 18
 INT32 lanes at that clock.  A K4 plan is ``ngm_sw_align_plan``'s (route,
 lanes, cells per lane, packed row bytes, threads a block and its shared
 memory bytes as launched, blocks of that size an SM holds, the route's
-capacity in warps an SM).  Needs a CUDA card.
+capacity in warps an SM); a K6 plan ``ngm_cand_search_plan``'s (route,
+threads a read, reads a block, shared memory a block, blocks, the padded
+vote array, the global route's scratch, the card's shared memory a
+block).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -58,7 +68,18 @@ import torch
 from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.models.mapper import score_matrices
 from nextgenmap_tpu_torch.native import build
+from nextgenmap_tpu_torch.index.device_build import (
+    build_index_device, concat_tables,
+)
+from nextgenmap_tpu_torch.io.simulate import random_genome
+from nextgenmap_tpu_torch.ops.candidate import (
+    candidate_search_canonical, candidate_search_dual, pack_offsets,
+)
+from nextgenmap_tpu_torch.ops.candidate_kernel import ROUTES as CS_ROUTES
 from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
+from nextgenmap_tpu_torch.ops.kmer_kernel import (
+    FORM_BISULFITE, FORM_CANONICAL, n_windows, read_kmers_plain,
+)
 from nextgenmap_tpu_torch.ops.row_gather import row_gather_plain
 from nextgenmap_tpu_torch.ops.sw_align_kernel import N_FIELDS, ROUTES
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align, banded_sw_score
@@ -80,7 +101,17 @@ K3_REP = 32
 K4_SHAPES = [(4096, 100, 48), (2048, 150, 56), (614, 1000, 184),
              (2048, 100, 264)]
 K4_OPS_PER_CELL = {"local": 20, "glocal": 18}
-KERNELS = ("k1", "k2", "k3", "k4")
+# K5: (label, B, L, form, --bs-cutoff); K6: (label, B, L, bisulfite, H)
+# on the bench's 4.6 Mbp random genome, packed tables
+K5_SHAPES = [("canonical [4096,100]", 4096, 100, FORM_CANONICAL, 0),
+             ("canonical [4096,150]", 4096, 150, FORM_CANONICAL, 0),
+             ("canonical [614,1000]", 614, 1000, FORM_CANONICAL, 0),
+             ("bisulfite [4096,100] cutoff 3", 4096, 100, FORM_BISULFITE,
+              3)]
+K6_SHAPES = [("canonical [4096,100] H128", 4096, 100, False, 128),
+             ("canonical [614,1000] H1280", 614, 1000, False, 1280),
+             ("bisulfite [4096,100] H320", 4096, 100, True, 320)]
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6")
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES = 132 * 64
 P, I32 = build.P, build.I32
@@ -207,6 +238,69 @@ def align_launcher(lib, args, gaps, msel, W: int, local: bool,
     return launch, (None if plan is None else list(plan))
 
 
+def front_launcher(lib, reads, lens, form: int, cut: int):
+    """`lib`'s K5 on reads [B, L] at k 13, stride 2, in `form`
+    (ops/kmer_kernel.py's FORM_*); launch() returns its outputs."""
+    B, L = reads.shape
+    Q = n_windows(L, 13, 2)
+    dev = reads.device
+    rc = torch.empty((B, L), dtype=torch.uint8, device=dev)
+    kms = [torch.empty((B, Q), dtype=d, device=dev)
+           for d in (torch.int32, torch.int32, torch.bool, torch.int32,
+                     torch.bool)]
+    if form == FORM_CANONICAL:
+        outs = [kms[0], kms[1], kms[2], None, None]
+    else:
+        outs = [kms[0], None, kms[2], kms[3], kms[4]]
+
+    def launch():
+        build.check(lib.ngm_read_kmers(
+            reads.data_ptr(), lens.data_ptr(), B, L, Q, 13, 2, form, cut,
+            rc.data_ptr(), *(None if t is None else t.data_ptr()
+                             for t in outs),
+            torch.cuda.current_stream().cuda_stream), "read_kmers")
+        return [rc, *(t for t in outs if t is not None)]
+    return launch
+
+
+def cand_launcher(lib, kms, lens, off, pos, sens, H: int, route: str,
+                  packed: bool, split: bool):
+    """(launch, plan) of `lib`'s K6 on `route` with the bench's statics (k
+    13, stride 2, K 32, C 32, bins of 16); launch() returns (bucket, score,
+    strand, best, extra, counters).  (None, None) where the route cannot
+    take the shape."""
+    dual = len(kms) == 4
+    B, Q = kms[0].shape
+    dev = kms[0].device
+    plan = (ctypes.c_longlong * 8)()
+    if lib.ngm_cand_search_plan(B, Q, int(dual), H, CS_ROUTES.index(route),
+                                plan) != 0:
+        return None, None
+    scratch = (torch.empty(max(plan[6], 1), dtype=torch.int32, device=dev)
+               if route == "global" else None)
+    Cw = min(32, 2 * H)
+    out = torch.empty((3, B, Cw), dtype=torch.int32, device=dev)
+    per = torch.empty((2, B), dtype=torch.int32, device=dev)
+    cnt = torch.empty(3, dtype=torch.int32, device=dev)
+    km0, km1 = (kms[0], kms[2]) if dual else (kms[0], kms[1])
+    ok0, ok1 = (kms[1], kms[3]) if dual else (kms[2], None)
+
+    def launch():
+        build.check(lib.ngm_cand_search(
+            km0.data_ptr(), km1.data_ptr(), ok0.data_ptr(),
+            None if ok1 is None else ok1.data_ptr(), lens.data_ptr(),
+            off.data_ptr(), off.numel(), pos.data_ptr(), pos.numel(),
+            sens.data_ptr(), B, Q, int(dual), 13, 2, 32, H, 32, 4, 1000,
+            int(packed), int(split), CS_ROUTES.index(route), plan[1],
+            None if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), per[0].data_ptr(),
+            per[1].data_ptr(), cnt.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "cand_search")
+        return out[0], out[1], out[2], per[0], per[1], cnt
+    return launch, list(plan)
+
+
 def sm_clock_hz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -214,6 +308,78 @@ def sm_clock_hz() -> float:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     return float(out) * 1e6
+
+
+def front_cases(libs, only, dev, rng, cases, plans) -> None:
+    """K5 and K6 of each tree that has them, held equal to the plain
+    versions, into `cases` (and K6's plans into `plans`)."""
+    if not only & {"k5", "k6"}:
+        return
+    g = random_genome(GENOME, seed=1)
+    gd = torch.from_numpy(g).to(dev)
+    for label, B, L, form, cut in K5_SHAPES if "k5" in only else ():
+        codes = np.ascontiguousarray(g[rng.integers(0, GENOME - L, B)[:, None]
+                                       + np.arange(L)])
+        lens = np.full(B, L, np.int32)
+        lens[::10] = rng.integers(0, L + 1, lens[::10].shape[0])
+        codes[np.arange(L)[None, :] >= lens[:, None]] = 4
+        r, n = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
+        rc, kms = read_kmers_plain(r, n, k=13, stride=2,
+                                   bs=form == FORM_BISULFITE, bs_cutoff=cut,
+                                   canonical=form == FORM_CANONICAL)
+        want = [rc, *kms]
+        cases["k5", label] = {}
+        for name, lib in libs.items():
+            if not hasattr(lib, "ngm_read_kmers"):
+                continue
+            fn = front_launcher(lib, r, n, form, cut)
+            if not all(torch.equal(a, b) for a, b in zip(fn(), want)):
+                raise RuntimeError(f"K5 of {name} differs from plain at "
+                                   f"{label}")
+            cases["k5", label][name] = fn
+    tables = {}
+    sens = torch.tensor(0.5, dtype=torch.float32, device=dev)
+    for label, B, L, bs, H in K6_SHAPES if "k6" in only else ():
+        if bs not in tables:
+            off, pos = (concat_tables(
+                *build_index_device(gd, k=13, skip=1, collapse="ct",
+                                    canonical=False),
+                *build_index_device(gd, k=13, skip=1, collapse="ga",
+                                    canonical=False)) if bs
+                else build_index_device(gd, k=13, skip=1))
+            tables[bs] = (pack_offsets(off, 1000, 32), pos)
+        off, pos = tables[bs]
+        codes = np.ascontiguousarray(g[rng.integers(0, GENOME - L, B)[:, None]
+                                       + np.arange(L)])
+        r = torch.from_numpy(codes).to(dev)
+        n = torch.full((B,), L, dtype=torch.int32, device=dev)
+        _, kms = read_kmers_plain(r, n, k=13, stride=2, bs=bs,
+                                  canonical=not bs)
+        kw = dict(fanout_cap=32, hit_cap=H, max_cmrs=32, diag_bin_log2=4,
+                  stride=2, packed_offsets=True)
+        want = (candidate_search_dual(*kms, off, pos, sens, 1000,
+                                      dual_tables=True, **kw) if bs
+                else candidate_search_canonical(*kms, n, off, pos, sens,
+                                                1000, k=13, **kw))
+        want = [want.bucket, want.score, want.strand, want.best_score,
+                want.extra_score, torch.stack([want.fanout_overflow,
+                                               want.hit_overflow,
+                                               want.cmr_overflow])]
+        cases["k6", label], plans[label] = {}, {}
+        for name, lib in libs.items():
+            if not hasattr(lib, "ngm_cand_search"):
+                continue
+            for route in CS_ROUTES:
+                fn, p = cand_launcher(lib, kms, n, off, pos, sens, H, route,
+                                      True, bs)
+                if fn is None:
+                    continue
+                tree = f"{name} {route}"
+                if not all(torch.equal(a, b) for a, b in zip(fn(), want)):
+                    raise RuntimeError(f"K6 of {tree} differs from plain at "
+                                       f"{label}")
+                cases["k6", label][tree] = fn
+                plans[label][tree] = p
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -335,10 +501,13 @@ def main(argv: list[str] | None = None) -> int:
                                                f"plain in {f} at {label}")
                     cases["k4", label][tree] = fn
                     plans[label][tree] = p
+    k6_plans = {}
+    front_cases(libs, only, dev, rng, cases, k6_plans)
     torch.cuda.synchronize()
 
     result = {"card": card, "k1": {}, "k2": {}, "k3": {}, "k4": {},
-              "k3_floors": floors, "k4_bounds": bounds, "k4_plans": plans}
+              "k5": {}, "k6": {}, "k3_floors": floors, "k4_bounds": bounds,
+              "k4_plans": plans, "k6_plans": k6_plans}
     for rnd in range(args.rounds):
         for (kernel, label), fns in cases.items():
             order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]

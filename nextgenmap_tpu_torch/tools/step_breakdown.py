@@ -17,13 +17,20 @@ Cells (the inputs of ``chip_smoke.py``, seeded the same way):
   grid-2x2    single's input with --index-shards 2 on four slots of
               cuda:0 (the ("dp", "ish") grid [2, 2]: two rows of 2048,
               each the shard loop with full per-shard tails, one graph)
+  paired      the single cell's genome, 2048 FR pairs a batch (insert
+              350 +- 40, phase 7), through Mapper.map_batch_paired
+  topn        single's input with -n 2, through Mapper.map_batch_topn
+  e2e         single's input with --end-to-end (phase 9)
+  bisulfite   --bs-mapping on the same genome, bisulfite reads (original
+              top and bottom strands, 80% of C read as T; phase 10)
 
 The traceback runs as the mapper calls it, K4 (``ops/sw_align_kernel.py``);
 ``--plain-traceback`` puts its plain version (``ops/sw_ref.py::
 banded_sw_align``, a loop of torch calls a row) in its place, so both can
 be measured in one process on one card.
 
-For each cell, through ``Mapper.map_batch``, in two forms on the same
+For each cell, through ``Mapper.map_batch`` (or the cell's own step), in
+two forms on the same
 batches: "graph" (each step one captured CUDA graph, ``models/
 step_graph.py``, as the mapper runs it by default; its first batch
 captures) and "eager" (the same Mapper with ``StepGraphs(...,
@@ -31,7 +38,10 @@ eager=True)``, the step launched op by op).  Per form: the step time (host
 clock, synchronised) of WARM batches, median, min and max; the device's
 busy share over PROFILED batches (kernel rows of torch.profiler over the
 window's wall time; "not measured" where the profiler recorded no kernel),
-the kernel launches and graph replays a batch there.  Eager only (a
+the kernel launches and graph replays a batch there; for the graph, a
+bare replay of its last capture under torch.profiler (its device nodes:
+kernels, memsets and copies, the kernels among them, and the device's
+busy share of that replay, ``tools/timing.py::device_profile``).  Eager only (a
 synchronise inside a graph cannot be): the traceback's share of the step
 (a synchronise on each side of ``sw_align``) and K1's real slots per batch
 (slots of length > 0) over TIMED batches.  And the peak device memory of
@@ -61,19 +71,26 @@ from nextgenmap_tpu_torch.models import mapper as mapper_mod
 from nextgenmap_tpu_torch.models.step_graph import StepGraphs
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align
 from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
+from nextgenmap_tpu_torch.tools.timing import device_profile
 
 SEED = 2026            # chip_smoke.py's
 WARM, TIMED, PROFILED = 6, 3, 2
 CELLS = {   # name: (genome size, shards, config changes, read length, batch,
-            #        slots of the card)
-    "single": (4_600_000, 1, {}, 100, 4096, 1),
-    "sharded-4": (4_600_000, 4, {}, 100, 4096, 1),
-    "sharded-2": (4_600_000, 2, {}, 100, 4096, 1),
-    "long": (4_600_000, 1, {}, 1000, 614, 1),
+            #        slots of the card, the Mapper's step)
+    "single": (4_600_000, 1, {}, 100, 4096, 1, "map_batch"),
+    "sharded-4": (4_600_000, 4, {}, 100, 4096, 1, "map_batch"),
+    "sharded-2": (4_600_000, 2, {}, 100, 4096, 1, "map_batch"),
+    "long": (4_600_000, 1, {}, 1000, 614, 1, "map_batch"),
     "gigabase-4": ((1 << 31) + (1 << 27), 4,
-                   dict(kmer_skip=2, read_kmer_skip=1), 100, 4096, 1),
-    "dp-2": (4_600_000, 1, {}, 100, 4096, 2),
-    "grid-2x2": (4_600_000, 2, {}, 100, 4096, 4),
+                   dict(kmer_skip=2, read_kmer_skip=1), 100, 4096, 1,
+                   "map_batch"),
+    "dp-2": (4_600_000, 1, {}, 100, 4096, 2, "map_batch"),
+    "grid-2x2": (4_600_000, 2, {}, 100, 4096, 4, "map_batch"),
+    "paired": (4_600_000, 1, {}, 100, 4096, 1, "map_batch_paired"),
+    "topn": (4_600_000, 1, dict(topn=2), 100, 4096, 1, "map_batch_topn"),
+    "e2e": (4_600_000, 1, dict(end_to_end=True), 100, 4096, 1, "map_batch"),
+    "bisulfite": (4_600_000, 1, dict(bs_mapping=True), 100, 4096, 1,
+                  "map_batch"),
 }
 
 
@@ -128,15 +145,23 @@ class Instrument:
 
 
 def run_cell(name: str, device="cuda") -> dict:
-    size, shards, changes, read_len, batch, slots = CELLS[name]
+    size, shards, changes, read_len, batch, slots, method = CELLS[name]
     torch.cuda.reset_peak_memory_stats()
     m, g = make_mapper(size, shards, changes, read_len,
                        [torch.device(device, 0)] * slots if slots > 1
                        else device)
+    step = getattr(m, method)
     n = 1 + WARM + max(TIMED, PROFILED)
     if read_len > 250:
         codes, _, _ = synthetic.simulate_long_reads(
             g, n * batch, read_len, 0.03, 0.005, seed=SEED + 6)
+    elif method == "map_batch_paired":
+        codes, _, _ = synthetic.simulate_pairs(
+            g, n * batch // 2, read_len, 0.02, insert_mean=350,
+            insert_sd=40, seed=SEED + 2)
+    elif changes.get("bs_mapping"):
+        codes, _, _ = synthetic.simulate_bisulfite_reads(
+            g, n * batch, read_len, seed=SEED + 5)
     else:
         codes, _, _ = synthetic.simulate_reads(g, n * batch, read_len, 0.02,
                                                seed=SEED + 1)
@@ -147,7 +172,7 @@ def run_cell(name: str, device="cuda") -> dict:
         out = []
         for i in range(first, first + count):
             t = time.perf_counter()
-            m.map_batch(codes[i * batch:(i + 1) * batch], lens)
+            step(codes[i * batch:(i + 1) * batch], lens)
             torch.cuda.synchronize()
             out.append(time.perf_counter() - t)
         return out
@@ -174,6 +199,12 @@ def run_cell(name: str, device="cuda") -> dict:
                                       - launched) / PROFILED,
             "graph_replays_per_batch": (graphs.replays - replays) / PROFILED,
         }
+        if not graphs.eager:    # the graph's own nodes: a bare replay
+            bare = device_profile(
+                list(graphs._entries.values())[-1].graph.replay)
+            res[form].update(graph_nodes=bare["records"],
+                             graph_kernels=bare["kernels"],
+                             bare_replay_busy=bare["busy"])
     with Instrument() as ins:       # eager, as the loop above left it
         timed = sum(steps(1 + WARM, TIMED))
     m.graphs = forms["graph"]
@@ -228,7 +259,11 @@ def print_cell(name: str, r: dict) -> None:
             f"{busy} over {PROFILED} steps, "
             f"{f['kernel_launches_per_batch']:.0f} kernels, K1 "
             f"{f['k1_launches_per_batch']:.0f} and "
-            f"{f['graph_replays_per_batch']:.0f} graph replays a batch")
+            f"{f['graph_replays_per_batch']:.0f} graph replays a batch"
+            + (f", a bare replay {f['graph_nodes']} device nodes "
+               f"({f['graph_kernels']} kernels), busy "
+               f"{100 * f['bare_replay_busy']:.1f}%" if "graph_nodes" in f
+               else ""))
     print(f"[{name}] " + "; ".join(forms) + f"; traceback "
           f"{100 * r['traceback_share']:.1f}% of {TIMED} eager steps; K1 "
           f"real slots {r['k1_real_slots_per_batch']:.0f} per batch; peak "

@@ -18,7 +18,14 @@ genome of more than 2^31 bytes.  K3 is checked on each side of its
 variants' boundaries (ops/row_gather.plan), at W not a multiple of 32, W 1
 and R 1, REP 0, 1 and 33, indices from -3 to 3 times the extent, rows off
 a 16-byte boundary and 4096 x 2048, and its Python shape rule against the
-library's.  The index-shard loop (single, paired, the
+library's.  K5 (the read front end) is checked at the
+main path's [4096,100], [4096,150] and [614,1000] canonical batches, two
+strands and bisulfite with and without a cutoff, and a batch of L = k; K6
+(candidate search) on both routes at the bench's input, plain CSR, 1000 bp
+at H 1280, bisulfite with two tables at H 4608 and H 8200 (the global
+route only), with a tandem-repeat read that moves its three overflow
+counters; its plan against what the library launches, and both kernels
+replayed in one captured graph.  The index-shard loop (single, paired, the
 cross-shard tail pool and top-n) runs on the card against the CPU, and so
 do the dp step and the ("dp", "ish") grid on two and four slots of card 0;
 with two cards or more, K1 and K2 run on tensors of the last card while
@@ -38,8 +45,10 @@ import torch
 from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.models.mapper import Mapper
 from nextgenmap_tpu_torch.models.step_graph import StepGraphs
+from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
 from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
+from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
 from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from nextgenmap_tpu_torch.ops.scoring import score_matrix
 from nextgenmap_tpu_torch.ops.sw_align_kernel import (
@@ -50,7 +59,8 @@ from nextgenmap_tpu_torch.ops.sw_ref import (
     _backwalk_rows, banded_sw_forward, banded_sw_score,
 )
 from nextgenmap_tpu_torch.synthetic import (
-    repeat_genome, simulate_long_reads, simulate_pairs, simulate_reads,
+    front_genome, front_reads, repeat_genome, simulate_long_reads,
+    simulate_pairs, simulate_reads,
 )
 
 pytestmark = pytest.mark.cuda
@@ -526,11 +536,12 @@ def test_mapper_cuda_equals_cpu(dev):
     gpu = Mapper(cfg, _G(), 100, device=dev)
     cpu = Mapper(cfg, _G(), 100, device="cpu")
     launches = (sw_score.launches, gather_genome_windows.launches,
-                sw_align.launches)
+                sw_align.launches, *front_launches())
     a, n = steps_run(gpu, lambda: gpu.map_batch(codes, lens))
     assert sw_score.launches == launches[0] + n
     assert gather_genome_windows.launches == launches[1] + 2 * n
     assert sw_align.launches == launches[2] + n
+    assert front_launches() == (launches[3] + n, launches[4] + n)
     b = cpu.map_batch(codes, lens)
     for f in a._fields:
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
@@ -610,6 +621,11 @@ def test_row_gather_plan_matches_the_kernels(dev):
     assert lib.ngm_row_gather_plan(4, 58_113, 1, buf) == -1
 
 
+def front_launches() -> tuple:
+    """The launch counts of K5 and K6."""
+    return read_kmers.launches, candidate_search.launches
+
+
 def steps_run(m, call):
     """(call(), the steps it ran on the card): the batch's, and the eager
     warm-up step of each step graph it captured (models/step_graph.py), so
@@ -636,20 +652,24 @@ def test_paired_and_topn_cuda_equal_cpu(dev):
     gpu, cpu = _mappers(dev, NgmConfig(kmer=11, topn=2), g)
 
     codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=8)
-    launches = (sw_score.launches, gather_genome_windows.launches)
+    launches = (sw_score.launches, gather_genome_windows.launches,
+                *front_launches())
     a, n = steps_run(gpu, lambda: gpu.map_batch_paired(codes, lens))
     assert sw_score.launches == launches[0] + n
     assert gather_genome_windows.launches == launches[1] + 2 * n
+    assert front_launches() == (launches[2] + n, launches[3] + n)
     b = cpu.map_batch_paired(codes, lens)
     for f in a._fields:
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     assert int(b.proper.sum()) > 200
 
     codes, _, _ = simulate_reads(g, 256, 100, 0.02, seed=9)
-    launches = (sw_score.launches, gather_genome_windows.launches)
+    launches = (sw_score.launches, gather_genome_windows.launches,
+                *front_launches())
     a, n = steps_run(gpu, lambda: gpu.map_batch_topn(codes, lens))
     assert sw_score.launches == launches[0] + n
     assert gather_genome_windows.launches == launches[1] + 2 * n
+    assert front_launches() == (launches[2] + n, launches[3] + n)
     b = cpu.map_batch_topn(codes, lens)
     for j, (ra, rb) in enumerate(zip(a, b)):
         for f in ra._fields:
@@ -672,10 +692,12 @@ def test_modes_cuda_equal_cpu(dev, change, read_len):
     lens = np.full(B, read_len, np.int32)
     codes, _, _ = simulate_long_reads(g, B, read_len, 0.02, 0.004, seed=11)
     for step in ("map_batch", "map_batch_paired", "map_batch_topn"):
-        launches = (sw_score.launches, gather_genome_windows.launches)
+        launches = (sw_score.launches, gather_genome_windows.launches,
+                    *front_launches())
         a, n = steps_run(gpu, lambda: getattr(gpu, step)(codes, lens))
         assert sw_score.launches == launches[0] + n
         assert gather_genome_windows.launches == launches[1] + 2 * n
+        assert front_launches() == (launches[2] + n, launches[3] + n)
         b = getattr(cpu, step)(codes, lens)
         ranks = (a, b) if step == "map_batch_topn" else ((a,), (b,))
         for j, (ra, rb) in enumerate(zip(*ranks)):
@@ -898,7 +920,7 @@ def test_step_graph_equals_eager_on_card(dev, path):
 
     def counts():
         return [k.launches for k in (sw_score, gather_genome_windows,
-                                     sw_align)]
+                                     sw_align, read_kmers, candidate_search)]
 
     first = run(graph, batches[0], lens)
     kept = [(j, f, t.clone()) for j, f, t in _fields(first)]
@@ -929,9 +951,266 @@ def test_step_graph_equals_eager_on_card(dev, path):
     assert [b - a for a, b in zip(c0, c1)] == [b - a for a, b in
                                                 zip(c2, counts())]
     assert c1[0] > c0[0] and c1[2] > c0[2]
+    assert c1[3] > c0[3] and c1[4] > c0[4]
     for got, ref in ((first, run(eager, batches[0], lens)), (second, want)):
         for (j, f, a), (_, _, b) in zip(_fields(got), _fields(ref)):
             assert a.device == b.device
             assert torch.equal(a, b), (path, j, f)
     mapped = (second if hasattr(second, "_fields") else second[0]).mapped
     assert int(mapped.sum()) >= 0.9 * mapped.numel()
+
+
+# K5 and K6: the read front end and the candidate search
+
+# (B, L, form, bs_cutoff): the main path's 100 and 150 bp batches and the
+# 1000 bp one, canonical; two strands; bisulfite with and without a
+# cutoff; a batch whose L is k
+FRONT_SHAPES = [(4096, 100, "canonical", 0), (4096, 150, "canonical", 0),
+                (614, 1000, "canonical", 0), (4096, 100, "strands", 0),
+                (4096, 100, "bisulfite", 0), (4096, 100, "bisulfite", 3),
+                (37, 13, "strands", 0)]
+
+
+@pytest.mark.parametrize("B,L,form,cutoff", FRONT_SHAPES)
+def test_read_kmers_kernel_equals_plain(dev, B, L, form, cutoff):
+    from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers_plain
+
+    g, runs = front_genome(200_000, seed=L)
+    codes, lens = front_reads(g, B, L, runs=runs if L >= 100 else (),
+                              seed=B + L, bisulfite=form == "bisulfite")
+    r, n = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
+    kw = dict(k=13, stride=2, bs=form == "bisulfite", bs_cutoff=cutoff,
+              canonical=form == "canonical")
+    before = read_kmers.launches
+    got = read_kmers(r, n, **kw)
+    torch.cuda.synchronize()
+    assert read_kmers.launches == before + 1
+    want = read_kmers_plain(r, n, **kw)
+    for a, b in zip([got[0], *got[1]], [want[0], *want[1]]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    assert bool(got[1][-1].any()) and not bool(got[1][-1].all())
+
+
+def _front_tables(dev, g, bisulfite, packed, k=13):
+    """(offsets, positions) of `g` built on the card as the Mapper builds
+    them: the canonical table, or the two collapsed ones; packed or plain
+    CSR."""
+    from nextgenmap_tpu_torch.index.device_build import (
+        build_index_device, concat_tables,
+    )
+    from nextgenmap_tpu_torch.ops.candidate import pack_offsets
+
+    gd = torch.from_numpy(g).to(dev)
+    if bisulfite:
+        off, pos = concat_tables(
+            *build_index_device(gd, k=k, skip=1, collapse="ct",
+                                canonical=False),
+            *build_index_device(gd, k=k, skip=1, collapse="ga",
+                                canonical=False))
+    else:
+        off, pos = build_index_device(gd, k=k, skip=1)
+    return (pack_offsets(off, 1000, 32) if packed else off), pos
+
+
+def _cand_plain(kms, lens, off, pos, sens, **kw):
+    from nextgenmap_tpu_torch.ops.candidate import (
+        candidate_search_canonical, candidate_search_dual,
+    )
+
+    kw = dict(kw)
+    k, dual_tables = kw.pop("k"), kw.pop("dual_tables")
+    if len(kms) == 4:
+        return candidate_search_dual(*kms, off, pos, sens, 1000,
+                                     dual_tables=dual_tables, **kw)
+    return candidate_search_canonical(*kms, lens, off, pos, sens, 1000, k=k,
+                                      **kw)
+
+
+def _check_cand_search(dev, B, L, form, packed, H, C, size, route):
+    """K6 against the plain version on read_kmers' k-mers of front_reads
+    on front_genome; returns K6's Candidates, or None where the named
+    route cannot take the shape (and the plan refuses it)."""
+    from nextgenmap_tpu_torch.ops.candidate_kernel import plan
+
+    bs = form == "bisulfite"
+    g, runs = front_genome(size, seed=7)
+    off, pos = _front_tables(dev, g, bs, packed)
+    codes, lens = front_reads(g, B, L, runs=runs, seed=H, bisulfite=bs)
+    r, n = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
+    _, kms = read_kmers(r, n, k=13, stride=2, bs=bs,
+                        canonical=form == "canonical")
+    Q, dual = kms[0].shape[1], len(kms) == 4
+    assert plan(B, Q, dual, H).route == ("global" if H > 8192 else "smem")
+    if route == "smem" and H > 8192:
+        with pytest.raises(ValueError, match="cannot take"):
+            plan(B, Q, dual, H, route)
+        return None
+    sens = torch.tensor(0.5, dtype=torch.float32, device=dev)
+    kw = dict(k=13, fanout_cap=32, hit_cap=H, max_cmrs=C, diag_bin_log2=4,
+              stride=2, packed_offsets=packed, dual_tables=bs)
+    before = candidate_search.launches
+    got = candidate_search(kms, n, off, pos, sens, 1000, route=route, **kw)
+    torch.cuda.synchronize()
+    assert candidate_search.launches == before + 1
+    want = _cand_plain(kms, n, off, pos, sens, **kw)
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+    valid = got.score > 0
+    assert set(got.strand[valid].tolist()) == {0, 1}
+    if not bs:      # the reads at positions 1..k
+        assert bool((got.bucket[valid] < 0).any())
+    return got
+
+
+# (B, L, form, packed, H, genome size): the bench's 4.6 Mbp packed input
+# at H 128, plain CSR, 1000 bp at H 1280, bisulfite dual with two tables
+# at the collapsed ceiling 4608, and an H past the smem route (8200)
+CS_SHAPES = [(4096, 100, "canonical", True, 128, 4_600_000),
+             (4096, 100, "canonical", False, 128, 1_000_000),
+             (614, 1000, "canonical", True, 1280, 1_000_000),
+             (1024, 100, "bisulfite", True, 4608, 1_000_000),
+             (512, 100, "strands", False, 8200, 1_000_000)]
+
+
+@pytest.mark.parametrize("route", [None, "smem", "global"])
+@pytest.mark.parametrize("B,L,form,packed,H,size", CS_SHAPES)
+def test_cand_search_kernel_equals_plain(dev, B, L, form, packed, H, size,
+                                         route):
+    _check_cand_search(dev, B, L, form, packed, H, 32, size, route)
+
+
+@pytest.mark.parametrize("route", ["smem", "global"])
+@pytest.mark.parametrize("form", ["canonical", "bisulfite"])
+def test_cand_search_kernel_counters(dev, form, route):
+    """The tandem-repeat read moves all three overflow counters (C = 2)."""
+    got = _check_cand_search(dev, 64, 100, form, True, 128, 2, 1_000_000,
+                             route)
+    assert int(got.fanout_overflow) > 0 and int(got.hit_overflow) > 0
+    assert int(got.cmr_overflow) > 0
+
+
+def test_cand_search_plan_is_the_launch(dev):
+    """The plan reports what K6 launches: a warp a read and 4 reads a
+    block at H 128, 128 and 256 threads at larger H, the smem route up to
+    what a block holds, the global route past it with its scratch; the
+    library launches only the plan's block, and refuses a scratch smaller
+    than the plan's."""
+    from nextgenmap_tpu_torch.native import build
+    from nextgenmap_tpu_torch.ops.candidate_kernel import ROUTES, plan
+
+    main = plan(4096, 44, False, 128)
+    assert (main.route, main.threads, main.reads, main.np) == ("smem", 32, 4,
+                                                               256)
+    assert main.blocks == 1024 and main.scratch == 0
+    assert plan(614, 494, False, 1280).threads == 128
+    big = plan(1024, 44, True, 4608)
+    assert big.route == "smem" and big.threads == 256 and big.np == 16384
+    assert big.smem_bytes <= big.smem_limit
+    past = plan(512, 44, True, 8200)
+    assert past.route == "global" and past.np == 32768
+    assert past.scratch == 2 * past.np * past.blocks
+    glob = plan(4096, 44, False, 128, "global")
+    assert glob.route == "global" and glob.reads == 1
+    assert glob.scratch == 2 * 256 * glob.blocks
+
+    B, Q, H = 8, 10, 16
+    km = torch.zeros((B, Q), dtype=torch.int32, device=dev)
+    ok = torch.ones((B, Q), dtype=torch.bool, device=dev)
+    lens = torch.full((B,), 30, dtype=torch.int32, device=dev)
+    off = torch.zeros(17, dtype=torch.int32, device=dev)
+    pos = torch.zeros(4, dtype=torch.int32, device=dev)
+    sens = torch.tensor(0.5, dtype=torch.float32, device=dev)
+    out = torch.empty((3, B, 2), dtype=torch.int32, device=dev)
+    per = torch.empty((2, B), dtype=torch.int32, device=dev)
+    cnt = torch.empty(3, dtype=torch.int32, device=dev)
+    lib = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(route, threads, scratch=None, n=0):
+        return lib.ngm_cand_search(
+            km.data_ptr(), km.data_ptr(), ok.data_ptr(), None,
+            lens.data_ptr(), off.data_ptr(), 17, pos.data_ptr(), 4,
+            sens.data_ptr(), B, Q, 0, 3, 1, 4, H, 2, 4, 10, 0, 0,
+            ROUTES.index(route), threads, scratch, n, out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), per[0].data_ptr(),
+            per[1].data_ptr(), cnt.data_ptr(), stream)
+
+    p = plan(B, Q, False, H)
+    assert launch("smem", p.threads) == 0
+    for threads in (p.threads * 2, 0):
+        assert launch("smem", threads) != 0
+    g = plan(B, Q, False, H, "global")
+    scratch = torch.empty(g.scratch, dtype=torch.int32, device=dev)
+    assert launch("global", g.threads) != 0           # no scratch
+    assert launch("global", g.threads, scratch.data_ptr(), g.scratch - 1) != 0
+    assert launch("global", g.threads, scratch.data_ptr(), g.scratch) == 0
+    torch.cuda.synchronize()
+    assert int(cnt.sum()) == 0 and int(per[0].sum()) == 0
+
+
+def test_cand_search_plans_of_two_sizes(dev):
+    """A plan for a smaller H past 48 KB of shared memory (the same kernel
+    instance, 256 threads a read) leaves an earlier, larger one
+    launchable, and both equal the plain version."""
+    from nextgenmap_tpu_torch.ops.candidate_kernel import plan
+
+    rng = np.random.default_rng(3)
+    B, Q = 8, 44
+    km = torch.from_numpy(rng.integers(0, 16, (B, Q)).astype(np.int32))
+    ok = torch.from_numpy(rng.random((B, Q)) < 0.9)
+    off = torch.from_numpy(np.arange(17, dtype=np.int32) * 3)
+    pos = torch.from_numpy(rng.integers(0, 5000, 51).astype(np.int32))
+    lens = torch.full((B,), 100, dtype=torch.int32)
+    sens = torch.tensor(0.5, dtype=torch.float32)
+    kms = (km, ok, km.flip(1).contiguous(), ok.flip(1).contiguous())
+    kw = dict(k=13, fanout_cap=32, max_cmrs=32, diag_bin_log2=4, stride=2)
+    for H in (4608, 2100, 4608):
+        assert plan(B, Q, True, H).smem_bytes > 48 * 1024
+        got = candidate_search(tuple(t.to(dev) for t in kms), lens.to(dev),
+                               off.to(dev), pos.to(dev), sens.to(dev), 1000,
+                               hit_cap=H, **kw)
+        want = candidate_search(kms, lens, off, pos, sens, 1000, hit_cap=H,
+                                **kw)
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def test_front_kernels_in_a_captured_graph(dev):
+    """K5 then K6 captured in one CUDA graph, replayed on new reads: the
+    same outputs as the eager calls, and the counters zeroed by the
+    graph's own memset at each replay."""
+    g, runs = front_genome(1_000_000, seed=7)
+    off, pos = _front_tables(dev, g, False, True)
+    batches = [front_reads(g, 1024, 100, runs=runs, seed=31 + i)
+               for i in range(2)]
+    r = torch.from_numpy(batches[0][0]).to(dev)
+    n = torch.from_numpy(batches[0][1]).to(dev)
+    sens = torch.tensor(0.5, dtype=torch.float32, device=dev)
+
+    def step():
+        _, kms = read_kmers(r, n, k=13, stride=2)
+        c = candidate_search(kms, n, off, pos, sens, 1000, k=13,
+                             fanout_cap=32, hit_cap=128, max_cmrs=32,
+                             diag_bin_log2=4, stride=2, packed_offsets=True)
+        return [*kms, *c]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for codes, lens in batches + batches[:1]:
+        r.copy_(torch.from_numpy(codes))
+        n.copy_(torch.from_numpy(lens))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = step()
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+    assert int(out[-4]) > 0     # fanout_overflow, not summed over replays
