@@ -71,6 +71,7 @@ from nextgenmap_tpu_torch.parallel.index_shard import (
     merge_sharded_results, merge_sharded_topn,
 )
 from nextgenmap_tpu_torch.parallel.mesh import device_slots, distinct
+from nextgenmap_tpu_torch.utils import trace
 
 I32 = torch.int32
 
@@ -170,7 +171,8 @@ def _sw_mode(end_to_end: bool) -> str:
 
 def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
                       cand_valid, score_mask, matrices, gopen_q, gopen_r, gext,
-                      *, band, slot_cap, end_to_end=False, simple_matrix=False):
+                      *, band, slot_cap, end_to_end=False, simple_matrix=False,
+                      traced=False):
     """Banded-SW score the candidates of the reads selected by `score_mask`.
 
     Lazy scoring: a read with one candidate needs no comparison and skips
@@ -179,6 +181,7 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
     slots, gathered and scored once each, and the scores are scattered back
     to a dense [B, C] grid (0 where unscored).  The slots past the real
     ones are scored at length 0, so the kernel does no work for them.
+    `traced`: add the pass to utils/trace.py's score counters.
     Returns (sw, slot_overflow).
     """
     B, L = reads.shape
@@ -193,6 +196,8 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
     base = torch.cumsum(n_sc, dim=0, dtype=I32) - n_sc       # exclusive [B]
     total = base[-1] + n_sc[-1]
     slot_overflow = (total > S).to(I32)
+    if traced:
+        trace.count_scores(n_sc, base, S)
 
     # slot s belongs to the last read b with base[b] <= s
     sar = torch.arange(S, dtype=I32, device=dev)
@@ -296,25 +301,35 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
 def _single_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
                  gext, min_identity, min_residues, corr_start, strand,
                  cand_valid, n_cands, overflow, *, band, slot_cap,
-                 end_to_end=False, simple_matrix=False):
-    """Lazy scoring, rule-11 argmax selection, traceback + filters."""
+                 end_to_end=False, simple_matrix=False, traced=False):
+    """Lazy scoring, rule-11 argmax selection, traceback + filters;
+    `traced`: count the score pass and mark the ends of its phases
+    (utils/trace.py)."""
+    dev = reads.device
     sw, slot_ovf = _score_candidates(
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
         n_cands >= 2, matrices, gopen_q, gopen_r, gext,
         band=band, slot_cap=slot_cap, end_to_end=end_to_end,
-        simple_matrix=simple_matrix,
+        simple_matrix=simple_matrix, traced=traced,
     )
+    if traced:
+        trace.mark("score", dev)
     overflow = (overflow[0], overflow[1] + slot_ovf)
     # first max = score DESC, fwd first, pos ASC; an all-zero (lazy) row
     # picks candidate 0, the read's only candidate after prefix ordering
     a1 = torch.argmax(sw, dim=1)
-    proper = torch.zeros(reads.shape[0], dtype=torch.bool, device=reads.device)
-    return _finish(
+    proper = torch.zeros(reads.shape[0], dtype=torch.bool, device=dev)
+    if traced:
+        trace.mark("select", dev)
+    res = _finish(
         a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
         matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
         n_cands, overflow, proper, band=band, end_to_end=end_to_end,
         simple_matrix=simple_matrix,
     )
+    if traced:
+        trace.mark("finish", dev)
+    return res
 
 
 def default_slot_cap(batch: int) -> int:
@@ -353,8 +368,13 @@ def map_step(
 ) -> MapResult:
     """Single-end mapping step (DESIGN.md rule 11 selection) on the device
     that holds `reads`.  sensitivity, min_identity and min_residues are
-    taken as float32, like the reference's jnp.float32 arguments."""
+    taken as float32, like the reference's jnp.float32 arguments.  While
+    `reads`' device is traced (utils/trace.py) the step marks its phases
+    and counts its score pass."""
     dev = reads.device
+    traced = trace.on(dev)
+    if traced:
+        trace.mark("start", dev)
     lengths, rc, cands = _front(
         genome, offsets, positions, reads, lengths, sensitivity, max_freq,
         k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
@@ -362,12 +382,14 @@ def map_step(
         read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
         bs_cutoff=bs_cutoff, canonical=canonical,
     )
+    if traced:
+        trace.mark("front", dev)
     return _single_tail(
         genome, reads, rc, lengths, matrices,
         int(gopen_q), int(gopen_r), int(gext),
         _f32(min_identity, dev), _f32(min_residues, dev), *cands, band=band,
         slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
-        end_to_end=end_to_end, simple_matrix=simple_matrix,
+        end_to_end=end_to_end, simple_matrix=simple_matrix, traced=traced,
     )
 
 
@@ -375,9 +397,11 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
                  gext, min_identity, min_residues, min_insert, max_insert,
                  pair_cutoff, corr_start, strand, cand_valid, n_cands,
                  overflow, *, band, slot_cap, diag_bin_log2,
-                 end_to_end=False, simple_matrix=False):
+                 end_to_end=False, simple_matrix=False, traced=False):
     """Lazy scoring of multi-candidate pairs, CxC insert-window pair
-    resolution, traceback + filters.  Rows 2i / 2i+1 are the mates of pair i."""
+    resolution, traceback + filters.  Rows 2i / 2i+1 are the mates of pair i.
+    `traced`: count the score pass and mark the ends of its phases
+    (utils/trace.py)."""
     B, L = reads.shape
     C = corr_start.shape[1]
     P = B // 2
@@ -389,8 +413,10 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
         pair_multi.repeat_interleave(2), matrices, gopen_q, gopen_r, gext,
         band=band, slot_cap=slot_cap, end_to_end=end_to_end,
-        simple_matrix=simple_matrix,
+        simple_matrix=simple_matrix, traced=traced,
     )
+    if traced:
+        trace.mark("score", reads.device)
     overflow = (overflow[0], overflow[1] + slot_ovf)
 
     s = sw.reshape(P, 2, C)
@@ -434,12 +460,17 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
     sel1 = torch.where(proper_pair, c1, a_single[:, 0])
     sel2 = torch.where(proper_pair, c2, a_single[:, 1])
     a1 = torch.stack([sel1, sel2], dim=1).reshape(B)
-    return _finish(
+    if traced:
+        trace.mark("select", reads.device)
+    res = _finish(
         a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
         matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
         n_cands, overflow, proper_pair.repeat_interleave(2), band=band,
         end_to_end=end_to_end, simple_matrix=simple_matrix,
     )
+    if traced:
+        trace.mark("finish", reads.device)
+    return res
 
 
 def map_step_paired(
@@ -459,8 +490,12 @@ def map_step_paired(
     pair_cutoff * (best1 + best2) (a broken pair).  A pair whose mates both
     have one candidate is not scored.  min_insert / max_insert are taken as
     int32 and pair_cutoff as float32, like the reference's arguments.
+    Traced as map_step is.
     """
     dev = reads.device
+    traced = trace.on(dev)
+    if traced:
+        trace.mark("start", dev)
     lengths, rc, cands = _front(
         genome, offsets, positions, reads, lengths, sensitivity, max_freq,
         k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
@@ -468,6 +503,8 @@ def map_step_paired(
         read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
         bs_cutoff=bs_cutoff, canonical=canonical,
     )
+    if traced:
+        trace.mark("front", dev)
     i32 = lambda x: torch.as_tensor(x, dtype=I32, device=dev)  # noqa: E731
     return _paired_tail(
         genome, reads, rc, lengths, matrices,
@@ -476,7 +513,7 @@ def map_step_paired(
         i32(min_insert), i32(max_insert), _f32(pair_cutoff, dev), *cands,
         band=band, slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
         diag_bin_log2=diag_bin_log2, end_to_end=end_to_end,
-        simple_matrix=simple_matrix,
+        simple_matrix=simple_matrix, traced=traced,
     )
 
 
@@ -1572,7 +1609,8 @@ class Mapper:
         if not self.supports_megabatch():
             raise ValueError("map_batch_scan runs on one device, unsharded "
                              "or on the shard loop without --bs-mapping")
-        return self._run_steps(codes_k, lengths_k, paired)
+        with trace.span("ngm.map_batch_scan"):
+            return self._run_steps(codes_k, lengths_k, paired)
 
     def topn(self) -> int:
         """Ranks per read of map_batch_topn: -n, at most max_cmrs."""

@@ -55,6 +55,15 @@ device's replays are serialised on its stream, so one graph's
 intermediates are dead when another's overwrite them.  Each capture logs
 its seconds and the pool memory it added (``captures``).
 
+The graphs are keyed by the program's tracing state too
+(``utils/trace.py``): a graph captured while tracing is on holds its phase
+marks and score counters, one captured while it is off none of them.
+While tracing is on, a call's host phases are profiler spans:
+``ngm.graph.capture`` (a new key's warm-up and capture), or
+``ngm.graph.inputs`` (the static inputs' copies), then
+``ngm.graph.replay`` and ``ngm.graph.outputs`` (the clone and its typed
+views).
+
 The kernel wrappers count their launches where they launch.  Under a
 graph the wrapper runs only at capture, which executes nothing, so the
 counts a capture added are taken back, kept as the graph's nodes, and
@@ -80,6 +89,7 @@ from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
 from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
 from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
+from nextgenmap_tpu_torch.utils import trace
 from nextgenmap_tpu_torch.utils.logging import get_logger
 
 log = get_logger("ngm-torch.graph")
@@ -203,20 +213,25 @@ class StepGraphs:
             return stack_results([step(*(x[k] for x in on))
                                   for k in range(K)])
         key = (name, K, B, L, tuple(sorted(statics.items())), dev,
-               tuple(tuple(x.shape) for x in inputs_k[2:]))
+               tuple(tuple(x.shape) for x in inputs_k[2:]), trace.on(dev))
         entry = self._entries.get(key)
         with torch.cuda.device(dev):
             if entry is None:
-                entry = self._capture(key, dev, step, inputs_k)
+                with trace.span("ngm.graph.capture"):
+                    entry = self._capture(key, dev, step, inputs_k)
             else:
-                for x, x_k in zip(entry.inputs, inputs_k):
-                    x.copy_(x_k, non_blocking=True)
-            entry.graph.replay()
-            flat = entry.out.clone()
+                with trace.span("ngm.graph.inputs"):
+                    for x, x_k in zip(entry.inputs, inputs_k):
+                        x.copy_(x_k, non_blocking=True)
+            with trace.span("ngm.graph.replay"):
+                entry.graph.replay()
+            with trace.span("ngm.graph.outputs"):
+                flat = entry.out.clone()
+                out = entry.layout.unpack(flat)
         for k, n in entry.nodes:
             k.launches += n
         self.replays += 1
-        return entry.layout.unpack(flat)
+        return out
 
     def _capture(self, key, dev, step, inputs_k) -> _Entry:
         K, B, L = inputs_k[0].shape
@@ -225,11 +240,13 @@ class StepGraphs:
                        for x in inputs_k)
         for x, x_k in zip(inputs, inputs_k):
             x.copy_(x_k)
+        saved = trace.save(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             probe = step(*(x[0] for x in inputs))
         torch.cuda.current_stream(dev).wait_stream(side)
+        trace.restore(saved)     # the warm-up is no step of the run
         layout = _Layout.of(probe, K)
         del probe
         if dev not in self._pools:

@@ -48,6 +48,8 @@ SIGNATURES = {
     "ngm_cand_search": (P, P, P, P, P, P, I64, P, I64, P, I32, I32, I32, I32,
                         I32, I32, I32, I32, I32, I32, I32, I32, I32, I32, P,
                         I64, P, P, P, P, P, P, P),
+    "ngm_mark": (P, I32, P),
+    "ngm_score_counts": (P, P, I32, I32, P, P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -25,6 +25,11 @@ CUDA event, which the emitter waits on before it reads the fields.  -t 1
 emits on the main thread, -t 2 on a thread of its own, -t >= 3 renders in
 -t - 1 workers and writes from one committer thread in submit order.  The output bytes are the same for every
 -t and --megabatch.
+
+``--profile DIR`` also turns on the program's tracing (``utils/trace.py``)
+on the mapper's first device for the mapping loop: the trace carries the
+program's spans and phase marks, and the run logs the phases' us a batch
+and the score pass's counters with its summary.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from nextgenmap_tpu_torch.parallel.index_shard import (
     grid_layout, open_sharded, open_sharded_local,
 )
 from nextgenmap_tpu_torch.parallel.mesh import device_slots
+from nextgenmap_tpu_torch.utils import trace
 from nextgenmap_tpu_torch.utils.logging import get_logger
 from nextgenmap_tpu_torch.utils.stats import MappingStats
 
@@ -1012,10 +1018,12 @@ def _map_reads(cfg, ref_path, qry, qry1, qry2, out_path, cmdline, paired,
     graphs = mapper.graphs
     replays0, captures0 = graphs.replays, len(graphs.captures)
     prof = _profiler(mapper.device) if profile_dir else None
+    program = {}
     stats.start_time = time.time()
     parsed = _prefetch(batches, max(2, cfg.threads), stats)
     try:
         if prof is not None:
+            trace.enable(mapper.device)
             prof.start()
         pending = []
         for batch in parsed:
@@ -1027,6 +1035,7 @@ def _map_reads(cfg, ref_path, qry, qry1, qry2, out_path, cmdline, paired,
             dispatch(pending)
         emitter.close()
         save_progress(complete=True)
+        program = trace.read()
     finally:
         emitter.abort()
         parsed.close()
@@ -1034,6 +1043,7 @@ def _map_reads(cfg, ref_path, qry, qry1, qry2, out_path, cmdline, paired,
         stats.graph_captures = len(graphs.captures) - captures0
         if prof is not None:
             prof.stop()
+            trace.disable()
         if cfg.bam or out_path not in (None, "-"):
             out.close()
     if prof is not None:
@@ -1044,5 +1054,9 @@ def _map_reads(cfg, ref_path, qry, qry1, qry2, out_path, cmdline, paired,
         log.info("profiler trace written to %s", path)
     log.info("phase seconds: %s",
              {k: round(v, 3) for k, v in sorted(stats.timing.items())})
+    if program:
+        log.info("program trace: step phases us a batch %s; %s",
+                 {k: round(v, 1) for k, v in trace.phase_us(program).items()},
+                 ", ".join(f"{c} {program[c]}" for c in trace.COUNTERS))
     log.info("done: %s", stats.summary())
     return stats

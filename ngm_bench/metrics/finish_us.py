@@ -1,0 +1,10 @@
+"""finish_us: device us a batch of the finish (the winner's corridor K2,
+the traceback K4, the filters, MAPQ), from the program's phase marks over
+the second traced window (``ngmb/program_window.py``)."""
+
+from ngmb import program_window
+
+
+def read(ctx):
+    pt = program_window.of(ctx)
+    return None if pt is None else program_window.phase_us(pt, "finish")

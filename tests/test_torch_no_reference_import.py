@@ -110,8 +110,7 @@ CASES = {
     "import_index_shard": lambda d: (
         "import nextgenmap_tpu_torch.parallel.index_shard\n"),
     "import_kernel_ab": lambda d: (
-        "import nextgenmap_tpu_torch.tools.kernel_ab\n"
-        "import nextgenmap_tpu_torch.tools.bench_breakdown\n"),
+        "import nextgenmap_tpu_torch.tools.kernel_ab\n"),
     "import_dp_overlap": lambda d: (
         "import nextgenmap_tpu_torch.tools.dp_overlap\n"),
     "probe_tool": lambda d: (

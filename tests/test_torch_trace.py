@@ -1,0 +1,291 @@
+"""The program's tracing (utils/trace.py): phase marks, score-pass counters
+and host spans.
+
+On the CPU:
+  * map_step and map_step_paired give the same outputs, field by field,
+    with tracing on and off;
+  * on batches whose score pass overflows a small slot cap, the three
+    score counters equal a count made apart from the program, from the
+    outputs' n_candidates and the cap, with a read only partly scored;
+  * under torch.profiler the ngm.* spans appear while tracing is on and
+    not while it is off;
+  * a mark does nothing on the CPU, and nothing anywhere while tracing is
+    off;
+  * `ngm map --profile` logs the counters with its summary.
+On the card (marked `cuda`, skipped without one), single-end and paired:
+an untraced graph's profiled records hold no mark, a traced graph's hold
+exactly 5 K marks (K of each phase) and K counter kernels more and
+otherwise the same records; the traced outputs equal the untraced ones;
+the accumulators count K marks of each phase a replay and nothing of the
+warm-up; the counters equal the count from the outputs; the graph spans
+appear only while tracing.
+Tolerance: exact equality.
+"""
+
+import collections
+import logging
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from nextgenmap_tpu_torch import synthetic
+from nextgenmap_tpu_torch.cli import run as torch_run
+from nextgenmap_tpu_torch.config import NgmConfig
+from nextgenmap_tpu_torch.models import mapper as tmapper
+from nextgenmap_tpu_torch.native import build
+from nextgenmap_tpu_torch.utils import trace
+
+L, B, K = 100, 64, 2
+CPU = torch.device("cpu")
+MARK = re.compile(r"ngm_mark_kernel<(\d)>")
+COUNT = "ngm_score_counts_kernel"
+
+
+@pytest.fixture(autouse=True)
+def one_thread_tracing_off_after():
+    """One intra-op thread (the test workers run side by side), and the
+    process's tracing off after each test.  This file imports no JAX, and
+    nothing of the other test files, so that it runs on the card too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+    trace.disable()
+
+
+class _G:
+    codes = synthetic.repeat_genome(50_000, n_repeats=12, min_len=800,
+                                    max_len=2000, seed=191)
+
+
+@pytest.fixture(scope="module")
+def data():
+    single, _, _ = synthetic.simulate_reads(_G.codes, K * B, L, 0.02,
+                                            seed=192)
+    paired, _, _ = synthetic.simulate_pairs(_G.codes, K * B // 2, L, 0.02,
+                                            seed=193)
+    return {False: single.reshape(K, B, L), True: paired.reshape(K, B, L),
+            "lens": np.full((K, B), L, np.int32)}
+
+
+@pytest.fixture(scope="module")
+def port():
+    return tmapper.Mapper(NgmConfig(kmer=11), _G(), L, device="cpu")
+
+
+def fields(res) -> dict:
+    return {f: getattr(res, f) for f in res._fields}
+
+
+def assert_equal(a, b):
+    for f, t in fields(a).items():
+        assert torch.equal(t, getattr(b, f)), f
+
+
+def expected_counts(n_candidates, paired: bool, slot_cap: int) -> list:
+    """(slots asked, slots scored, reads left wholly or partly unscored)
+    of one batch, from its outputs' n_candidates: the score pass takes the
+    candidates of reads with >= 2 (paired: of both mates where either has
+    >= 2) in read order until the cap."""
+    n = np.asarray(n_candidates, dtype=np.int64)
+    mask = ((n.reshape(-1, 2) >= 2).any(1).repeat(2) if paired
+            else n >= 2)
+    n_sc = np.where(mask, n, 0)
+    end = np.cumsum(n_sc)
+    total = int(end[-1])
+    return [total, min(total, slot_cap),
+            int(((n_sc > 0) & (end > slot_cap)).sum())]
+
+
+def step(port, codes, lens, paired, **kw):
+    args = port._common_args(codes, lens, paired=paired)
+    fn = tmapper.map_step_paired if paired else tmapper.map_step
+    return fn(*args, **{**port.statics(), **kw})
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_steps_equal_with_tracing_on_and_off(data, port, paired):
+    off = port.map_batch_scan(data[paired], data["lens"], paired=paired)
+    trace.enable("cpu")
+    on = port.map_batch_scan(data[paired], data["lens"], paired=paired)
+    assert_equal(off, on)
+    got = trace.read()
+    assert got["score_slots_scored"] > 0
+    assert set(got["phase_marks"].values()) == {0}
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_score_counters_equal_a_count_from_the_outputs(data, port, paired):
+    codes, lens = data[paired][0], data["lens"][0]
+    n = step(port, codes, lens, paired).n_candidates
+    # a cap that ends inside a read's slots, with reads after it
+    nn = np.asarray(n, dtype=np.int64)
+    mask = ((nn.reshape(-1, 2) >= 2).any(1).repeat(2) if paired
+            else nn >= 2)
+    multi = np.flatnonzero(mask & (nn >= 2))
+    assert len(multi) >= 4
+    j = multi[len(multi) // 2]
+    end = np.cumsum(np.where(mask, nn, 0))
+    cap = int(end[j]) - 1
+    assert end[j] - nn[j] < cap < end[j]        # read j is partly scored
+    trace.enable("cpu")
+    res = step(port, codes, lens, paired, slot_cap=cap)
+    got = trace.read()
+    want = expected_counts(res.n_candidates, paired, cap)
+    assert [got[c] for c in trace.COUNTERS] == want
+    assert want[0] > want[1] and want[2] >= len(multi) - len(multi) // 2
+
+
+def test_spans_only_while_tracing(data, port):
+    from torch.profiler import ProfilerActivity, profile
+
+    def names():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            port.map_batch_scan(data[False], data["lens"])
+        return {e.name for e in prof.events()}
+
+    assert not {n for n in names() if n.startswith("ngm.")}
+    trace.enable("cpu")
+    assert "ngm.map_batch_scan" in names()
+
+
+def test_mark_is_a_no_op_on_the_cpu(monkeypatch):
+    def no_library():
+        raise AssertionError("a mark on the CPU loaded the kernels")
+
+    monkeypatch.setattr(build, "load", no_library)
+    for p in trace.PHASES:          # tracing off: nothing, on any device
+        trace.mark(p, torch.device("cuda", 0))
+    trace.enable("cpu")
+    for p in trace.PHASES:
+        trace.mark(p, CPU)
+    got = trace.read()
+    assert set(got["phase_ns"].values()) == {0}
+    assert set(got["phase_marks"].values()) == {0}
+    assert trace.phase_us(got) == {}
+
+
+def test_profile_logs_the_score_counters(tmp_path):
+    g = _G.codes
+    synthetic.write_fasta(str(tmp_path / "ref.fa"), "chr", g)
+    codes, pos, strand = synthetic.simulate_reads(g, 40, L, 0.02, seed=194)
+    synthetic.write_fastq(str(tmp_path / "r.fq"), codes, pos, strand)
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log = logging.getLogger("ngm-torch.run")
+    h = Keep()
+    log.addHandler(h)
+    try:
+        stats = torch_run([
+            "map", "-r", str(tmp_path / "ref.fa"),
+            "-q", str(tmp_path / "r.fq"), "-o", str(tmp_path / "out.sam"),
+            "-k", "11", "--batch-size", "16", "--no-progress",
+            "--profile", str(tmp_path / "prof"), "--device", "cpu"])
+    finally:
+        log.removeHandler(h)
+    (line,) = [ln for ln in lines if ln.startswith("program trace:")]
+    got = {c: int(re.search(c + r" (\d+)", line).group(1))
+           for c in trace.COUNTERS}
+    assert got["score_slots_scored"] == stats.slots_scored > 0
+    assert got["score_slots_demanded"] == stats.slots_scored
+    assert got["reads_unscored"] == 0
+    assert not trace.on(CPU)
+
+
+# ---- on the card ----------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the marks and counters run only there")
+    return torch.device("cuda", 0)
+
+
+def profiled(m, codes, lens, paired):
+    """(device record names, host op names) of a map_batch_scan call under
+    torch.profiler, user annotations left out.  Two calls run in the
+    window and only the second's records count: CUPTI has been seen to drop
+    the first record of a window.  The calls are synchronised, so the
+    second's records all start after a host range put between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m.map_batch_scan(codes, lens, paired=paired)
+        torch.cuda.synchronize()
+        with record_function("between_calls"):
+            pass
+        m.map_batch_scan(codes, lens, paired=paired)
+        torch.cuda.synchronize()
+    events = prof.events()
+    (cut,) = [e.time_range.start for e in events
+              if e.name == "between_calls"
+              and e.device_type != DeviceType.CUDA]
+    dev, host = collections.Counter(), set()
+    for e in events:
+        if e.time_range.start < cut:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            if not (getattr(e, "is_user_annotation", False)
+                    or e.name.startswith("ngm.")
+                    or e.name == "between_calls"):
+                dev[e.name] += 1
+        else:
+            host.add(e.name)
+    return dev, host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired", [False, True])
+def test_traced_graph_on_card(card, data, paired):
+    m = tmapper.Mapper(NgmConfig(kmer=11), _G(), L, device=card)
+    codes, lens = data[paired], data["lens"]
+    off = m.map_batch_scan(codes, lens, paired=paired)
+    trace.enable(card)
+    on = m.map_batch_scan(codes, lens, paired=paired)
+    assert len(m.graphs.captures) == 2
+    assert_equal(off, on)
+    # the traced call's capture counted nothing of its warm-up
+    first = trace.read()
+    assert first["phase_marks"] == {p: K for p in trace.PHASES}
+    want = np.sum([expected_counts(on.n_candidates[k].cpu(), paired,
+                                   tmapper.default_slot_cap(B))
+                   for k in range(K)], axis=0)
+    assert [first[c] for c in trace.COUNTERS] == want.tolist()
+
+    for _ in range(3):          # CUPTI may drop records from a window
+        trace.disable()
+        rec_off, host_off = profiled(m, codes, lens, paired)
+        trace.enable(card)      # zeroed: two replays follow
+        rec_on, host_on = profiled(m, codes, lens, paired)
+        marks = collections.Counter()
+        for name, n in rec_on.items():
+            hit = MARK.search(name)
+            if hit:
+                marks[int(hit.group(1))] += n
+        counts = sum(n for name, n in rec_on.items() if COUNT in name)
+        rest = collections.Counter({name: n for name, n in rec_on.items()
+                                    if not MARK.search(name)
+                                    and COUNT not in name})
+        if (marks == {p: K for p in range(len(trace.PHASES))}
+                and counts == K and rest == rec_off):
+            break
+    assert not any(MARK.search(n) or COUNT in n for n in rec_off)
+    assert marks == {p: K for p in range(len(trace.PHASES))}
+    assert counts == K
+    assert rest == rec_off
+    assert not {n for n in host_off if n.startswith("ngm.")}
+    assert {"ngm.map_batch_scan", "ngm.graph.inputs", "ngm.graph.replay",
+            "ngm.graph.outputs"} <= host_on
+    got = trace.read()
+    assert got["phase_marks"] == {p: 2 * K for p in trace.PHASES}
+    assert all(got["phase_ns"][p] > 0 for p in trace.PHASES[1:])
+    assert [got[c] for c in trace.COUNTERS] == (2 * want).tolist()
+    assert len(m.graphs.captures) == 2
