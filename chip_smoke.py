@@ -65,27 +65,35 @@ the repository).  Phases, one line of output each:
               probe's entry point, which launches it, at both shapes
   6. single   the port's CLI maps 3 x 4096 simulated 100 bp reads (2% SNPs)
               against a 4.6 Mbp genome with planted repeats (E. coli K-12
-              scale) on the card; >= 99% mapped, >= 95% truth-correct, K1,
-              K2 and K4 launched by that run, and K1 scored real candidates
+              scale) on the card; >= 99% mapped, >= 95% truth-correct, the
+              score pass, K2 and K4 launched by that run, real candidates
+              scored; the score pass on the inputs of the run's first step
+              == its plain version on CPU copies of them (exact in sw,
+              slot_overflow, n_sc and base), with its device time (the
+              plan and the pass kernels), call time, bound (K1's integer
+              operations over the slots it scores), share and the former
+              card path's device time (torch's compaction, K2, K1) there
   7. paired   the CLI's -1/-2 maps 2 x 4096 reads (2048 FR pairs a batch,
               insert 350 +- 40) on the same genome; >= 99% mapped, >= 95%
-              truth-correct per mate, >= 90% of pairs proper, K1, K2 and
-              K4 launched, real slots scored
+              truth-correct per mate, >= 90% of pairs proper, the score
+              pass, K2 and K4 launched, real slots scored; the score pass
+              on the first step's inputs (its pair mask) as in phase 6
   8. top-n    the CLI's -n 2 maps 2 x 4096 reads; one primary record per
               read, >= 99% mapped and >= 95% truth-correct primaries,
-              secondaries present, K1, K2 and K4 launched
+              secondaries present, the score pass, K2 and K4 launched
   9. e2e      the CLI's --end-to-end maps 2 x 4096 reads (2% SNPs) on the
               same genome; >= 99% mapped, >= 95% truth-correct, no S/H op in
-              any mapped CIGAR, K1 and K4 (glocal) and K2 launched
+              any mapped CIGAR, the score pass and K4 (glocal) and K2
+              launched
  10. bisulfite the CLI's --bs-mapping maps 2 x 4096 bisulfite reads (original
               top and bottom strands, 80% of C read as T) on the same
-              genome; >= 90% truth-correct, K1, K2 and K4 launched, real
-              slots scored
+              genome; >= 90% truth-correct, the score pass, K2 and K4
+              launched, real slots scored
  11. long     the CLI maps 1000 bp reads (3% SNPs, 0.5% indels) in 2
               batches of the size the runner picks for them (614); >= 90%
               mapped, >= 90% of the mapped within 16 bp of the truth, every
-              CIGAR consumes SEQ and every NM equals the edits, K1 and K4
-              at W 184 and K2 at T 1184 launched
+              CIGAR consumes SEQ and every NM equals the edits, the score
+              pass and K4 at W 184 and K2 at T 1184 launched
  12. cuda=cpu one batch of each path (single, paired, top-n, end-to-end,
               bisulfite single and paired: 4096 reads; 1000 bp: 614 reads;
               single with --index-shards 4) mapped on the card and on the
@@ -95,9 +103,9 @@ the repository).  Phases, one line of output each:
               8192 rows; K1 at 4096 slots) and 2 (full per-shard tails) on
               phase 6's reads, and -1/-2 --index-shards 4 on phase 7's
               pairs: each SAM equal to the unsharded one byte for byte but
-              @PG, K1, K2 and K4 launched as the shard loop predicts; K1 == its
-              plain version at the pool's [4096,100]xW48 input with the
-              real slots of a batch, K2 at the flattened [S*Gs] genome
+              @PG, the score pass, K2 and K4 launched as the shard loop
+              predicts; the score pass as in phase 6 at the pool's input,
+              K2 at the flattened [S*Gs] genome
  14. gigabase a 2^31 + 2^27 base (2.28 Gbp) genome drawn as uint8 from the
               seed with the same 120 planted repeats, past 2^31 so no
               unsharded path can hold it: host KmerIndex (k 13, skip 2,
@@ -196,10 +204,15 @@ torch.profiler (nextgenmap_tpu_torch/tools/timing.py): the device time of
 the kernels launched in a window of calls, from the kernels' own rows only,
 divided by the launches it recorded.  call_ms is the wrapper's wall time per
 call (CUDA events around one call: host checks, allocation, the launch).
-K1's summary row is the shape the single-end path hands it (2048 slots, ~650
-of them real, the rest at length 0); its other shapes are under
-"other_shapes", the sharded pool's among them, and K2's flattened-genome
-launch under "other_shapes" of K2.  K3's row is dim 0 at the probe's
+The score pass's row ("score_pass": score_plan_kernel and score_pass_kernel
+of csrc/sw_score.cu, whose row loops are K1's) is the pass at the inputs
+phase 6's first step gave it; the paired path's and the sharded pool's are
+under its "other_shapes", and so is K1 launched alone at phase 4's shapes
+("K1 alone, ..."), which no mapping path launches; "former_device_ms" and
+"former_records" are the device time and records a call of the former card
+path (torch's compaction, K2, K1) on the same inputs, from all its device
+records over a window of calls (some of its kernels run more than once a
+call).  K2's flattened-genome launch is under "other_shapes" of K2.  K3's row is dim 0 at the probe's
 default shape (the slower dim); dim 1 and the 4096 x 2048 shape are under
 its "other_shapes", each with the variant that served it.  K4's row is
 the single-end path's traceback input ([4096,100]xW48, local); its other
@@ -215,7 +228,8 @@ bound_ms is the least time the card could take: for K2 and K3 the bytes
 moved (each input byte read once, each output byte written once) over
 3.35 TB/s; for K1 the integer instructions its cells need (OPS_PER_CELL per
 cell of each real slot's qlen x W) over 132 SMs x 64 INT32 lanes x the
-card's maximum SM clock (nvidia-smi); for K4 the larger of its integer
+card's maximum SM clock (nvidia-smi), and for the score pass the same
+over the slots it scores (each read's slots under the cap); for K4 the larger of its integer
 instructions (K4_OPS_PER_CELL of its mode per cell of each real slot's
 qlen x W, as for K1) at that rate and its bytes (inputs read once, the
 op buffer and the fields written once; the mapping path's call writes no
@@ -228,7 +242,9 @@ either; K6's row carries "sort_ms", one torch.sort of [B, 2H] int32 votes,
 as a partial yardstick.
 share = bound_ms / device_ms.
 
-Every CLI run must launch K1, K2, K4, K5 and K6, score real candidates,
+Every CLI run must launch the fused score pass (K1's row loops fed from
+the reads and the genome; its wrapper counts as `score_pass`), K2, K4, K5
+and K6, score real candidates,
 count alignments (GCUPS > 0) and time its device steps; where a phase
 counts launches exactly, a step launches K5 once and K6 once an index
 shard.  From phase 6 on, the plain versions of the traceback, the read
@@ -288,8 +304,6 @@ K4_OPS_PER_CELL = {"local": 20, "glocal": 18}
 K4_SHAPES = ((4096, 100, 48), (2048, 150, 56), (614, 1000, 184),
              (2048, 100, 264))
 K4_MAIN = "local [4096,100]xW48"
-K1_MAIN = "local [2048,100]xW48 (650 real)"   # what the single-end path
-                                              # hands K1 (~650 real slots)
 # K3: the probe's default shape, and its use case at the mapper's batch
 K3_SHAPES = ((256, 1024), (4096, 2048))
 K3_REP = 32
@@ -1082,10 +1096,10 @@ def run_cli(path, argv):
 
 
 def expected(n_steps, tails=1, shards=1):
-    """The launches of n_steps mapping steps: K1 once, K2 twice and K4
-    once a tail (a step of the shard loop runs a tail per shard, or one
-    pooled tail), K5 once, and K6 once an index shard."""
-    return {"sw_score": tails * n_steps, "gather_windows": 2 * tails * n_steps,
+    """The launches of n_steps mapping steps: the fused score pass (K1's
+    row loops), K2 and K4 once a tail (a step of the shard loop runs a tail
+    per shard, or one pooled tail), K5 once, and K6 once an index shard."""
+    return {"score_pass": tails * n_steps, "gather_windows": tails * n_steps,
             "sw_align": tails * n_steps, "read_kmers": n_steps,
             "cand_search": shards * n_steps}
 
@@ -1130,6 +1144,72 @@ def steps(stats, n_batches, k=1):
     return -(-n_batches // k) * k + stats.graph_captures
 
 
+FORMER_CALLS = 20
+
+
+def score_pass_timing(call, what):
+    """The fused score pass on one call's inputs, exact against its plain
+    version on CPU copies of them; (max abs err, timings): its device time
+    (the plan and the pass kernels), call time, the plain version's wall
+    time on the CPU, the former card path's device time and records a call
+    on the same inputs (torch's compaction, K2, K1: all its device records
+    in a window of FORMER_CALLS calls, over the calls, since some of its
+    kernels run more than once a call), and K1's operations bound over the
+    slots the pass scores (each read's slots under the cap)."""
+    import torch
+
+    from nextgenmap_tpu_torch.ops.score_pass_kernel import (
+        score_pass, score_pass_plain,
+    )
+    from nextgenmap_tpu_torch.tools.timing import (
+        call_ms, device_ms, device_profile,
+    )
+
+    a, kw = call
+    k = lambda: score_pass(*a, **kw)  # noqa: E731
+    got = [x.cpu() for x in k()]
+    cpu = [x.cpu() if torch.is_tensor(x) else x for x in a]
+    t0 = time.perf_counter()
+    want = score_pass(*cpu, **kw)                 # the plain version
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for nm, x, y in zip(want._fields, got, want):
+        check(torch.equal(x, y),
+              f"score pass {nm} differs from its plain version at {what}")
+    reads, lens, corr_start = cpu[1], cpu[3], cpu[4]
+    (B, L), C = reads.shape, corr_start.shape[1]
+    S, W = kw["slot_cap"], kw["band"]
+    taken = (S - want.base).clamp(min=0).minimum(want.n_sc).long()
+    real = int(taken.sum())
+    cells = int((taken * lens.clamp(0, L).long()).sum()) * W
+    # the former card path takes the mask a read
+    fa = list(a)
+    if kw.get("pairs"):
+        fa[7] = a[7].repeat_interleave(2)
+    fkw = {key: v for key, v in kw.items() if key != "pairs"}
+    former = lambda: score_pass_plain(*fa, **fkw)  # noqa: E731
+    former()
+    f = device_profile(lambda: [former() for _ in range(FORMER_CALLS)])
+    t = {"device_ms": device_ms(k), "call_ms": call_ms(k, 20),
+         "plain_ms": plain_ms,
+         "former_device_ms": f["device_ms"] / FORMER_CALLS,
+         "former_records": f["records"] / FORMER_CALLS,
+         "bound_ms": 1e3 * OPS_PER_CELL * cells / (INT32_LANES
+                                                   * sm_clock_hz()),
+         "real_slots": real,
+         "shape": (f"{kw.get('mode', 'local')} {B} reads x {L}, C {C}, W "
+                   f"{W}, {S} slots ({real} real): {what}")}
+    t["gcups"] = cells / (t["device_ms"] * 1e-3) / 1e9
+    return max_abs_err(got, want), t
+
+
+def score_pass_line(t):
+    return (f"score pass exact at {t['shape']}: "
+            + timing_row(t["device_ms"], t["call_ms"], t["bound_ms"],
+                         f", {t['gcups']:.2f} GCUPS, former card path "
+                         f"{t['former_device_ms'] * 1e3:.2f} us in "
+                         f"{t['former_records']:.1f} device records"))
+
+
 def phase_main_path(genome, workdir, device="cuda"):
     from nextgenmap_tpu_torch import synthetic
 
@@ -1137,7 +1217,9 @@ def phase_main_path(genome, workdir, device="cuda"):
     codes, pos, strand = synthetic.simulate_reads(genome, n, READ_LEN, 0.02,
                                                   seed=SEED + 1)
     synthetic.write_fastq(os.path.join(workdir, "reads.fq"), codes, pos, strand)
-    stats, launches, wall = run_cli("single", map_argv(workdir, device))
+    with Capture(first=("score_pass",)) as cap:
+        stats, launches, wall = run_cli("single", map_argv(workdir, device))
+    sp = score_pass_timing(cap.calls["score_pass"][0], "the single-end path")
 
     records, mapped, correct = synthetic.truth_correct(
         os.path.join(workdir, "out.sam"))
@@ -1147,8 +1229,9 @@ def phase_main_path(genome, workdir, device="cuda"):
     print(f"[6 single] {n} reads x {READ_LEN} bp, {len(genome)} bp genome: "
           f"mapped {mapped} ({100 * mapped / n:.2f}%), truth-correct {correct} "
           f"({100 * correct / n:.2f}%); "
-          + summary(stats, N_BATCHES, launches, wall))
-    return codes, (launches, steps(stats, N_BATCHES))
+          + summary(stats, N_BATCHES, launches, wall) + "; "
+          + score_pass_line(sp[1]))
+    return codes, (launches, steps(stats, N_BATCHES)), sp
 
 
 def phase_paired_path(genome, workdir, device="cuda"):
@@ -1163,9 +1246,13 @@ def phase_paired_path(genome, workdir, device="cuda"):
     for path, m in ((fq1, 0), (fq2, 1)):
         synthetic.write_fastq(path, codes[m::2], pos[m::2], strand[m::2],
                               prefix="simpair")
-    stats, launches, wall = run_cli("paired", [
-        "map", "-r", os.path.join(workdir, "ref.fa"), "-1", fq1, "-2", fq2,
-        "-o", sam, "--device", device, "--no-progress"])
+    with Capture(first=("score_pass",)) as cap:
+        stats, launches, wall = run_cli("paired", [
+            "map", "-r", os.path.join(workdir, "ref.fa"), "-1", fq1, "-2",
+            fq2, "-o", sam, "--device", device, "--no-progress"])
+    sp = score_pass_timing(cap.calls["score_pass"][0], "the paired path")
+    check(cap.calls["score_pass"][0][1].get("pairs") is True,
+          "the paired path's score pass took no pair mask")
 
     c = synthetic.sam_counts(sam)
     check(c["records"] == n, f"SAM holds {c['records']} records, expected {n}")
@@ -1186,8 +1273,9 @@ def phase_paired_path(genome, workdir, device="cuda"):
           f"({100 * sum(per_mate) / n:.2f}%), proper pairs {pairs_proper} "
           f"({200 * pairs_proper / n:.2f}%; counted {stats.pairs_proper}, "
           f"broken {stats.pairs_broken}); "
-          + summary(stats, N_BATCHES_NEW, launches, wall))
-    return codes, (launches, steps(stats, N_BATCHES_NEW))
+          + summary(stats, N_BATCHES_NEW, launches, wall) + "; "
+          + score_pass_line(sp[1]))
+    return codes, (launches, steps(stats, N_BATCHES_NEW)), sp
 
 
 def phase_topn_path(genome, workdir, device="cuda"):
@@ -1276,8 +1364,8 @@ def phase_long_path(genome, workdir, device="cuda"):
 
     check(stats.first_batch_reads == LONG_BATCH,
           f"first batch {stats.first_batch_reads} reads, expected {LONG_BATCH}")
-    # the front (K5, K6), one score pass (K1), two corridor fetches (K2)
-    # and one traceback (K4) per step
+    # the front (K5, K6), one score pass, one corridor fetch (K2) and one
+    # traceback (K4) per step
     n_steps = steps(stats, N_BATCHES_NEW)
     check(launches == expected(n_steps),
           f"long-read launches {launches} for {n_steps} steps")
@@ -1311,10 +1399,15 @@ def sam_body(records):
 
 class Capture:
     """Within `with`, record the arguments of every call the mapper makes
-    to the K1, K2 and K6 wrappers (which it still calls), to rerun a kernel
-    on exactly the inputs a path gave it."""
+    to the score pass, K2 and K6 wrappers (which it still calls), to rerun
+    a kernel on exactly the inputs a path gave it.  Of a name in `first`
+    only the first call is kept, its tensors copied: a step graph's eager
+    warm-up, whose input buffers later batches overwrite."""
 
-    NAMES = ("sw_score", "gather_genome_windows", "candidate_search")
+    NAMES = ("score_pass", "gather_genome_windows", "candidate_search")
+
+    def __init__(self, first=()):
+        self.first = set(first)
 
     def __enter__(self):
         from nextgenmap_tpu_torch.models import mapper
@@ -1324,7 +1417,15 @@ class Capture:
 
         def rec(name, fn):
             def call(*a, **k):
-                self.calls[name].append((a, k))
+                if name not in self.first:
+                    self.calls[name].append((a, k))
+                elif not self.calls[name]:
+                    import torch
+
+                    check(not torch.cuda.is_current_stream_capturing(),
+                          f"the first {name} call was inside a capture")
+                    self.calls[name].append((tuple(
+                        x.clone() if torch.is_tensor(x) else x for x in a), k))
                 return fn(*a, **k)
             return call
 
@@ -1340,14 +1441,13 @@ class Capture:
 def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
                       device="cuda"):
     """The CLI with --index-shards on phases 6 and 7's inputs, SAM against
-    theirs; then K1 and K2 on the inputs one pooled batch gives them."""
+    theirs; then the fused score pass and K2 on the inputs one pooled batch
+    gives them."""
     import torch
 
     from nextgenmap_tpu_torch.models.mapper import Mapper, shard_tail_cap
     from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
     from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
-    from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
-    from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score
     from nextgenmap_tpu_torch.pipeline.runner import load_reference
     from nextgenmap_tpu_torch.tools.timing import call_ms, device_ms
 
@@ -1375,41 +1475,31 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
         per = 1 if shard_tail_cap(BATCH, S) else S    # pool, or S tails
         n_steps = steps(stats, n_batches)
         check(counts == expected(n_steps, per, S),
-              f"{name}: launches {counts}, expected {per} K1, {2 * per} "
-              f"K2 and {per} K4, one K5 and {S} K6 per step ({n_steps} "
-              f"steps)")
+              f"{name}: launches {counts}, expected {per} score passes, "
+              f"{per} K2 and {per} K4, one K5 and {S} K6 per step "
+              f"({n_steps} steps)")
         launches[name] = (counts, n_steps)
         rows.append(f"{name} ({'pool' if per == 1 else f'{S} tails'}): "
                     f"SAM equal; " + summary(stats, n_batches, counts, wall))
 
-    # K1 and K2 on the inputs one --index-shards 4 batch gives them
+    # the fused score pass and K2 on the inputs one --index-shards 4 batch
+    # gives them
     c4 = cfg.replace(index_shards=4)
     genome_obj, sidx = load_reference(c4, ref)
     mapper = Mapper(c4, genome_obj, READ_LEN, sidx, device=device)
-    with Capture() as cap:
+    with Capture(first=("score_pass",)) as cap:
         mapper.map_batch(single_codes[:BATCH],
                          np.full(BATCH, READ_LEN, np.int32))
         torch.cuda.synchronize()
     # the first call is the step graph's eager warm-up, on tensors that
     # hold this batch (the capture's own call follows it)
-    (a, kw), *_ = cap.calls["sw_score"]
-    q, lens = a[0], a[1]
+    (a, kw), = cap.calls["score_pass"]
     S, Gs = sidx.genome.shape
-    real = int((lens > 0).sum())
-    check(tuple(q.shape) == (4096, READ_LEN) and kw["band"] == 48,
-          f"the pool handed K1 {tuple(q.shape)}xW{kw['band']}")
-    k = lambda: sw_score(*a, **kw)  # noqa: E731
-    p = lambda: banded_sw_score(*a, **kw)  # noqa: E731
-    got, want = k(), p()
-    for nm, x, y in zip(("score", "end_i", "end_o"), got, want):
-        check(torch.equal(x, y), f"K1 {nm} differs from plain at the pool")
-    err = max_abs_err(got, want)
-    cells = int(lens.clamp(0, READ_LEN).long().sum()) * kw["band"]
-    k1 = {"device_ms": device_ms(k), "call_ms": call_ms(k, 20),
-          "plain_ms": call_ms(p, 3, warmup=1),
-          "bound_ms": 1e3 * OPS_PER_CELL * cells / (INT32_LANES
-                                                    * sm_clock_hz())}
-    k1["shape"] = f"local [4096,100]xW48 ({real} real), the sharded pool"
+    pool_rows = shard_tail_cap(BATCH, S)
+    check(tuple(a[1].shape) == (pool_rows, READ_LEN) and kw["band"] == 48,
+          f"the pool handed the score pass {tuple(a[1].shape)}"
+          f"xW{kw['band']}, expected {pool_rows} rows")
+    err, k1 = score_pass_timing((a, kw), "the sharded pool")
     (ga, _), *_ = cap.calls["gather_genome_windows"]
     g_flat, starts, T = ga
     check(g_flat.shape[0] == S * Gs, "K2 did not gather from the flattened "
@@ -1425,11 +1515,8 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
           "plain_ms": call_ms(gp, 20),
           "bound_ms": 1e3 * (2 * n * T + 4 * n) / HBM_BYTES_PER_S,
           "shape": f"{n}x{T} from the flattened [{S}*{Gs}] genome"}
-    print(f"[13 sharded] " + "; ".join(rows) + f"; K1 exact at {k1['shape']}"
-          f" ({card}): " + timing_row(k1["device_ms"], k1["call_ms"],
-                                      k1["bound_ms"],
-                                      f", plain call {k1['plain_ms']:.3f} ms")
-          + f"; K2 exact at {k2['shape']}: " + timing_row(
+    print(f"[13 sharded] " + "; ".join(rows) + f"; ({card}) "
+          + score_pass_line(k1) + f"; K2 exact at {k2['shape']}: " + timing_row(
               k2["device_ms"], k2["call_ms"], k2["bound_ms"]))
     return launches, k1, k2, (err, err2), memory
 
@@ -1506,15 +1593,15 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
     peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
             else float("nan"))
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    # past S * Gs = 2^31 the tails run per shard: K1 once, K2 twice and K4
+    # past S * Gs = 2^31 the tails run per shard: the score pass, K2 and K4
     # once each
     per = (1 if mapper.tail_cap(batch)
            and mapper.shards.genome.numel() < 2**31 else n_shards)
     n_steps = 2 + len(mapper.graphs.captures)   # and the graph's warm-up
     check(launches == expected(n_steps, per, n_shards),
-          f"gigabase launches {launches}, expected {per} K1, {2 * per} "
-          f"K2 and {per} K4, one K5 and {n_shards} K6 per step ({n_steps} "
-          f"steps)")
+          f"gigabase launches {launches}, expected {per} score passes, "
+          f"{per} K2 and {per} K4, one K5 and {n_shards} K6 per step "
+          f"({n_steps} steps)")
     k6 = shard_cand_search(cap.calls["candidate_search"][0])
     check(mapped.sum() >= 0.99 * n, f"only {mapped.sum()}/{n} reads mapped")
     check(correct.sum() >= 0.95 * n,
@@ -1611,12 +1698,12 @@ def phase_runtime(workdir, device="cuda"):
     check(len(traces) == 1, f"--profile wrote {traces}")
     with open(os.path.join(prof, traces[0])) as f:
         trace = f.read()
-    for kern in ("sw_score_kernel", "gather_windows_kernel",
+    for kern in ("score_pass_kernel", "gather_windows_kernel",
                  "sw_align_kernel", "read_kmers_kernel",
                  "cand_search_kernel"):
         check(kern in trace, f"the trace names no {kern}")
-    rows[-1] += (f"; trace {len(trace) / 2**20:.1f} MiB names K1, K2, K4, "
-                 f"K5 and K6")
+    rows[-1] += (f"; trace {len(trace) / 2**20:.1f} MiB names the score "
+                 f"pass, K2, K4, K5 and K6")
     os.remove(os.path.join(prof, traces[0]))
 
     # W = 264: K1's warp kernel at 32 x 12 cells; the CPU runs its plain
@@ -1745,7 +1832,8 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
             if name == "shard-across-hosts":
                 # two graphs a batch, the exchange of the best between
                 # them: phase 1 (K5 and the one shard's K6) and phase 2
-                # (the tails: K1, K2, K4), each with its warm-up step
+                # (the tails: the score pass, K2, K4), each with its
+                # warm-up step
                 check(r["graph_replays"] == 2 * n_b and caps % 2 == 0,
                       f"{name} process {i}: {r['graph_replays']} graph "
                       f"replays and {caps} captures for {n_b} batches, "
@@ -1795,7 +1883,8 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
         n_steps = 2 * n_b + stats.graph_captures
         check(counts == expected(n_steps) and stats.graph_replays == n_b,
               f"{name}: launches {counts} and {stats.graph_replays} graph "
-              f"replays, expected 1 K1, 2 K2, 1 K4, 1 K5 and 1 K6 a slice "
+              f"replays, expected 1 score pass, 1 K2, 1 K4, 1 K5 and 1 K6 "
+              f"a slice "
               f"over {n_b} "
               f"batches of 2 slices and {stats.graph_captures} warm-up "
               f"slice(s), and one replay a batch")
@@ -2006,8 +2095,8 @@ def phase_graft(card):
     if torch.cuda.device_count() == 1:
         k1 = 1 + 2 * (2 + 1) * 2     # a row runs 2 shard tails and CSs
         check(launches == dict(expected(k1), read_kmers=n_steps),
-              f"graft: launches {launches}, expected {k1} K1, K4 and K6, "
-              f"{2 * k1} K2 and {n_steps} K5 (entry()'s step, then per leg "
+              f"graft: launches {launches}, expected {k1} score passes, "
+              f"K2, K4 and K6 and {n_steps} K5 (entry()'s step, then per leg "
               f"one graph of 2 rows of 2 shards and its warm-up row)")
     mapped = int(got.mapped.sum())
     check(mapped >= 60, f"graft entry: only {mapped}/64 mapped")
@@ -2316,7 +2405,6 @@ def main():
                                      max_len=2000, seed=SEED)
     k2_err, k2 = phase_gather(torch.from_numpy(genome).cuda(), rng, card)
     k1_err, k1_shapes = phase_sw(rng, cfg, card)
-    k1 = k1_shapes[K1_MAIN]
     k4_err, k4_shapes = phase_align(rng, cfg, card)
     k4 = k4_shapes[K4_MAIN]
     k5_err, k5_shapes = phase_front(card)
@@ -2329,6 +2417,7 @@ def main():
     guard_plain_traceback()
     guard_plain_front()
     codes, launches = {}, {}     # launches: {path: (counts, batches)}
+    passes = {}                  # the score pass's (err, timings) by path
     with tempfile.TemporaryDirectory() as workdir:
         ref_path = os.path.join(workdir, "ref.fa")
         synthetic.write_fasta(ref_path, "chr", genome)
@@ -2338,9 +2427,11 @@ def main():
                             ("end-to-end", phase_e2e_path),
                             ("bisulfite", phase_bisulfite_path),
                             ("long", phase_long_path)):
-            codes[path], launches[path] = phase(genome, workdir)
+            codes[path], launches[path], *sp = phase(genome, workdir)
+            if sp:
+                passes[path] = sp[0]
         phase_cuda_equals_cpu(genome, codes, cfg, ref_path)
-        (sharded, k1_pool, k2_flat, (k1_sh_err, k2_sh_err),
+        (sharded, passes["pool"], k2_flat, (sp_pool_err, k2_sh_err),
          sharded_memory) = phase_sharded_cli(genome, workdir, codes["single"],
                                              cfg, card)
         launches.update(sharded)
@@ -2359,7 +2450,9 @@ def main():
     reference = sorted(m for m in sys.modules if m == "nextgenmap_tpu"
                        or m.startswith("nextgenmap_tpu."))
     check(not reference, f"the port imported the JAX package: {reference}")
-    k1_shapes[k1_pool.pop("shape")] = k1_pool
+    passes["pool"] = (sp_pool_err, passes["pool"])
+    sp_err = max(err for err, _ in passes.values())
+    sp = passes.pop("single")[1]
 
     def per_step(name):
         return {path: n[name] / b for path, (n, b) in launches.items()}
@@ -2379,15 +2472,25 @@ def main():
                 "library_ms": library_ms, **extra}
 
     kernels = [
-        row("sw_score", "nextgenmap_tpu_torch/csrc/sw_score.cu",
-            "nextgenmap_tpu/ops/sw_pallas.py:150", max(k1_err, k1_sh_err), k1,
-            total("sw_score"), per_step("sw_score"), "operations", None,
-            gcups=k1["gcups"],
-            shape=K1_MAIN + ": the single-end path's input",
+        row("score_pass", "nextgenmap_tpu_torch/csrc/sw_score.cu",
+            "nextgenmap_tpu/ops/sw_pallas.py:150", max(k1_err, sp_err), sp,
+            total("score_pass"), per_step("score_pass"), "operations", None,
+            replaces_kind="the Pallas SW score kernel and, around it, the "
+            "XLA-fused slot compaction, corridor gather and scatter of "
+            "nextgenmap_tpu/models/mapper.py:214 _score_candidates",
+            gcups=sp["gcups"], former_device_ms=sp["former_device_ms"],
+            former_records=sp["former_records"],
+            real_slots=sp["real_slots"], shape=sp["shape"],
             other_shapes={
-                shape: {"device_ms": t["device_ms"], "bound_ms": t["bound_ms"],
-                        "share": t["bound_ms"] / t["device_ms"]}
-                for shape, t in k1_shapes.items() if shape != K1_MAIN}),
+                **{t["shape"]: {key: t[key] for key in (
+                    "device_ms", "call_ms", "plain_ms", "former_device_ms",
+                    "former_records", "bound_ms", "gcups", "real_slots")}
+                   | {"share": t["bound_ms"] / t["device_ms"]}
+                   for _, t in passes.values()},
+                **{f"K1 alone, {shape}": {
+                    "device_ms": t["device_ms"], "bound_ms": t["bound_ms"],
+                    "share": t["bound_ms"] / t["device_ms"]}
+                   for shape, t in k1_shapes.items()}}),
         row("gather_windows", "nextgenmap_tpu_torch/csrc/gather_windows.cu",
             "nextgenmap_tpu/ops/gather_pallas.py:124", max(k2_err, k2_sh_err),
             k2, total("gather_windows"), per_step("gather_windows"), "bytes",

@@ -14,7 +14,7 @@ complement GA-collapsed in the GA table (`bs`).
 and differ in their tails:
 
   map_step         lazy scoring of reads with >= 2 candidates (slot
-                   compaction, corridor gather K2, SW score K1) -> argmax ->
+                   compaction, corridor fetch, SW score) -> argmax ->
                    winner corridor (K2) -> traceback -> filters + MAPQ
   map_step_paired  lazy scoring of pairs where a mate has >= 2 candidates ->
                    CxC insert-window pair resolution -> as above
@@ -25,10 +25,11 @@ and differ in their tails:
 read is aligned, with no clipping.
 
 On a CUDA device the read front end (the rc and the k-mers) is the
-hand-written kernel K5, the candidate search K6, every corridor fetch the
-gather kernel K2, every score pass, local or glocal, the SW kernel K1 and
-every traceback K4; on the CPU their wrappers run the plain PyTorch
-versions.  Every output equals the reference's steps exactly
+hand-written kernel K5, the candidate search K6, every score pass, local or
+glocal, the fused score pass (a plan kernel, then K1's row loops fed
+straight from the reads and the genome), every traceback's corridor fetch
+the gather kernel K2 and every traceback K4; on the CPU their wrappers run
+the plain PyTorch versions.  Every output equals the reference's steps exactly
 (tests/test_torch_mapper.py, tests/test_torch_paired.py,
 tests/test_torch_topn.py, tests/test_torch_glocal.py,
 tests/test_torch_bisulfite.py, tests/test_torch_long_reads.py).
@@ -60,9 +61,9 @@ from nextgenmap_tpu_torch.ops.candidate import pack_offsets
 from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
+from nextgenmap_tpu_torch.ops.score_pass_kernel import score_pass
 from nextgenmap_tpu_torch.ops.scoring import matrices_are_simple, score_matrix
 from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
-from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.parallel.dp import (
     join_slices, pick, slices_by_device, split_batch,
 )
@@ -172,60 +173,29 @@ def _sw_mode(end_to_end: bool) -> str:
 def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
                       cand_valid, score_mask, matrices, gopen_q, gopen_r, gext,
                       *, band, slot_cap, end_to_end=False, simple_matrix=False,
-                      traced=False):
-    """Banded-SW score the candidates of the reads selected by `score_mask`.
+                      pairs=False, traced=False):
+    """Banded-SW score the candidates of the reads selected by `score_mask`
+    ([B], or with `pairs` [B / 2]: rows 2i and 2i + 1 share entry i).
 
     Lazy scoring: a read with one candidate needs no comparison and skips
     this pass (its score comes from the traceback).  The (read, candidate)
     pairs of the masked reads are compacted batch-wide into `slot_cap`
-    slots, gathered and scored once each, and the scores are scattered back
-    to a dense [B, C] grid (0 where unscored).  The slots past the real
-    ones are scored at length 0, so the kernel does no work for them.
+    slots, scored once each, and the scores land in a dense [B, C] grid (0
+    where unscored): the fused score pass on the card (two kernels), its
+    plain version on the CPU (ops/score_pass_kernel.py).
     `traced`: add the pass to utils/trace.py's score counters.
     Returns (sw, slot_overflow).
     """
-    B, L = reads.shape
-    C = corr_start.shape[1]
-    W = band
-    T = L + W
-    S = slot_cap
-    dev = reads.device
-
-    eff_valid = cand_valid & score_mask[:, None]
-    n_sc = eff_valid.sum(dim=1, dtype=I32)
-    base = torch.cumsum(n_sc, dim=0, dtype=I32) - n_sc       # exclusive [B]
-    total = base[-1] + n_sc[-1]
-    slot_overflow = (total > S).to(I32)
+    res = score_pass(
+        genome, reads.contiguous(), rc.contiguous(), lengths.contiguous(),
+        corr_start.contiguous(), strand.contiguous(), cand_valid.contiguous(),
+        score_mask.contiguous(), matrices, gopen_q, gopen_r, gext, band=band,
+        slot_cap=slot_cap, mode=_sw_mode(end_to_end), pairs=pairs,
+        simple=simple_matrix,
+    )
     if traced:
-        trace.count_scores(n_sc, base, S)
-
-    # slot s belongs to the last read b with base[b] <= s
-    sar = torch.arange(S, dtype=I32, device=dev)
-    b_of = torch.searchsorted(base, sar, right=True, out_int32=True) - 1
-    slot_valid = sar < total.clamp(max=S)
-    j_of = sar - base[b_of.long()]
-    flat_idx = torch.where(slot_valid, b_of * C + j_of, 0).long()
-    b_s = torch.where(slot_valid, b_of, 0).long()
-
-    corr_starts = torch.where(slot_valid, corr_start.reshape(-1)[flat_idx], 0)
-    strand_s = strand.reshape(-1)[flat_idx]
-    # an invalid slot has length 0: it runs no DP row and scores (0, 0, 0)
-    len_s = torch.where(slot_valid, lengths[b_s], 0)
-    # one contiguous window per real candidate (kernel K2 on the card)
-    corr_s = gather_genome_windows(genome, corr_starts.contiguous(), T)
-    q_s = torch.where((strand_s == 1)[:, None], rc[b_s], reads[b_s])
-
-    # (kernel K1 on the card)
-    sres = sw_score(q_s, len_s, corr_s, matrices, gopen_q, gopen_r, gext,
-                    strand_s.contiguous(), band=W, mode=_sw_mode(end_to_end),
-                    simple=simple_matrix)
-    score_s = torch.where(slot_valid, sres.score, 0)
-
-    # scatter back; every invalid slot writes the one discarded dump index
-    sw = torch.zeros(B * C + 1, dtype=I32, device=dev)
-    sw[torch.where(slot_valid, flat_idx, B * C)] = score_s
-    sw = torch.where(eff_valid, sw[:B * C].reshape(B, C), 0)
-    return sw, slot_overflow
+        trace.count_scores(res.n_sc, res.base, slot_cap)
+    return res.sw, res.slot_overflow
 
 
 def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
@@ -408,12 +378,12 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
     bin_w = 1 << diag_bin_log2
 
     np_ = n_cands.reshape(P, 2)
-    pair_multi = (np_[:, 0] >= 2) | (np_[:, 1] >= 2)
+    pair_multi = np_.amax(dim=1) >= 2          # either mate has >= 2
     sw, slot_ovf = _score_candidates(
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
-        pair_multi.repeat_interleave(2), matrices, gopen_q, gopen_r, gext,
+        pair_multi, matrices, gopen_q, gopen_r, gext,
         band=band, slot_cap=slot_cap, end_to_end=end_to_end,
-        simple_matrix=simple_matrix, traced=traced,
+        simple_matrix=simple_matrix, pairs=True, traced=traced,
     )
     if traced:
         trace.mark("score", reads.device)

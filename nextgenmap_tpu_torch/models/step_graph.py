@@ -87,15 +87,16 @@ import torch
 from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
+from nextgenmap_tpu_torch.ops.score_pass_kernel import score_pass
 from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
-from nextgenmap_tpu_torch.ops.sw_kernel import sw_score
 from nextgenmap_tpu_torch.utils import trace
 from nextgenmap_tpu_torch.utils.logging import get_logger
 
 log = get_logger("ngm-torch.graph")
 
-# the kernel wrappers a mapping step calls (K1, K2, K4, K5, K6)
-KERNELS = (sw_score, gather_genome_windows, sw_align, read_kmers,
+# the kernel wrappers a mapping step calls (the fused score pass, K2, K4,
+# K5, K6)
+KERNELS = (score_pass, gather_genome_windows, sw_align, read_kmers,
            candidate_search)
 
 

@@ -37,6 +37,8 @@ SIGNATURES = {
     "ngm_gather_windows": (P, I64, P, I64, I32, P, P),
     "ngm_sw_score": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
                      P, P, P, P),
+    "ngm_score_pass": (P, P, P, P, I64, P, P, P, P, I32, P, I32, I32, I32,
+                       I32, I32, I32, I32, I32, I32, I32, P, P, P, P, P, P),
     "ngm_sw_align": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
                      I32, I32, I32, P, P, P, P, P, P),
     "ngm_sw_align_plan": (I32, I32, I32, I32, I32, P),

@@ -43,8 +43,8 @@ bare replay of its last capture under torch.profiler (its device nodes:
 kernels, memsets and copies, the kernels among them, and the device's
 busy share of that replay, ``tools/timing.py::device_profile``).  Eager only (a
 synchronise inside a graph cannot be): the traceback's share of the step
-(a synchronise on each side of ``sw_align``) and K1's real slots per batch
-(slots of length > 0) over TIMED batches.  And the peak device memory of
+(a synchronise on each side of ``sw_align``) and the score pass's real
+slots per batch (its asked-for slots, capped) over TIMED batches.  And the peak device memory of
 the cell (state, steps and the graph's pool).  Prints the card's name and
 power limit, one line per cell, and one JSON object as the last line.
 Needs a CUDA card.
@@ -118,12 +118,12 @@ def make_mapper(size: int, shards: int, changes: dict, read_len: int,
 
 class Instrument:
     """Within `with`: a synchronise on each side of every traceback call
-    (its seconds summed) and K1's real slots counted, by wrapping the two
-    functions the mapper module calls."""
+    (its seconds summed) and the score pass's real slots counted, by
+    wrapping the two functions the mapper module calls."""
 
     def __enter__(self):
         self.tb_s, self.slots = 0.0, 0
-        self.orig = (mapper_mod.sw_align, mapper_mod.sw_score)
+        self.orig = (mapper_mod.sw_align, mapper_mod.score_pass)
 
         def align(*a, **k):
             torch.cuda.synchronize()
@@ -134,14 +134,15 @@ class Instrument:
             return out
 
         def score(*a, **k):
-            self.slots += int((a[1] > 0).sum())
-            return self.orig[1](*a, **k)
+            out = self.orig[1](*a, **k)
+            self.slots += min(int(out.n_sc.sum()), k["slot_cap"])
+            return out
 
-        mapper_mod.sw_align, mapper_mod.sw_score = align, score
+        mapper_mod.sw_align, mapper_mod.score_pass = align, score
         return self
 
     def __exit__(self, *exc):
-        mapper_mod.sw_align, mapper_mod.sw_score = self.orig
+        mapper_mod.sw_align, mapper_mod.score_pass = self.orig
 
 
 def run_cell(name: str, device="cuda") -> dict:
@@ -182,7 +183,7 @@ def run_cell(name: str, device="cuda") -> dict:
         m.graphs = graphs
         steps(0, 1)         # the graph's capture; the eager allocator
         warm = steps(1, WARM)
-        replays, launched = graphs.replays, mapper_mod.sw_score.launches
+        replays, launched = graphs.replays, mapper_mod.score_pass.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall = sum(steps(1 + WARM, PROFILED))
@@ -195,8 +196,8 @@ def run_cell(name: str, device="cuda") -> dict:
             "step_ms_min": 1e3 * min(warm), "step_ms_max": 1e3 * max(warm),
             "device_busy": busy_us / 1e6 / wall if busy_us else None,
             "kernel_launches_per_batch": kernels / PROFILED,
-            "k1_launches_per_batch": (mapper_mod.sw_score.launches
-                                      - launched) / PROFILED,
+            "score_pass_launches_per_batch": (
+                mapper_mod.score_pass.launches - launched) / PROFILED,
             "graph_replays_per_batch": (graphs.replays - replays) / PROFILED,
         }
         if not graphs.eager:    # the graph's own nodes: a bare replay
@@ -257,8 +258,8 @@ def print_cell(name: str, r: dict) -> None:
             f"{form}: step {f['step_ms']:.2f} ms median of {WARM} "
             f"({f['step_ms_min']:.2f}-{f['step_ms_max']:.2f}), device busy "
             f"{busy} over {PROFILED} steps, "
-            f"{f['kernel_launches_per_batch']:.0f} kernels, K1 "
-            f"{f['k1_launches_per_batch']:.0f} and "
+            f"{f['kernel_launches_per_batch']:.0f} kernels, score pass "
+            f"{f['score_pass_launches_per_batch']:.0f} and "
             f"{f['graph_replays_per_batch']:.0f} graph replays a batch"
             + (f", a bare replay {f['graph_nodes']} device nodes "
                f"({f['graph_kernels']} kernels), busy "

@@ -1,8 +1,10 @@
-"""The score pass hands its invalid slots to K1 at length 0.
+"""The plain score pass hands its invalid slots to K1 at length 0.
 
 The lazy (single, paired) and eager (top-n) score passes compact the real
 (read, candidate) pairs into the first slots; the rest are invalid.  The
-port scores them at length 0, so K1 runs no DP row for them, and every
+plain pass (ops/score_pass_kernel.py::score_pass_plain, the CPU's) scores
+them at length 0, so K1 runs no DP row for them (the fused pass on a card
+never runs them at all), and every
 MapResult field of the three steps still equals the JAX package's.  The
 plain banded_sw_score returns (0, 0, 0) for a slot of length 0 in both
 modes, whatever its query and corridor hold.
@@ -18,6 +20,7 @@ pytest.importorskip("jax")
 from nextgenmap_tpu.models import mapper as jmapper  # noqa: E402
 from nextgenmap_tpu_torch.convert import config_from_reference  # noqa: E402
 from nextgenmap_tpu_torch.models import mapper as tmapper  # noqa: E402
+from nextgenmap_tpu_torch.ops import score_pass_kernel  # noqa: E402
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_score  # noqa: E402
 from nextgenmap_tpu_torch.pipeline.runner import slots_scored  # noqa: E402
 from tests.test_torch_mapper import L, assert_results_equal, repeats  # noqa: E402,F401
@@ -51,13 +54,13 @@ def test_invalid_slots_scored_at_length_zero(repeats, monkeypatch, step,
     reads, lens = reads.copy(), lens.copy()
     reads[-16:], lens[-16:] = 4, 0
     seen = []
-    score = tmapper.sw_score
+    score = score_pass_kernel.sw_score
 
     def spy(q, qlen, corr, *args, **kw):
         seen.append(qlen.clone())
         return score(q, qlen, corr, *args, **kw)
 
-    monkeypatch.setattr(tmapper, "sw_score", spy)
+    monkeypatch.setattr(score_pass_kernel, "sw_score", spy)
 
     class _G:
         codes = g

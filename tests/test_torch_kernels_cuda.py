@@ -29,7 +29,9 @@ replayed in one captured graph.  The index-shard loop (single, paired, the
 cross-shard tail pool and top-n) runs on the card against the CPU, and so
 do the dp step and the ("dp", "ish") grid on two and four slots of card 0;
 with two cards or more, K1 and K2 run on tensors of the last card while
-card 0 is current.
+card 0 is current.  The mapping paths launch the fused score pass
+(tests/test_torch_score_pass.py holds it against its plain version) and K2
+once a tail, for the traceback's corridor.
 
 Marked `cuda`: every test needs a CUDA card and skips without one (the
 kernels have no CPU mode).  Run on the card with
@@ -50,6 +52,7 @@ from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
 from nextgenmap_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+from nextgenmap_tpu_torch.ops.score_pass_kernel import score_pass
 from nextgenmap_tpu_torch.ops.scoring import score_matrix
 from nextgenmap_tpu_torch.ops.sw_align_kernel import (
     sw_align, sw_align_with_dirs,
@@ -535,11 +538,11 @@ def test_mapper_cuda_equals_cpu(dev):
 
     gpu = Mapper(cfg, _G(), 100, device=dev)
     cpu = Mapper(cfg, _G(), 100, device="cpu")
-    launches = (sw_score.launches, gather_genome_windows.launches,
+    launches = (score_pass.launches, gather_genome_windows.launches,
                 sw_align.launches, *front_launches())
     a, n = steps_run(gpu, lambda: gpu.map_batch(codes, lens))
-    assert sw_score.launches == launches[0] + n
-    assert gather_genome_windows.launches == launches[1] + 2 * n
+    assert score_pass.launches == launches[0] + n
+    assert gather_genome_windows.launches == launches[1] + n
     assert sw_align.launches == launches[2] + n
     assert front_launches() == (launches[3] + n, launches[4] + n)
     b = cpu.map_batch(codes, lens)
@@ -646,17 +649,18 @@ def _mappers(dev, cfg, g, read_len=100):
 
 
 def test_paired_and_topn_cuda_equal_cpu(dev):
-    """Both new paths launch K1 and K2 on the card and equal the CPU."""
+    """Both paths launch the fused score pass and K2 on the card and equal
+    the CPU."""
     g = repeat_genome(60_000, n_repeats=12, min_len=800, max_len=2000, seed=7)
     lens = np.full(256, 100, np.int32)
     gpu, cpu = _mappers(dev, NgmConfig(kmer=11, topn=2), g)
 
     codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=8)
-    launches = (sw_score.launches, gather_genome_windows.launches,
+    launches = (score_pass.launches, gather_genome_windows.launches,
                 *front_launches())
     a, n = steps_run(gpu, lambda: gpu.map_batch_paired(codes, lens))
-    assert sw_score.launches == launches[0] + n
-    assert gather_genome_windows.launches == launches[1] + 2 * n
+    assert score_pass.launches == launches[0] + n
+    assert gather_genome_windows.launches == launches[1] + n
     assert front_launches() == (launches[2] + n, launches[3] + n)
     b = cpu.map_batch_paired(codes, lens)
     for f in a._fields:
@@ -664,11 +668,11 @@ def test_paired_and_topn_cuda_equal_cpu(dev):
     assert int(b.proper.sum()) > 200
 
     codes, _, _ = simulate_reads(g, 256, 100, 0.02, seed=9)
-    launches = (sw_score.launches, gather_genome_windows.launches,
+    launches = (score_pass.launches, gather_genome_windows.launches,
                 *front_launches())
     a, n = steps_run(gpu, lambda: gpu.map_batch_topn(codes, lens))
-    assert sw_score.launches == launches[0] + n
-    assert gather_genome_windows.launches == launches[1] + 2 * n
+    assert score_pass.launches == launches[0] + n
+    assert gather_genome_windows.launches == launches[1] + n
     assert front_launches() == (launches[2] + n, launches[3] + n)
     b = cpu.map_batch_topn(codes, lens)
     for j, (ra, rb) in enumerate(zip(a, b)):
@@ -684,7 +688,8 @@ def test_paired_and_topn_cuda_equal_cpu(dev):
 ])
 def test_modes_cuda_equal_cpu(dev, change, read_len):
     """Single, paired and top-n steps in each mode, and for long reads,
-    launch K1 and K2 on the card and equal the CPU from the same state."""
+    launch the fused score pass and K2 on the card and equal the CPU from
+    the same state."""
     g = repeat_genome(60_000, n_repeats=12, min_len=800, max_len=2000, seed=10)
     gpu, cpu = _mappers(dev, NgmConfig(kmer=11, topn=2).replace(**change), g,
                         read_len)
@@ -692,11 +697,11 @@ def test_modes_cuda_equal_cpu(dev, change, read_len):
     lens = np.full(B, read_len, np.int32)
     codes, _, _ = simulate_long_reads(g, B, read_len, 0.02, 0.004, seed=11)
     for step in ("map_batch", "map_batch_paired", "map_batch_topn"):
-        launches = (sw_score.launches, gather_genome_windows.launches,
+        launches = (score_pass.launches, gather_genome_windows.launches,
                     *front_launches())
         a, n = steps_run(gpu, lambda: getattr(gpu, step)(codes, lens))
-        assert sw_score.launches == launches[0] + n
-        assert gather_genome_windows.launches == launches[1] + 2 * n
+        assert score_pass.launches == launches[0] + n
+        assert gather_genome_windows.launches == launches[1] + n
         assert front_launches() == (launches[2] + n, launches[3] + n)
         b = getattr(cpu, step)(codes, lens)
         ranks = (a, b) if step == "map_batch_topn" else ((a,), (b,))
@@ -712,9 +717,9 @@ def test_modes_cuda_equal_cpu(dev, change, read_len):
 ])
 def test_sharded_step_cuda_equals_cpu(dev, step, compact_cap):
     """The shard loop over 3 shards on the card == on the CPU, from the same
-    ShardedIndex: full per-shard tails launch K1 once and K2 twice per
-    shard, the cross-shard pool (512 rows < 3 x 256) once and twice in all,
-    top-n once and twice per shard."""
+    ShardedIndex: full per-shard tails launch the score pass and K2 once
+    each per shard, the cross-shard pool (512 rows < 3 x 256) once each in
+    all, top-n once each per shard."""
     from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
     from nextgenmap_tpu_torch.models.mapper import map_step_sharded
     from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
@@ -747,11 +752,11 @@ def test_sharded_step_cuda_equals_cpu(dev, step, compact_cap):
             *m._common_args(codes, lens), *pair, paired=step == "paired",
             read_len=100, compact_cap=compact_cap, **m.statics()),)
 
-    launches = (sw_score.launches, gather_genome_windows.launches)
+    launches = (score_pass.launches, gather_genome_windows.launches)
     a, steps = steps_run(gpu, lambda: run(gpu))
     n = (1 if compact_cap else 3) * steps
-    assert sw_score.launches == launches[0] + n
-    assert gather_genome_windows.launches == launches[1] + 2 * n
+    assert score_pass.launches == launches[0] + n
+    assert gather_genome_windows.launches == launches[1] + n
     b = run(cpu)
     for j, (ra, rb) in enumerate(zip(a, b)):
         for f in ra._fields:
@@ -798,8 +803,8 @@ def test_kernels_on_the_last_card(dev):
 def test_two_slots_on_one_card_equal_cpu(dev, shards):
     """--devices on the slots [cuda:0] x 2 (the dp step, its two slices one
     graph) and [cuda:0] x 4 with 2 shards (the ("dp", "ish") grid, its two
-    rows one graph) equal the CPU's one-device run, with K1 and K2
-    launched once and twice per shard of each step run: the two slices
+    rows one graph) equal the CPU's one-device run, with the score pass
+    and K2 launched once each per shard of each step run: the two slices
     (rows) of the batch, and the one slice of each capture's eager
     warm-up."""
     from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
@@ -825,13 +830,13 @@ def test_two_slots_on_one_card_equal_cpu(dev, shards):
         else:
             codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=seed)
         lens = np.full(256, 100, np.int32)
-        launches = (sw_score.launches, gather_genome_windows.launches)
+        launches = (score_pass.launches, gather_genome_windows.launches)
         c0 = len(gpu.graphs.captures)
         a = getattr(gpu, step)(codes, lens)
         torch.cuda.synchronize()
         n = (2 + len(gpu.graphs.captures) - c0) * shards
-        assert sw_score.launches == launches[0] + n
-        assert gather_genome_windows.launches == launches[1] + 2 * n
+        assert score_pass.launches == launches[0] + n
+        assert gather_genome_windows.launches == launches[1] + n
         b = getattr(cpu, step)(codes, lens)
         for f in a._fields:
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (step, f)
@@ -919,7 +924,7 @@ def test_step_graph_equals_eager_on_card(dev, path):
         return getattr(m, call)(codes, lengths)
 
     def counts():
-        return [k.launches for k in (sw_score, gather_genome_windows,
+        return [k.launches for k in (score_pass, gather_genome_windows,
                                      sw_align, read_kmers, candidate_search)]
 
     first = run(graph, batches[0], lens)

@@ -289,3 +289,96 @@ def test_traced_graph_on_card(card, data, paired):
     assert all(got["phase_ns"][p] > 0 for p in trace.PHASES[1:])
     assert [got[c] for c in trace.COUNTERS] == (2 * want).tolist()
     assert len(m.graphs.captures) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired", [False, True])
+def test_fused_pass_counters_equal_the_plain_pass(card, data, port, paired):
+    """The three score counters of one step with a slot cap that ends
+    inside a read: the card's fused pass (score_plan_kernel's n_sc and
+    base) counts what the CPU's plain pass counts on the same reads."""
+    codes, lens = data[paired][0], data["lens"][0]
+    n = np.asarray(step(port, codes, lens, paired).n_candidates)
+    cap = int(expected_counts(n, paired, 1 << 30)[0]) // 2
+    trace.enable("cpu")
+    want = step(port, codes, lens, paired, slot_cap=cap)
+    plain = trace.read()
+    m = tmapper.Mapper(NgmConfig(kmer=11), _G(), L, device=card)
+    trace.enable(card)
+    got = step(m, codes, lens, paired, slot_cap=cap)
+    fused = trace.read()
+    assert_equal(want, got._replace(**{f: getattr(got, f).cpu()
+                                       for f in got._fields}))
+    assert [fused[c] for c in trace.COUNTERS] == \
+        [plain[c] for c in trace.COUNTERS]
+    assert [plain[c] for c in trace.COUNTERS] == expected_counts(
+        want.n_candidates, paired, cap)
+    assert plain["reads_unscored"] > 0
+
+
+def ordered_records(m, codes, lens, paired):
+    """The device records of one map_batch_scan replay in the order they
+    ran (user annotations left out), after a first call as in
+    `profiled`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m.map_batch_scan(codes, lens, paired=paired)
+        torch.cuda.synchronize()
+        with record_function("between_calls"):
+            pass
+        m.map_batch_scan(codes, lens, paired=paired)
+        torch.cuda.synchronize()
+    events = prof.events()
+    (cut,) = [e.time_range.start for e in events
+              if e.name == "between_calls"
+              and e.device_type != DeviceType.CUDA]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)
+            if e.device_type == DeviceType.CUDA and e.time_range.start >= cut
+            and not (getattr(e, "is_user_annotation", False)
+                     or e.name.startswith("ngm.")
+                     or e.name == "between_calls")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paired", [False, True])
+def test_score_pass_records_on_card(card, data, paired):
+    """The score pass of a replay is at most 4 device records a step: the
+    records between each step's `front` and `score` marks (the counter
+    kernel left out) hold the plan and the fused kernel and no K1 or K2;
+    the untraced replay's records are the traced ones without the marks
+    and the counters, so it holds the same few."""
+    m = tmapper.Mapper(NgmConfig(kmer=11), _G(), L, device=card)
+    codes, lens = data[paired], data["lens"]
+    m.map_batch_scan(codes, lens, paired=paired)
+    trace.enable(card)
+    m.map_batch_scan(codes, lens, paired=paired)
+    for _ in range(3):          # CUPTI may drop records from a window
+        trace.enable(card)
+        on = ordered_records(m, codes, lens, paired)
+        trace.disable()
+        off = ordered_records(m, codes, lens, paired)
+        phases = [[]]
+        for name in on:
+            hit = MARK.search(name)
+            if hit:
+                phases[-1].append(int(hit.group(1)))
+                phases.append([])
+            elif COUNT not in name:
+                phases[-1].append(name)
+        # phases[i] ends with the index of the mark that closed it
+        score = [p[:-1] for p in phases if p and p[-1] == 2]
+        rest = collections.Counter(n for n in on if not MARK.search(n)
+                                   and COUNT not in n)
+        if len(score) == K and rest == collections.Counter(off):
+            break
+    assert len(score) == K
+    assert rest == collections.Counter(off)
+    for names in score:
+        assert len(names) <= 4, names
+        assert sum("score_plan_kernel" in n for n in names) == 1, names
+        assert sum("score_pass_kernel" in n for n in names) == 1, names
+        assert not any("sw_score_kernel" in n or "gather_windows" in n
+                       for n in names), names
