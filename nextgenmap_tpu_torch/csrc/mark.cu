@@ -4,7 +4,8 @@
 // Replaces no TPU kernel: the reference has no tracing inside its jitted
 // steps.  They exist so that a captured step graph can say, on the device's
 // own clock, where its time goes, and how much work the score pass's slot
-// cap left undone, without a host read inside the graph.
+// cap and candidate search's hit cap left undone, without a host read
+// inside the graph.
 //
 // ngm_mark_kernel<p>: one thread reads %globaltimer (ns) and folds it into
 // an int64 accumulator buffer
@@ -16,6 +17,18 @@
 // safe.  The phase is a template argument, so a profiler's record names
 // it: "ngm_mark_kernel<2>" is the end of the score pass.
 //
+// ngm_inner_mark_kernel<c>: the open (c 0) and close (c 1) marks of a phase
+// inside another (the traceback inside the finish), on a chain of its own
+// that the marks above never read or write:
+//   chain[0]  the time of its last open mark,
+//   chain[1]  ns from open to close, summed,
+//   chain[2]  close marks.
+// Its records never name a phase of ngm_mark_kernel.
+//
+// ngm_hit_counts_kernel: one thread adds candidate search's count of the
+// reads whose hits passed the per-read cap H (an int32 on the device) to
+// an int64 counter.
+//
 // ngm_score_counts_kernel: one block over a batch's reads; from n_sc (the
 // real slots each read asks of the score pass) and base (their exclusive
 // prefix sum) it adds to out[3]
@@ -23,8 +36,8 @@
 //   out[1]  the slots scored,          min(sum n_sc, S),
 //   out[2]  reads left (partly) unscored: n_sc > 0 and base + n_sc > S.
 //
-// What bounds them: launch latency, a few microseconds each; the counter
-// kernel reads 8 bytes a read.  They run only in a graph captured while
+// What bounds them: launch latency, a few microseconds each; the score
+// counter kernel reads 8 bytes a read.  They run only in a graph captured while
 // tracing is on.
 
 #include <cstdint>
@@ -48,6 +61,22 @@ __global__ void ngm_mark_kernel(long long* acc) {
   if (kPhase > 0) acc[1 + 2 * kPhase] += t - acc[0];
   acc[2 + 2 * kPhase] += 1;
   acc[0] = t;
+}
+
+template <int kClose>
+__global__ void ngm_inner_mark_kernel(long long* chain) {
+  const long long t = global_ns();
+  if (kClose) {
+    chain[1] += t - chain[0];
+    chain[2] += 1;
+  } else {
+    chain[0] = t;
+  }
+}
+
+__global__ void ngm_hit_counts_kernel(const int32_t* capped,
+                                      long long* out) {
+  *out += *capped;
 }
 
 __global__ void __launch_bounds__(kCountThreads)
@@ -97,6 +126,23 @@ extern "C" int ngm_mark(void* acc, int phase, void* stream) {
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   static_assert(kPhases == 5, "one case per phase");
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ngm_inner_mark(void* chain, int close, void* stream) {
+  auto* c = static_cast<long long*>(chain);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (close) {
+    ngm_inner_mark_kernel<1><<<1, 1, 0, s>>>(c);
+  } else {
+    ngm_inner_mark_kernel<0><<<1, 1, 0, s>>>(c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ngm_hit_counts(const void* capped, void* out, void* stream) {
+  ngm_hit_counts_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(capped), static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

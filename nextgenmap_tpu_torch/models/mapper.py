@@ -114,7 +114,8 @@ def _pre_extract(reads, lengths, *, k, read_stride=1, bs=False, bs_cutoff=0,
 def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
                 max_freq, pre=None, *, k, fanout_cap, hit_cap, max_cmrs,
                 diag_bin_log2, band, min_kmer_hits, read_stride=1,
-                packed_offsets=False, bs=False, bs_cutoff=0, canonical=True):
+                packed_offsets=False, bs=False, bs_cutoff=0, canonical=True,
+                traced=False):
     """CS on both strands -> candidates ordered by (strand, corridor start).
 
     Valid candidates form a per-read prefix after the ordering (DESIGN.md
@@ -122,7 +123,8 @@ def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
     bucket hit counts in the same order, n_cands, rc, best [B] the best
     bucket count, (fanout + hit overflow, cmr overflow), extra_score [B] the
     (C+1)-th best eligible count).  `pre` is _pre_extract's result when the
-    caller already has it.
+    caller already has it.  `traced`: add the search's hit-capped reads to
+    utils/trace.py's counters.
     """
     B, L = reads.shape
     W = band
@@ -141,6 +143,8 @@ def _candidates(genome, offsets, positions, reads, lengths, sensitivity,
         diag_bin_log2=diag_bin_log2, stride=read_stride,
         packed_offsets=packed_offsets, dual_tables=bs,
     )
+    if traced:
+        trace.count_hits(cand.hit_overflow)
     cs_score, strand = cand.score, cand.strand
     cand_valid = cs_score >= max(1, min_kmer_hits)
     if min_kmer_hits > 1:
@@ -201,9 +205,12 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
 def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
             lengths, matrices, gopen_q, gopen_r, gext, min_identity,
             min_residues, n_cands, overflow, proper, *, band,
-            end_to_end=False, simple_matrix=False):
+            end_to_end=False, simple_matrix=False, traced=False):
     """Traceback the chosen candidate a1 [B] and apply filters + MAPQ;
-    `proper` [B] (the pair resolution's verdict) is gated by `mapped`."""
+    `proper` [B] (the pair resolution's verdict) is gated by `mapped`.
+    `traced`: the inner phase ``align`` (utils/trace.py) spans the
+    traceback: the winner's corridor fetch K2, its query's strand select
+    and K4."""
     B, C = sw.shape
     L = reads.shape[1]
     T = L + band
@@ -218,6 +225,8 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
     s2 = torch.where(far, sw, 0).max(dim=1).values
 
     starts = torch.where(a1_valid, best_start, 0).clamp(0, max(0, G - T))
+    if traced:
+        trace.mark_inner("align", reads.device, close=False)
     best_corr = gather_genome_windows(genome, starts.to(I32).contiguous(), T)
     best_query = torch.where((best_strand == 1)[:, None], rc, reads)
     # (kernel K4 on the card)
@@ -226,6 +235,8 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
         best_strand, band=band, mode=_sw_mode(end_to_end),
         simple=simple_matrix,
     )
+    if traced:
+        trace.mark_inner("align", reads.device, close=True)
     s1 = torch.where(a1_valid, ares.score, 0)
 
     f32 = torch.float32
@@ -295,7 +306,7 @@ def _single_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
         a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
         matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
         n_cands, overflow, proper, band=band, end_to_end=end_to_end,
-        simple_matrix=simple_matrix,
+        simple_matrix=simple_matrix, traced=traced,
     )
     if traced:
         trace.mark("finish", dev)
@@ -317,13 +328,15 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def _front(genome, offsets, positions, reads, lengths, sensitivity, max_freq,
-           **cand_statics):
+           traced=False, **cand_statics):
     """What every step shares: (int32 lengths, rc, (corr_start, strand,
-    cand_valid, n_cands, overflow)), the ordered candidates of both strands."""
+    cand_valid, n_cands, overflow)), the ordered candidates of both strands.
+    `traced`: count the search's hit-capped reads (utils/trace.py)."""
     lengths = lengths.to(I32)
     corr_start, strand, cand_valid, _, n_cands, rc, _, overflow, _ = _candidates(
         genome, offsets, positions, reads, lengths,
-        _f32(sensitivity, reads.device), int(max_freq), **cand_statics,
+        _f32(sensitivity, reads.device), int(max_freq), traced=traced,
+        **cand_statics,
     )
     return lengths, rc, (corr_start, strand, cand_valid, n_cands, overflow)
 
@@ -340,17 +353,18 @@ def map_step(
     that holds `reads`.  sensitivity, min_identity and min_residues are
     taken as float32, like the reference's jnp.float32 arguments.  While
     `reads`' device is traced (utils/trace.py) the step marks its phases
-    and counts its score pass."""
+    and its traceback and counts its score pass and hit-capped reads."""
     dev = reads.device
     traced = trace.on(dev)
     if traced:
         trace.mark("start", dev)
     lengths, rc, cands = _front(
         genome, offsets, positions, reads, lengths, sensitivity, max_freq,
-        k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
-        diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
-        read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
-        bs_cutoff=bs_cutoff, canonical=canonical,
+        traced, k=k, fanout_cap=fanout_cap, hit_cap=hit_cap,
+        max_cmrs=max_cmrs, diag_bin_log2=diag_bin_log2, band=band,
+        min_kmer_hits=min_kmer_hits, read_stride=read_stride,
+        packed_offsets=packed_offsets, bs=bs, bs_cutoff=bs_cutoff,
+        canonical=canonical,
     )
     if traced:
         trace.mark("front", dev)
@@ -436,7 +450,7 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
         a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
         matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
         n_cands, overflow, proper_pair.repeat_interleave(2), band=band,
-        end_to_end=end_to_end, simple_matrix=simple_matrix,
+        end_to_end=end_to_end, simple_matrix=simple_matrix, traced=traced,
     )
     if traced:
         trace.mark("finish", reads.device)
@@ -468,10 +482,11 @@ def map_step_paired(
         trace.mark("start", dev)
     lengths, rc, cands = _front(
         genome, offsets, positions, reads, lengths, sensitivity, max_freq,
-        k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
-        diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
-        read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
-        bs_cutoff=bs_cutoff, canonical=canonical,
+        traced, k=k, fanout_cap=fanout_cap, hit_cap=hit_cap,
+        max_cmrs=max_cmrs, diag_bin_log2=diag_bin_log2, band=band,
+        min_kmer_hits=min_kmer_hits, read_stride=read_stride,
+        packed_offsets=packed_offsets, bs=bs, bs_cutoff=bs_cutoff,
+        canonical=canonical,
     )
     if traced:
         trace.mark("front", dev)

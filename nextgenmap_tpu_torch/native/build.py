@@ -51,6 +51,8 @@ SIGNATURES = {
                         I32, I32, I32, I32, I32, I32, I32, I32, I32, I32, P,
                         I64, P, P, P, P, P, P, P),
     "ngm_mark": (P, I32, P),
+    "ngm_inner_mark": (P, I32, P),
+    "ngm_hit_counts": (P, P, P),
     "ngm_score_counts": (P, P, I32, I32, P, P),
 }
 

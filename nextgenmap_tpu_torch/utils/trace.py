@@ -1,5 +1,5 @@
 """The program's own tracing: phase marks inside the step graph, score-pass
-counters and host spans.
+and hit-cap counters and host spans.
 
 Off by default.  ``enable(device)`` turns it on for the process, for the
 steps run on `device`; ``disable()`` turns it off.  Off,
@@ -17,10 +17,21 @@ span, and the graphs it captures hold no node of it.  On:
     and counts it; its profiler record names the phase
     (``ngm_mark_kernel<p>``, p the index in PHASES).  On the CPU a mark
     does nothing.
+  * Inner marks.  ``_finish`` opens and closes ``align`` (INNER) around
+    the traceback: the winner's corridor fetch K2, its query's strand
+    select and K4.  Its ns and
+    marks sum on a chain of their own (``ngm_inner_mark_kernel<c>``, c 0
+    open, 1 close), so the five phases read as they do without it:
+    ``finish`` still runs from the ``select`` mark to the ``finish`` mark.
   * Score-pass counters.  Each score pass of those steps adds the slots it
     was asked for (before the slot cap), the slots it scored and the reads
-    it left wholly or partly unscored (COUNTERS) into a device buffer:
-    one counter kernel on a card, torch reductions on the CPU.
+    it left wholly or partly unscored into a device buffer: one counter
+    kernel on a card, torch reductions on the CPU.
+  * Hit-cap counter.  Each candidate search of those steps adds K6's
+    count of the reads whose hits passed the per-read cap H
+    (``reads_hit_capped``; the step's ``fanout_overflow`` holds it summed
+    with the k-mer rows cut by the fan-out cap): one one-thread kernel on
+    a card, a torch add on the CPU.
   * Host spans.  ``span(name)`` is a ``torch.profiler.record_function``
     range (``ngm.map_batch_scan``, ``ngm.graph.*``), so that in a profiler
     window every idle gap of the device falls inside a span of the
@@ -50,13 +61,16 @@ import torch
 from nextgenmap_tpu_torch.native import build
 
 PHASES = ("start", "front", "score", "select", "finish")
-COUNTERS = ("score_slots_demanded", "score_slots_scored", "reads_unscored")
+INNER = ("align",)      # phases inside another, each on a chain of its own
+COUNTERS = ("score_slots_demanded", "score_slots_scored", "reads_unscored",
+            "reads_hit_capped")
+_MARKS = 1 + 2 * len(PHASES)    # csrc/mark.cu's layout; then 3 an inner phase
 _NO_SPAN = contextlib.nullcontext()
 
 
 class _State(NamedTuple):
     device: torch.device
-    marks: torch.Tensor      # int64 [1 + 2 len(PHASES)], csrc/mark.cu's layout
+    marks: torch.Tensor      # int64 [_MARKS + 3 len(INNER)]
     counters: torch.Tensor   # int64 [len(COUNTERS)]
 
 
@@ -74,7 +88,7 @@ def enable(device) -> None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if dev not in _kept:
         _kept[dev] = _State(
-            dev, torch.zeros(1 + 2 * len(PHASES), dtype=torch.int64,
+            dev, torch.zeros(_MARKS + 3 * len(INNER), dtype=torch.int64,
                              device=dev),
             torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev))
     _state = _kept[dev]
@@ -105,6 +119,35 @@ def mark(phase: str, device) -> None:
     build.check(code, "mark")
 
 
+def mark_inner(phase: str, device, *, close: bool) -> None:
+    """Open (or close) the inner `phase` on `device`'s current stream;
+    nothing on the CPU or while `device` is not traced."""
+    if not on(device) or device.type != "cuda":
+        return
+    chain = _state.marks.data_ptr() + 8 * (_MARKS + 3 * INNER.index(phase))
+    code = build.load().ngm_inner_mark(chain, int(close), _stream(device))
+    build.check(code, "inner mark")
+
+
+def count_hits(capped: torch.Tensor) -> None:
+    """Add one candidate search's count of hit-capped reads (a [] int32
+    on the device) to ``reads_hit_capped``.  Nothing while its device is
+    not traced."""
+    if not on(capped.device):
+        return
+    if capped.dtype != torch.int32 or capped.numel() != 1:
+        raise ValueError("capped must be one int32")
+    at = COUNTERS.index("reads_hit_capped")
+    out = _state.counters
+    if capped.device.type == "cuda":
+        code = build.load().ngm_hit_counts(
+            capped.data_ptr(), out.data_ptr() + 8 * at,
+            _stream(capped.device))
+        build.check(code, "hit_counts")
+        return
+    out[at] += capped.reshape(())
+
+
 def count_scores(n_sc: torch.Tensor, base: torch.Tensor,
                  slot_cap: int) -> None:
     """Add one score pass to the counters: n_sc [B] int32 the real slots
@@ -123,8 +166,8 @@ def count_scores(n_sc: torch.Tensor, base: torch.Tensor,
         build.check(code, "score_counts")
         return
     asked = n_sc.sum(dtype=torch.int64)
-    out += torch.stack([asked, asked.clamp(max=slot_cap),
-                        ((n_sc > 0) & (base + n_sc > slot_cap)).sum()])
+    out[:3] += torch.stack([asked, asked.clamp(max=slot_cap),
+                            ((n_sc > 0) & (base + n_sc > slot_cap)).sum()])
 
 
 def span(name: str):
@@ -156,19 +199,29 @@ def restore(saved) -> None:
 
 def read() -> dict:
     """The accumulators on the host (waits for the device): ``phase_ns``
-    and ``phase_marks`` {phase: int} (``start`` has marks only) and the
+    and ``phase_marks`` {phase: int} of PHASES (``start`` has marks only),
+    ``inner_ns`` and ``inner_marks`` {phase: int} of INNER, and the
     COUNTERS.  Empty while tracing is off."""
     if _state is None:
         return {}
     m = _state.marks.tolist()
     out = {"phase_ns": {p: m[1 + 2 * i] for i, p in enumerate(PHASES) if i},
-           "phase_marks": {p: m[2 + 2 * i] for i, p in enumerate(PHASES)}}
+           "phase_marks": {p: m[2 + 2 * i] for i, p in enumerate(PHASES)},
+           "inner_ns": {p: m[_MARKS + 3 * i + 1]
+                        for i, p in enumerate(INNER)},
+           "inner_marks": {p: m[_MARKS + 3 * i + 2]
+                           for i, p in enumerate(INNER)}}
     out.update(zip(COUNTERS, _state.counters.tolist()))
     return out
 
 
 def phase_us(reading: dict) -> dict:
-    """{phase: mean us a step} of the marked phases of a ``read()``."""
-    marks = reading.get("phase_marks", {})
-    return {p: ns / marks[p] / 1e3
-            for p, ns in reading.get("phase_ns", {}).items() if marks[p]}
+    """{phase: mean us a step} of the marked phases, and then the inner
+    ones, of a ``read()``."""
+    out = {}
+    for kind in ("phase", "inner"):
+        marks = reading.get(f"{kind}_marks", {})
+        out.update((p, ns / marks[p] / 1e3)
+                   for p, ns in reading.get(f"{kind}_ns", {}).items()
+                   if marks[p])
+    return out

@@ -1,5 +1,5 @@
-"""The program's tracing (utils/trace.py): phase marks, score-pass counters
-and host spans.
+"""The program's tracing (utils/trace.py): phase marks, the traceback's
+inner marks, score-pass and hit-cap counters and host spans.
 
 On the CPU:
   * map_step and map_step_paired give the same outputs, field by field,
@@ -7,6 +7,9 @@ On the CPU:
   * on batches whose score pass overflows a small slot cap, the three
     score counters equal a count made apart from the program, from the
     outputs' n_candidates and the cap, with a read only partly scored;
+  * at 150 and 1000 bp, at the rule's hit cap H and at a small one,
+    `reads_hit_capped` equals the hit_overflow of a plain candidate search
+    on the step's reads, and the step's outputs equal the untraced ones;
   * under torch.profiler the ngm.* spans appear while tracing is on and
     not while it is off;
   * a mark does nothing on the CPU, and nothing anywhere while tracing is
@@ -14,12 +17,15 @@ On the CPU:
   * `ngm map --profile` logs the counters with its summary.
 On the card (marked `cuda`, skipped without one), single-end and paired:
 an untraced graph's profiled records hold no mark, a traced graph's hold
-exactly 5 K marks (K of each phase) and K counter kernels more and
-otherwise the same records; the traced outputs equal the untraced ones;
-the accumulators count K marks of each phase a replay and nothing of the
-warm-up; the counters equal the count from the outputs; the graph spans
-appear only while tracing.
-Tolerance: exact equality.
+exactly 5 K marks (K of each phase), K pairs of inner marks and K of each
+counter kernel more and otherwise the same records; the traced outputs
+equal the untraced ones; the accumulators count K marks of each phase and
+K of `align` a replay and nothing of the warm-up; the counters equal the
+count from the outputs; the graph spans appear only while tracing.  At
+[614, 1000] x W 184: K4 takes its global route, a traced graph has one
+`align` pair a step around the step's one K2, the query's strand select
+and its one K4, and `align` reads within a few us of those records.
+Tolerance: exact equality; `align` against its records: 0 to 12 us a step.
 """
 
 import collections
@@ -40,7 +46,16 @@ from nextgenmap_tpu_torch.utils import trace
 L, B, K = 100, 64, 2
 CPU = torch.device("cpu")
 MARK = re.compile(r"ngm_mark_kernel<(\d)>")
+INNER = re.compile(r"ngm_inner_mark_kernel<(\d)>")
 COUNT = "ngm_score_counts_kernel"
+HITS = "ngm_hit_counts_kernel"
+SCORE = ("score_slots_demanded", "score_slots_scored", "reads_unscored")
+
+
+def tracing_record(name: str) -> bool:
+    """Whether a device record is one of the tracing's own kernels."""
+    return bool(MARK.search(name) or INNER.search(name) or COUNT in name
+                or HITS in name)
 
 
 @pytest.fixture(autouse=True)
@@ -134,7 +149,7 @@ def test_score_counters_equal_a_count_from_the_outputs(data, port, paired):
     res = step(port, codes, lens, paired, slot_cap=cap)
     got = trace.read()
     want = expected_counts(res.n_candidates, paired, cap)
-    assert [got[c] for c in trace.COUNTERS] == want
+    assert [got[c] for c in SCORE] == want
     assert want[0] > want[1] and want[2] >= len(multi) - len(multi) // 2
 
 
@@ -158,13 +173,66 @@ def test_mark_is_a_no_op_on_the_cpu(monkeypatch):
     monkeypatch.setattr(build, "load", no_library)
     for p in trace.PHASES:          # tracing off: nothing, on any device
         trace.mark(p, torch.device("cuda", 0))
+    for close in (False, True):
+        trace.mark_inner("align", torch.device("cuda", 0), close=close)
     trace.enable("cpu")
     for p in trace.PHASES:
         trace.mark(p, CPU)
+    for close in (False, True):
+        trace.mark_inner("align", CPU, close=close)
     got = trace.read()
     assert set(got["phase_ns"].values()) == {0}
     assert set(got["phase_marks"].values()) == {0}
+    assert got["inner_ns"] == got["inner_marks"] == {"align": 0}
     assert trace.phase_us(got) == {}
+
+
+@pytest.fixture(scope="module")
+def long_ports():
+    """Mappers of 150 and 1000 bp reads on the repeat genome (the rule's
+    band and hit cap for each length)."""
+    return {n: tmapper.Mapper(NgmConfig(kmer=11), _G(), n, device="cpu")
+            for n in (150, 1000)}
+
+
+def plain_hits_capped(port, codes, lens, hit_cap) -> int:
+    """K6's hit_overflow of a plain candidate search (the wrapper on CPU
+    tensors) over the reads a step of `port` takes."""
+    from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
+
+    (_, offsets, positions, reads, lengths, _, _, _, _, sensitivity,
+     max_freq, _, _) = port._common_args(codes, lens)
+    st = port.statics()
+    _, kms = tmapper._pre_extract(reads, lengths, k=st["k"],
+                                  read_stride=st["read_stride"])
+    cand = candidate_search(
+        kms, lengths, offsets, positions, sensitivity, max_freq, k=st["k"],
+        fanout_cap=st["fanout_cap"], hit_cap=hit_cap,
+        max_cmrs=st["max_cmrs"], diag_bin_log2=st["diag_bin_log2"],
+        stride=st["read_stride"], packed_offsets=st["packed_offsets"])
+    return int(cand.hit_overflow)
+
+
+@pytest.mark.parametrize("cap", ["rule", 128])
+@pytest.mark.parametrize("length", [150, 1000])
+def test_hit_capped_reads_equal_the_plain_search(long_ports, length, cap):
+    port = long_ports[length]
+    n = 16 if length == 1000 else 32
+    codes, _, _ = synthetic.simulate_reads(_G.codes, n, length, 0.02,
+                                           seed=195 + length)
+    lens = np.full(n, length, np.int32)
+    h = port.hit_cap if cap == "rule" else cap
+    kw = {} if cap == "rule" else {"hit_cap": cap}
+    want = plain_hits_capped(port, codes, lens, h)
+    off = step(port, codes, lens, False, **kw)
+    trace.enable("cpu")
+    on = step(port, codes, lens, False, **kw)
+    got = trace.read()
+    assert_equal(off, on)
+    assert got["reads_hit_capped"] == want
+    assert int(on.fanout_overflow) >= want     # summed with the fan-out's
+    if cap != "rule":
+        assert want > 0
 
 
 def test_profile_logs_the_score_counters(tmp_path):
@@ -255,31 +323,35 @@ def test_traced_graph_on_card(card, data, paired):
     # the traced call's capture counted nothing of its warm-up
     first = trace.read()
     assert first["phase_marks"] == {p: K for p in trace.PHASES}
+    assert first["inner_marks"] == {"align": K}
     want = np.sum([expected_counts(on.n_candidates[k].cpu(), paired,
                                    tmapper.default_slot_cap(B))
                    for k in range(K)], axis=0)
-    assert [first[c] for c in trace.COUNTERS] == want.tolist()
+    assert [first[c] for c in SCORE] == want.tolist()
 
     for _ in range(3):          # CUPTI may drop records from a window
         trace.disable()
         rec_off, host_off = profiled(m, codes, lens, paired)
         trace.enable(card)      # zeroed: two replays follow
         rec_on, host_on = profiled(m, codes, lens, paired)
-        marks = collections.Counter()
+        marks, inner = collections.Counter(), collections.Counter()
         for name, n in rec_on.items():
-            hit = MARK.search(name)
-            if hit:
-                marks[int(hit.group(1))] += n
+            for regex, got in ((MARK, marks), (INNER, inner)):
+                hit = regex.search(name)
+                if hit:
+                    got[int(hit.group(1))] += n
         counts = sum(n for name, n in rec_on.items() if COUNT in name)
+        hits = sum(n for name, n in rec_on.items() if HITS in name)
         rest = collections.Counter({name: n for name, n in rec_on.items()
-                                    if not MARK.search(name)
-                                    and COUNT not in name})
+                                    if not tracing_record(name)})
         if (marks == {p: K for p in range(len(trace.PHASES))}
-                and counts == K and rest == rec_off):
+                and inner == {0: K, 1: K} and counts == hits == K
+                and rest == rec_off):
             break
-    assert not any(MARK.search(n) or COUNT in n for n in rec_off)
+    assert not any(tracing_record(n) for n in rec_off)
     assert marks == {p: K for p in range(len(trace.PHASES))}
-    assert counts == K
+    assert inner == {0: K, 1: K}
+    assert counts == hits == K
     assert rest == rec_off
     assert not {n for n in host_off if n.startswith("ngm.")}
     assert {"ngm.map_batch_scan", "ngm.graph.inputs", "ngm.graph.replay",
@@ -287,7 +359,9 @@ def test_traced_graph_on_card(card, data, paired):
     got = trace.read()
     assert got["phase_marks"] == {p: 2 * K for p in trace.PHASES}
     assert all(got["phase_ns"][p] > 0 for p in trace.PHASES[1:])
-    assert [got[c] for c in trace.COUNTERS] == (2 * want).tolist()
+    assert got["inner_marks"] == {"align": 2 * K}
+    assert 0 < got["inner_ns"]["align"] < got["phase_ns"]["finish"]
+    assert [got[c] for c in SCORE] == (2 * want).tolist()
     assert len(m.graphs.captures) == 2
 
 
@@ -311,7 +385,7 @@ def test_fused_pass_counters_equal_the_plain_pass(card, data, port, paired):
                                        for f in got._fields}))
     assert [fused[c] for c in trace.COUNTERS] == \
         [plain[c] for c in trace.COUNTERS]
-    assert [plain[c] for c in trace.COUNTERS] == expected_counts(
+    assert [plain[c] for c in SCORE] == expected_counts(
         want.n_candidates, paired, cap)
     assert plain["reads_unscored"] > 0
 
@@ -366,12 +440,11 @@ def test_score_pass_records_on_card(card, data, paired):
             if hit:
                 phases[-1].append(int(hit.group(1)))
                 phases.append([])
-            elif COUNT not in name:
+            elif not tracing_record(name):
                 phases[-1].append(name)
         # phases[i] ends with the index of the mark that closed it
         score = [p[:-1] for p in phases if p and p[-1] == 2]
-        rest = collections.Counter(n for n in on if not MARK.search(n)
-                                   and COUNT not in n)
+        rest = collections.Counter(n for n in on if not tracing_record(n))
         if len(score) == K and rest == collections.Counter(off):
             break
     assert len(score) == K
@@ -382,3 +455,79 @@ def test_score_pass_records_on_card(card, data, paired):
         assert sum("score_pass_kernel" in n for n in names) == 1, names
         assert not any("sw_score_kernel" in n or "gather_windows" in n
                        for n in names), names
+
+
+@pytest.mark.cuda
+def test_align_marks_at_1000bp_on_card(card):
+    """[614, 1000] x W 184, the 1000 bp cell's step: K4's rule takes the
+    global route; each traced step holds one `align` pair with exactly the
+    step's K2, the query's strand select and K4 between its marks; the
+    five phases keep K marks a replay; `align` a step reads within 12 us
+    above those records' profiled time (the gaps between the graph's
+    nodes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nextgenmap_tpu_torch.ops import sw_align_kernel
+
+    n, length = 614, 1000
+
+    class Long:
+        codes = synthetic.repeat_genome(2_000_000, n_repeats=40,
+                                        min_len=800, max_len=3000, seed=196)
+
+    m = tmapper.Mapper(NgmConfig(), Long(), length, device=card)
+    assert m.band == 184
+    assert sw_align_kernel.plan(n, length, m.band, "local",
+                                device=card).route == "global"
+    codes, _, _ = synthetic.simulate_reads(Long.codes, K * n, length, 0.02,
+                                           seed=197)
+    codes = codes.reshape(K, n, length)
+    lens = np.full((K, n), length, np.int32)
+    off = m.map_batch_scan(codes, lens)
+    trace.enable(card)
+    on = m.map_batch_scan(codes, lens)
+    assert_equal(off, on)
+    first = trace.read()
+    assert first["phase_marks"] == {p: K for p in trace.PHASES}
+    assert first["inner_marks"] == {"align": K}
+
+    for _ in range(3):          # CUPTI may drop records from a window
+        trace.enable(card)      # zeroed: two replays follow
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                m.map_batch_scan(codes, lens)
+            torch.cuda.synchronize()
+        got = trace.read()
+        recs = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and not e.name.startswith("ngm.")),
+                      key=lambda e: e.time_range.start)
+        inside, spans = None, []
+        for e in recs:
+            hit = INNER.search(e.name)
+            if hit and hit.group(1) == "0":
+                inside = []
+            elif hit:
+                spans.append(inside)
+                inside = None
+            elif inside is not None:
+                inside.append(e)
+        if len(spans) == 2 * K and all(s is not None for s in spans):
+            break
+    assert got["phase_marks"] == {p: 2 * K for p in trace.PHASES}
+    assert got["inner_marks"] == {"align": 2 * K}
+    assert len(spans) == 2 * K
+    for s in spans:
+        # the select is torch's `==` and `where`, one or two records
+        assert 3 <= len(s) <= 4, [e.name for e in s]
+        assert "gather_windows" in s[0].name and "sw_align" in s[-1].name
+        assert not any(tracing_record(e.name) or "sw_align" in e.name
+                       or "gather_windows" in e.name for e in s[1:-1])
+    busy = sum(e.time_range.end - e.time_range.start
+               for s in spans for e in s) / (2 * K)
+    align_us = got["inner_ns"]["align"] / got["inner_marks"]["align"] / 1e3
+    assert 0 <= align_us - busy <= 12, (align_us, busy)
+    assert trace.phase_us(got)["align"] == align_us
