@@ -66,34 +66,39 @@ the repository).  Phases, one line of output each:
   6. single   the port's CLI maps 3 x 4096 simulated 100 bp reads (2% SNPs)
               against a 4.6 Mbp genome with planted repeats (E. coli K-12
               scale) on the card; >= 99% mapped, >= 95% truth-correct, the
-              score pass, K2 and K4 launched by that run, real candidates
-              scored; the score pass on the inputs of the run's first step
-              == its plain version on CPU copies of them (exact in sw,
-              slot_overflow, n_sc and base), with its device time (the
-              plan and the pass kernels), call time, bound (K1's integer
-              operations over the slots it scores), share and the former
-              card path's device time (torch's compaction, K2, K1) there
+              score pass and the finish pass launched by that run and no
+              K2 or K4, real candidates scored; the score pass on the
+              inputs of the run's first step == its plain version on CPU
+              copies of them (exact in sw, slot_overflow, n_sc and base),
+              with its device time (the plan and the pass kernels), call
+              time, bound (K1's integer operations over the slots it
+              scores), share and the former card path's device time
+              (torch's compaction, K2, K1) there; the finish pass likewise
+              (exact in all 17 MapResult fields; bound: K4's over every
+              read; the former card path: torch's gathers and filters, K2
+              and K4)
   7. paired   the CLI's -1/-2 maps 2 x 4096 reads (2048 FR pairs a batch,
               insert 350 +- 40) on the same genome; >= 99% mapped, >= 95%
               truth-correct per mate, >= 90% of pairs proper, the score
-              pass, K2 and K4 launched, real slots scored; the score pass
-              on the first step's inputs (its pair mask) as in phase 6
+              pass and the finish pass launched, real slots scored; the
+              score pass and the finish pass on the first step's inputs
+              (its pair mask, its pairs' verdicts) as in phase 6
   8. top-n    the CLI's -n 2 maps 2 x 4096 reads; one primary record per
               read, >= 99% mapped and >= 95% truth-correct primaries,
               secondaries present, the score pass, K2 and K4 launched
   9. e2e      the CLI's --end-to-end maps 2 x 4096 reads (2% SNPs) on the
               same genome; >= 99% mapped, >= 95% truth-correct, no S/H op in
-              any mapped CIGAR, the score pass and K4 (glocal) and K2
+              any mapped CIGAR, the score pass and the finish pass (glocal)
               launched
  10. bisulfite the CLI's --bs-mapping maps 2 x 4096 bisulfite reads (original
               top and bottom strands, 80% of C read as T) on the same
-              genome; >= 90% truth-correct, the score pass, K2 and K4
-              launched, real slots scored
+              genome; >= 90% truth-correct, the score pass and the finish
+              pass launched, real slots scored
  11. long     the CLI maps 1000 bp reads (3% SNPs, 0.5% indels) in 2
               batches of the size the runner picks for them (614); >= 90%
               mapped, >= 90% of the mapped within 16 bp of the truth, every
               CIGAR consumes SEQ and every NM equals the edits, the score
-              pass and K4 at W 184 and K2 at T 1184 launched
+              pass and the finish pass at W 184 launched
  12. cuda=cpu one batch of each path (single, paired, top-n, end-to-end,
               bisulfite single and paired: 4096 reads; 1000 bp: 614 reads;
               single with --index-shards 4) mapped on the card and on the
@@ -103,17 +108,22 @@ the repository).  Phases, one line of output each:
               8192 rows; K1 at 4096 slots) and 2 (full per-shard tails) on
               phase 6's reads, and -1/-2 --index-shards 4 on phase 7's
               pairs: each SAM equal to the unsharded one byte for byte but
-              @PG, the score pass, K2 and K4 launched as the shard loop
-              predicts; the score pass as in phase 6 at the pool's input,
-              K2 at the flattened [S*Gs] genome
+              @PG, the score pass and the finish pass launched as the
+              shard loop predicts; the score pass and the finish pass as in
+              phase 6 at the pool's input, K2 at the flattened [S*Gs]
+              genome on the windows the pool's finish reads
+ 13b. finish  the finish pass timed on the inputs phases 6, 7 and 13 saved,
+              in a process of its own (this script with --finish-timing):
+              device time, call time, bound, share and the former card
+              path's device time and records
  14. gigabase a 2^31 + 2^27 base (2.28 Gbp) genome drawn as uint8 from the
               seed with the same 120 planted repeats, past 2^31 so no
               unsharded path can hold it: host KmerIndex (k 13, skip 2,
               native passes; canonical entries fall away), split into 4
               shards, 2 x 4096 reads (2% SNPs) through Mapper.map_batch on
               the card with full per-shard tails; >= 99% mapped, >= 95%
-              truth-correct, some global positions past 2^31, K1, K2 and
-              K4 launched by every shard's tail, K5 once and K6 once a
+              truth-correct, some global positions past 2^31, K1 and the
+              finish pass launched by every shard's tail, K5 once and K6 once a
               shard a step; K6 == its plain version on both routes on the
               arguments the shard loop gave it for shard 0, timed; seconds
               of each stage, the peak device memory and the process's peak
@@ -124,7 +134,8 @@ the repository).  Phases, one line of output each:
               4 -t 4, --bam (records, decoded by read_bam, equal to the SAM's
               first 11 fields), an interrupted run (one batch, its sidecar
               marked incomplete, a partial record appended) completed by
-              --resume, --profile (the trace names K1, K2 and K4), and
+              --resume, --profile (the trace names K1, the finish pass, K5
+              and K6), and
               --corridor 225 (W 264) on 1,024 reads equal to the CPU's SAM;
               host-inclusive and streaming reads/s, GCUPS, the device step
               (CUDA events) and phase seconds of each run
@@ -136,11 +147,11 @@ the repository).  Phases, one line of output each:
               --shard-across-hosts --index-shards 2 --dist-nprocs 2 joined
               by a gloo group on localhost (SAM equal to phase 13's
               sharded-2, each holding only its shard, two graph replays a
-              batch in each: the CS, then the tails); K1 and K4 once and
-              K2 twice a batch in each, and each one's peak device memory against
+              batch in each: the CS, then the tails); K1 and the finish
+              pass once a batch in each, and each one's peak device memory against
               phase 13's sharded-2 run.  Then the dp step on the slots
               [cuda:0, cuda:0] (run_mapping; the two slices one graph, one
-              replay a batch, K1 and K4 once a slice) on phases 6 and 7's
+              replay a batch, K1 and the finish pass once a slice) on phases 6 and 7's
               inputs, SAM equal to theirs, reads/s and the device step
               beside phase 15's -t 1; --devices 2 through the CLI where the
               machine has two cards, else a line saying it has one
@@ -149,8 +160,9 @@ the repository).  Phases, one line of output each:
               4.6 Mbp random genome, 36 batches of 4096 100 bp reads at 2%
               SNPs, the fit over 12 and 36 batches): exactly one stdout
               line with bench.py's four keys, >= 99% mapped and >= 95%
-              truth-correct of the 147,456 timed reads, GCUPS > 0, K1, K2
-              and K4 launched (its stderr's bench-json line); then in this
+              truth-correct of the 147,456 timed reads, GCUPS > 0, K1 and
+              the finish pass launched and no K2 or K4 (its stderr's
+              bench-json line); then in this
               process a 2-batch sweep of its step under
               torch.cuda.set_sync_debug_mode("error") (no sync), and batch
               0 mapped on the card and on the CPU from the same state: all
@@ -160,7 +172,7 @@ the repository).  Phases, one line of output each:
               the CPU's in every field; dryrun_multichip(4) on four slots
               (of cuda:0 on one card): the local ("dp", "ish") grid and
               the --shard-across-hosts layout equal, and each equal to the
-              CPU's; K1, K2 and K4 launched, on one card as often as
+              CPU's; K1 and the finish pass launched, on one card as often as
               entry()'s step and each leg's one graph (2 rows of 2 shards)
               and its warm-up row predict
  19. graphs   the one-dispatch step (models/step_graph.py: each step one
@@ -176,10 +188,11 @@ the repository).  Phases, one line of output each:
               in every field and rank on two successive batches, the first
               unchanged after the second replay; a replay, and the eager
               step, with their inputs on the card under
-              torch.cuda.set_sync_debug_mode("error") (no sync); K1, K2,
-              K4, K5 and K6 launched by a replay as often as by the eager
-              step, and a third replay under torch.profiler records each
-              of their kernels as many times as the capture counted nodes
+              torch.cuda.set_sync_debug_mode("error") (no sync); K1, the
+              finish pass (-n 2: K2 and K4), K5 and K6 launched by a replay
+              as often as by the eager step, and a third replay under
+              torch.profiler records each of their kernels as many times as
+              the capture counted nodes
               (a profiler window short of records, reported on stderr, is
               run again, at most six windows); the phase runs in a process
               of its own (this script with --graphs): late in this one,
@@ -212,7 +225,15 @@ under its "other_shapes", and so is K1 launched alone at phase 4's shapes
 "former_records" are the device time and records a call of the former card
 path (torch's compaction, K2, K1) on the same inputs, from all its device
 records over a window of calls (some of its kernels run more than once a
-call).  K2's flattened-genome launch is under "other_shapes" of K2.  K3's row is dim 0 at the probe's
+call).  The finish pass's row ("finish_pass": sw_align_finish_kernel of
+csrc/sw_align.cu, K4 with its prologue and epilogue) is likewise the pass
+at phase 6's first step's inputs, the paired path's and the sharded
+pool's under its "other_shapes", timed in phase 13b's process of its own;
+its former card path is torch's gathers,
+the second best, K2, the strand select, K4, the filters and MAPQ.  K2 and
+K4 are launched on the mapping paths only by top-n.  K2's
+flattened-genome launch (the windows of the pool's finish) is under
+"other_shapes" of K2.  K3's row is dim 0 at the probe's
 default shape (the slower dim); dim 1 and the 4096 x 2048 shape are under
 its "other_shapes", each with the variant that served it.  K4's row is
 the single-end path's traceback input ([4096,100]xW48, local); its other
@@ -243,13 +264,15 @@ as a partial yardstick.
 share = bound_ms / device_ms.
 
 Every CLI run must launch the fused score pass (K1's row loops fed from
-the reads and the genome; its wrapper counts as `score_pass`), K2, K4, K5
-and K6, score real candidates,
+the reads and the genome; its wrapper counts as `score_pass`), the
+finish pass (`finish_pass`; top-n runs K2 and K4 in its place, and no
+other path launches them), K5 and K6, score real candidates,
 count alignments (GCUPS > 0) and time its device steps; where a phase
 counts launches exactly, a step launches K5 once and K6 once an index
 shard.  From phase 6 on, the plain versions of the traceback, the read
 front and the candidate search raise if a CUDA tensor reaches them through
-their wrappers, so every mapping phase runs them on K4, K5 and K6.  After the last phase
+their wrappers, so every mapping phase runs them on the finish pass or K4,
+K5 and K6.  After the last phase
 the script fails if jax or any module of the JAX package (nextgenmap_tpu)
 was imported.
 
@@ -1096,12 +1119,30 @@ def run_cli(path, argv):
 
 
 def expected(n_steps, tails=1, shards=1):
-    """The launches of n_steps mapping steps: the fused score pass (K1's
-    row loops), K2 and K4 once a tail (a step of the shard loop runs a tail
-    per shard, or one pooled tail), K5 once, and K6 once an index shard."""
-    return {"score_pass": tails * n_steps, "gather_windows": tails * n_steps,
-            "sw_align": tails * n_steps, "read_kmers": n_steps,
+    """The launches of n_steps single-end or paired mapping steps: the
+    fused score pass (K1's row loops) and the finish pass (K4's) once a
+    tail (a step of the shard loop runs a tail per shard, or one pooled
+    tail), no K2 and no K4 of their own, K5 once, and K6 once an index
+    shard."""
+    return {"score_pass": tails * n_steps, "finish_pass": tails * n_steps,
+            "gather_windows": 0, "sw_align": 0, "read_kmers": n_steps,
             "cand_search": shards * n_steps}
+
+
+def path_kernels(topn=False):
+    """The kernel wrappers (bench.KERNELS' names) a mapping path launches:
+    the score pass, the traceback (the finish pass; top-n: K2 and K4), K5
+    and K6."""
+    tail = ("gather_windows", "sw_align") if topn else ("finish_pass",)
+    return ("score_pass", *tail, "read_kmers", "cand_search")
+
+
+def check_launched(launches, what, topn=False):
+    """Every kernel of the path launched, and no other."""
+    need = path_kernels(topn)
+    for name, n in launches.items():
+        check((n > 0) == (name in need),
+              f"{what} launched {name} {n} times")
 
 
 def run_counted(path, run):
@@ -1114,8 +1155,7 @@ def run_counted(path, run):
     stats = run()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in KERNELS.items()}
-    for name, n in launches.items():
-        check(n > 0, f"the {path} path never launched {name}")
+    check_launched(launches, f"the {path} path", topn=path == "top-n")
     check(stats.slots_scored > 0, f"K1 scored no real candidate ({path})")
     check(stats.alignments_computed > 0 and stats.gcups() > 0,
           f"the {path} run counted no alignment (GCUPS {stats.gcups()})")
@@ -1202,6 +1242,118 @@ def score_pass_timing(call, what):
     return max_abs_err(got, want), t
 
 
+def finish_pass_check(call, what, save_to):
+    """The finish pass on one call's inputs, exact against its plain
+    version on CPU copies of them; (max abs err, figures): the plain
+    version's wall time on the CPU and K4's bound there (every read is
+    aligned, qlen x W cells at K4_OPS_PER_CELL, or the bytes: the winner's
+    candidates and fields read, its query and corridor, the op buffer and
+    the fields written, whichever is larger).  The CPU copies of the
+    inputs are saved to `save_to`, for finish_timing_child to time."""
+    import torch
+
+    from nextgenmap_tpu_torch.ops.finish_kernel import finish_pass
+
+    def on_cpu(x):
+        if isinstance(x, tuple):
+            return tuple(map(on_cpu, x))
+        return x.cpu() if torch.is_tensor(x) else x
+
+    a, kw = call
+    got = [x.cpu() for x in finish_pass(*a, **kw)]
+    cpu = [on_cpu(x) for x in a]
+    t0 = time.perf_counter()
+    want = finish_pass(*cpu, **kw)                # the plain version
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for nm, x, y in zip(want._fields, got, want):
+        check(torch.equal(x, y),
+              f"finish pass {nm} differs from its plain version at {what}")
+    torch.save((cpu, kw), save_to)
+    sw, reads, lens = cpu[1], cpu[6], cpu[8]
+    (B, L), C = reads.shape, sw.shape[1]
+    W, mode = kw["band"], kw.get("mode", "local")
+    cells = int(lens.clamp(0, L).long().sum()) * W
+    # a1, C x (sw, start, strand, valid), lengths, proper; query, corridor;
+    # ops, 11 int32 fields and 2 flags
+    n_bytes = B * (8 + 13 * C + 5 + L + (L + W) + (L + W) + 46)
+    bound_ops = 1e3 * K4_OPS_PER_CELL[mode] * cells / (INT32_LANES
+                                                       * sm_clock_hz())
+    bound_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t = {"plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
+         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+         "mapped": int(want.mapped.sum()), "inputs": save_to,
+         "shape": f"{mode} {B} reads x {L}, C {C}, W {W}: {what}"}
+    return max_abs_err(got, want), t
+
+
+FINISH_TIMEOUT_S = 300   # the finish timings' process, set-up included
+
+
+def finish_timing_child(paths):
+    """The finish pass's timings in a process of its own (this script with
+    --finish-timing FILE ...; late in the smoke's process torch.profiler
+    stops recording some kernels, as for phase 19): for each file of
+    finish_pass_check's saved inputs, on the card, its device time (its
+    memset and kernel), call time, and the former card path's device time
+    and records a call on the same inputs (finish_plain on the card:
+    torch's gathers, the second best and the start, K2, the strand select,
+    K4, the filters and MAPQ: all its device records in a window of
+    FORMER_CALLS calls, over the calls); one JSON line {file: figures}."""
+    import torch
+
+    from nextgenmap_tpu_torch.ops.finish_kernel import (
+        finish_pass, finish_plain,
+    )
+    from nextgenmap_tpu_torch.tools.timing import (
+        call_ms, device_ms, device_profile,
+    )
+
+    def on_card(x):
+        if isinstance(x, tuple):
+            return tuple(map(on_card, x))
+        return x.cuda() if torch.is_tensor(x) else x
+
+    out = {}
+    for path in paths:
+        cpu, kw = torch.load(path)
+        a = [on_card(x) for x in cpu]
+        k = lambda: finish_pass(*a, **kw)  # noqa: E731
+        former = lambda: finish_plain(*a, **kw)  # noqa: E731
+        former()
+        f = device_profile(lambda: [former() for _ in range(FORMER_CALLS)])
+        out[path] = {"device_ms": device_ms(k), "call_ms": call_ms(k, 20),
+                     "former_device_ms": f["device_ms"] / FORMER_CALLS,
+                     "former_records": f["records"] / FORMER_CALLS}
+    print(json.dumps(out))
+    return 0
+
+
+def phase_finish_timing(finishes, card):
+    """Phase 13b: finish_timing_child on the inputs phases 6, 7 and 13
+    saved; adds its figures to `finishes` ({path: (err, figures)}) and
+    prints them."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    by_file = {t["inputs"]: t for _, t in finishes.values()}
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--finish-timing",
+         *by_file], cwd=repo, capture_output=True, text=True,
+        timeout=FINISH_TIMEOUT_S)
+    check(proc.returncode == 0, f"the finish timings' process exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    for path, figures in json.loads(proc.stdout.splitlines()[-1]).items():
+        by_file[path].update(figures)
+    print(f"[13b finish pass] in a process of its own ({card}): " + "; ".join(
+        finish_pass_line(t) for t in by_file.values()))
+
+
+def finish_pass_line(t):
+    return (f"{t['shape']}: "
+            + timing_row(t["device_ms"], t["call_ms"], t["bound_ms"],
+                         f" ({t['bound_by']}), former card path "
+                         f"{t['former_device_ms'] * 1e3:.2f} us in "
+                         f"{t['former_records']:.1f} device records"))
+
+
 def score_pass_line(t):
     return (f"score pass exact at {t['shape']}: "
             + timing_row(t["device_ms"], t["call_ms"], t["bound_ms"],
@@ -1217,9 +1369,11 @@ def phase_main_path(genome, workdir, device="cuda"):
     codes, pos, strand = synthetic.simulate_reads(genome, n, READ_LEN, 0.02,
                                                   seed=SEED + 1)
     synthetic.write_fastq(os.path.join(workdir, "reads.fq"), codes, pos, strand)
-    with Capture(first=("score_pass",)) as cap:
+    with Capture(first=("score_pass", "finish_pass")) as cap:
         stats, launches, wall = run_cli("single", map_argv(workdir, device))
     sp = score_pass_timing(cap.calls["score_pass"][0], "the single-end path")
+    fp = finish_pass_check(cap.calls["finish_pass"][0], "the single-end path",
+                           os.path.join(workdir, "finish_single.pt"))
 
     records, mapped, correct = synthetic.truth_correct(
         os.path.join(workdir, "out.sam"))
@@ -1230,8 +1384,9 @@ def phase_main_path(genome, workdir, device="cuda"):
           f"mapped {mapped} ({100 * mapped / n:.2f}%), truth-correct {correct} "
           f"({100 * correct / n:.2f}%); "
           + summary(stats, N_BATCHES, launches, wall) + "; "
-          + score_pass_line(sp[1]))
-    return codes, (launches, steps(stats, N_BATCHES)), sp
+          + score_pass_line(sp[1]) + "; finish pass exact at "
+          + fp[1]["shape"])
+    return codes, (launches, steps(stats, N_BATCHES)), sp, fp
 
 
 def phase_paired_path(genome, workdir, device="cuda"):
@@ -1246,11 +1401,13 @@ def phase_paired_path(genome, workdir, device="cuda"):
     for path, m in ((fq1, 0), (fq2, 1)):
         synthetic.write_fastq(path, codes[m::2], pos[m::2], strand[m::2],
                               prefix="simpair")
-    with Capture(first=("score_pass",)) as cap:
+    with Capture(first=("score_pass", "finish_pass")) as cap:
         stats, launches, wall = run_cli("paired", [
             "map", "-r", os.path.join(workdir, "ref.fa"), "-1", fq1, "-2",
             fq2, "-o", sam, "--device", device, "--no-progress"])
     sp = score_pass_timing(cap.calls["score_pass"][0], "the paired path")
+    fp = finish_pass_check(cap.calls["finish_pass"][0], "the paired path",
+                           os.path.join(workdir, "finish_paired.pt"))
     check(cap.calls["score_pass"][0][1].get("pairs") is True,
           "the paired path's score pass took no pair mask")
 
@@ -1274,8 +1431,9 @@ def phase_paired_path(genome, workdir, device="cuda"):
           f"({200 * pairs_proper / n:.2f}%; counted {stats.pairs_proper}, "
           f"broken {stats.pairs_broken}); "
           + summary(stats, N_BATCHES_NEW, launches, wall) + "; "
-          + score_pass_line(sp[1]))
-    return codes, (launches, steps(stats, N_BATCHES_NEW)), sp
+          + score_pass_line(sp[1]) + "; finish pass exact at "
+          + fp[1]["shape"])
+    return codes, (launches, steps(stats, N_BATCHES_NEW)), sp, fp
 
 
 def phase_topn_path(genome, workdir, device="cuda"):
@@ -1364,8 +1522,7 @@ def phase_long_path(genome, workdir, device="cuda"):
 
     check(stats.first_batch_reads == LONG_BATCH,
           f"first batch {stats.first_batch_reads} reads, expected {LONG_BATCH}")
-    # the front (K5, K6), one score pass, one corridor fetch (K2) and one
-    # traceback (K4) per step
+    # the front (K5, K6), one score pass and one finish pass per step
     n_steps = steps(stats, N_BATCHES_NEW)
     check(launches == expected(n_steps),
           f"long-read launches {launches} for {n_steps} steps")
@@ -1399,12 +1556,13 @@ def sam_body(records):
 
 class Capture:
     """Within `with`, record the arguments of every call the mapper makes
-    to the score pass, K2 and K6 wrappers (which it still calls), to rerun
+    to the score pass, finish pass, K2 and K6 wrappers, to rerun
     a kernel on exactly the inputs a path gave it.  Of a name in `first`
     only the first call is kept, its tensors copied: a step graph's eager
     warm-up, whose input buffers later batches overwrite."""
 
-    NAMES = ("score_pass", "gather_genome_windows", "candidate_search")
+    NAMES = ("score_pass", "finish_pass", "gather_genome_windows",
+             "candidate_search")
 
     def __init__(self, first=()):
         self.first = set(first)
@@ -1424,8 +1582,12 @@ class Capture:
 
                     check(not torch.cuda.is_current_stream_capturing(),
                           f"the first {name} call was inside a capture")
-                    self.calls[name].append((tuple(
-                        x.clone() if torch.is_tensor(x) else x for x in a), k))
+                    def copy(x):
+                        if isinstance(x, tuple):
+                            return tuple(map(copy, x))
+                        return x.clone() if torch.is_tensor(x) else x
+
+                    self.calls[name].append((tuple(map(copy, a)), k))
                 return fn(*a, **k)
             return call
 
@@ -1441,8 +1603,9 @@ class Capture:
 def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
                       device="cuda"):
     """The CLI with --index-shards on phases 6 and 7's inputs, SAM against
-    theirs; then the fused score pass and K2 on the inputs one pooled batch
-    gives them."""
+    theirs; then the fused score pass and the finish pass on the inputs one
+    pooled batch gives them, and K2 on the windows that finish reads from
+    the flattened genome."""
     import torch
 
     from nextgenmap_tpu_torch.models.mapper import Mapper, shard_tail_cap
@@ -1476,18 +1639,18 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
         n_steps = steps(stats, n_batches)
         check(counts == expected(n_steps, per, S),
               f"{name}: launches {counts}, expected {per} score passes, "
-              f"{per} K2 and {per} K4, one K5 and {S} K6 per step "
+              f"{per} finish passes, one K5 and {S} K6 per step "
               f"({n_steps} steps)")
         launches[name] = (counts, n_steps)
         rows.append(f"{name} ({'pool' if per == 1 else f'{S} tails'}): "
                     f"SAM equal; " + summary(stats, n_batches, counts, wall))
 
-    # the fused score pass and K2 on the inputs one --index-shards 4 batch
-    # gives them
+    # the fused score pass and the finish pass on the inputs one
+    # --index-shards 4 batch gives them
     c4 = cfg.replace(index_shards=4)
     genome_obj, sidx = load_reference(c4, ref)
     mapper = Mapper(c4, genome_obj, READ_LEN, sidx, device=device)
-    with Capture(first=("score_pass",)) as cap:
+    with Capture(first=("score_pass", "finish_pass")) as cap:
         mapper.map_batch(single_codes[:BATCH],
                          np.full(BATCH, READ_LEN, np.int32))
         torch.cuda.synchronize()
@@ -1500,10 +1663,20 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
           f"the pool handed the score pass {tuple(a[1].shape)}"
           f"xW{kw['band']}, expected {pool_rows} rows")
     err, k1 = score_pass_timing((a, kw), "the sharded pool")
-    (ga, _), *_ = cap.calls["gather_genome_windows"]
-    g_flat, starts, T = ga
-    check(g_flat.shape[0] == S * Gs, "K2 did not gather from the flattened "
-          "stacked genome")
+    (fa, fkw), = cap.calls["finish_pass"]
+    errf, fin = finish_pass_check((fa, fkw), "the sharded pool",
+                                  os.path.join(workdir, "finish_pool.pt"))
+    check(not cap.calls["gather_genome_windows"],
+          "the pooled tail launched K2")
+    # K2 on the windows the pool's finish reads: the winners' corridor
+    # starts (0 for an invalid winner), clamped as the finish clamps them
+    a1, corr, valid, g_flat = fa[0][:, None], fa[2], fa[4], fa[5]
+    T = READ_LEN + fkw["band"]
+    check(g_flat.shape[0] == S * Gs, "the finish did not read the "
+          "flattened stacked genome")
+    starts = torch.where(torch.gather(valid, 1, a1)[:, 0],
+                         torch.gather(corr, 1, a1)[:, 0], 0)
+    starts = starts.clamp(0, max(0, S * Gs - T)).contiguous()
     gk = lambda: gather_genome_windows(g_flat, starts, T)  # noqa: E731
     padded = pad_table(g_flat, T, 4)
     gp = lambda: gather_windows(padded, starts, T)  # noqa: E731
@@ -1516,9 +1689,10 @@ def phase_sharded_cli(genome, workdir, single_codes, cfg, card,
           "bound_ms": 1e3 * (2 * n * T + 4 * n) / HBM_BYTES_PER_S,
           "shape": f"{n}x{T} from the flattened [{S}*{Gs}] genome"}
     print(f"[13 sharded] " + "; ".join(rows) + f"; ({card}) "
-          + score_pass_line(k1) + f"; K2 exact at {k2['shape']}: " + timing_row(
+          + score_pass_line(k1) + "; finish pass exact at " + fin["shape"]
+          + f"; K2 exact at {k2['shape']}: " + timing_row(
               k2["device_ms"], k2["call_ms"], k2["bound_ms"]))
-    return launches, k1, k2, (err, err2), memory
+    return launches, k1, fin, k2, (err, errf, err2), memory
 
 
 def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
@@ -1593,14 +1767,14 @@ def phase_gigabase(card, size=GIGA_SIZE, n_shards=GIGA_SHARDS, batch=BATCH,
     peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
             else float("nan"))
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    # past S * Gs = 2^31 the tails run per shard: the score pass, K2 and K4
-    # once each
+    # past S * Gs = 2^31 the tails run per shard: the score pass and the
+    # finish pass once each
     per = (1 if mapper.tail_cap(batch)
            and mapper.shards.genome.numel() < 2**31 else n_shards)
     n_steps = 2 + len(mapper.graphs.captures)   # and the graph's warm-up
     check(launches == expected(n_steps, per, n_shards),
           f"gigabase launches {launches}, expected {per} score passes, "
-          f"{per} K2 and {per} K4, one K5 and {n_shards} K6 per step "
+          f"{per} finish passes, one K5 and {n_shards} K6 per step "
           f"({n_steps} steps)")
     k6 = shard_cand_search(cap.calls["candidate_search"][0])
     check(mapped.sum() >= 0.99 * n, f"only {mapped.sum()}/{n} reads mapped")
@@ -1698,12 +1872,11 @@ def phase_runtime(workdir, device="cuda"):
     check(len(traces) == 1, f"--profile wrote {traces}")
     with open(os.path.join(prof, traces[0])) as f:
         trace = f.read()
-    for kern in ("score_pass_kernel", "gather_windows_kernel",
-                 "sw_align_kernel", "read_kmers_kernel",
-                 "cand_search_kernel"):
+    for kern in ("score_pass_kernel", "sw_align_finish_kernel",
+                 "read_kmers_kernel", "cand_search_kernel"):
         check(kern in trace, f"the trace names no {kern}")
     rows[-1] += (f"; trace {len(trace) / 2**20:.1f} MiB names the score "
-                 f"pass, K2, K4, K5 and K6")
+                 f"pass, the finish pass, K5 and K6")
     os.remove(os.path.join(prof, traces[0]))
 
     # W = 264: K1's warp kernel at 32 x 12 cells; the CPU runs its plain
@@ -1832,7 +2005,7 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
             if name == "shard-across-hosts":
                 # two graphs a batch, the exchange of the best between
                 # them: phase 1 (K5 and the one shard's K6) and phase 2
-                # (the tails: the score pass, K2, K4), each with its
+                # (the tails: the score pass, the finish pass), each with its
                 # warm-up step
                 check(r["graph_replays"] == 2 * n_b and caps % 2 == 0,
                       f"{name} process {i}: {r['graph_replays']} graph "
@@ -1883,7 +2056,8 @@ def phase_parallel(workdir, t1, sharded_memory, device="cuda"):
         n_steps = 2 * n_b + stats.graph_captures
         check(counts == expected(n_steps) and stats.graph_replays == n_b,
               f"{name}: launches {counts} and {stats.graph_replays} graph "
-              f"replays, expected 1 score pass, 1 K2, 1 K4, 1 K5 and 1 K6 "
+              f"replays, expected 1 score pass, 1 finish pass, 1 K5 and 1 "
+              f"K6 "
               f"a slice "
               f"over {n_b} "
               f"batches of 2 slices and {stats.graph_captures} warm-up "
@@ -2017,8 +2191,7 @@ def phase_bench(card):
     check(r["truth_correct"] >= 0.95 * n,
           f"bench: only {r['truth_correct']}/{n} truth-correct")
     check(r["gcups"] > 0, f"bench: GCUPS {r['gcups']}")
-    for name, k in r["launches"].items():
-        check(k > 0, f"the bench never launched {name}")
+    check_launched(r["launches"], "the bench")
     check(r["graph_replays"] == r["batches_run"],
           f"the bench replayed its graph {r['graph_replays']} times for "
           f"{r['batches_run']} batches")
@@ -2089,14 +2262,14 @@ def phase_graft(card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in KERNELS.items()}
-    for name, k in launches.items():
-        check(k > 0, f"the graft entry never launched {name}")
+    check_launched(launches, "the graft entry")
     n_steps = 1 + 2 * (2 + 1)        # entry(); per leg 2 rows + 1 warm-up
     if torch.cuda.device_count() == 1:
         k1 = 1 + 2 * (2 + 1) * 2     # a row runs 2 shard tails and CSs
         check(launches == dict(expected(k1), read_kmers=n_steps),
               f"graft: launches {launches}, expected {k1} score passes, "
-              f"K2, K4 and K6 and {n_steps} K5 (entry()'s step, then per leg "
+              f"finish passes and K6 and {n_steps} K5 (entry()'s step, then "
+              f"per leg "
               f"one graph of 2 rows of 2 shards and its warm-up row)")
     mapped = int(got.mapped.sum())
     check(mapped >= 60, f"graft entry: only {mapped}/64 mapped")
@@ -2123,8 +2296,19 @@ def _fields(res) -> list:
             for f in r._fields]
 
 
+def is_kernel_of(name: str, record: str) -> bool:
+    """Whether a device record is a kernel of wrapper `name` (bench.KERNELS'
+    names): each wrapper's kernels hold its name, but the finish pass's
+    hold "sw_align_finish" and K4's "sw_align" without it."""
+    if name == "finish_pass":
+        return "sw_align_finish" in record
+    if name == "sw_align":
+        return "sw_align" in record and "sw_align_finish" not in record
+    return name in record
+
+
 def replay_records(fn, want: dict):
-    """({name: kernel records whose name holds it} of one fn() under
+    """({name: kernel records of its wrapper (is_kernel_of)} of one fn() under
     torch.profiler, windows run).  A window whose counts differ from
     `want` is reported on stderr, with every device record it holds, and
     run again after a pause, at most WINDOWS times (CUPTI now and then
@@ -2145,7 +2329,8 @@ def replay_records(fn, want: dict):
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
-        got = {n: sum(e.count for e in kernels if n in e.key) for n in want}
+        got = {n: sum(e.count for e in kernels if is_kernel_of(n, e.key))
+               for n in want}
         if got == want:
             return got, window
         print(f"chip_smoke: profiler window {window}: recorded {got}, want "
@@ -2272,7 +2457,10 @@ def phase_graphs(genome, cfg, card, device="cuda"):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         by_eager = {name: v - c1[name] for name, v in counts().items()}
-        check(by_graph == by_eager and all(by_graph.values()),
+        need = path_kernels(topn=c.topn > 1)
+        check(by_graph == by_eager
+              and all((n > 0) == (name in need)
+                      for name, n in by_graph.items()),
               f"{path}: a replay launched {by_graph}, the eager step "
               f"{by_eager}")
         for got, ref in zip((first, second), want):
@@ -2391,6 +2579,8 @@ def main():
     sys.path.insert(0, repo)
     if sys.argv[1:2] == ["--child"]:
         return child(sys.argv[2:])
+    if sys.argv[1:2] == ["--finish-timing"]:
+        return finish_timing_child(sys.argv[2:])
     if sys.argv[1:2] == ["--graphs"]:
         return graphs_child()
     card = phase_card()
@@ -2418,6 +2608,7 @@ def main():
     guard_plain_front()
     codes, launches = {}, {}     # launches: {path: (counts, batches)}
     passes = {}                  # the score pass's (err, timings) by path
+    finishes = {}                # the finish pass's (err, timings) by path
     with tempfile.TemporaryDirectory() as workdir:
         ref_path = os.path.join(workdir, "ref.fa")
         synthetic.write_fasta(ref_path, "chr", genome)
@@ -2429,12 +2620,15 @@ def main():
                             ("long", phase_long_path)):
             codes[path], launches[path], *sp = phase(genome, workdir)
             if sp:
-                passes[path] = sp[0]
+                passes[path], finishes[path] = sp
         phase_cuda_equals_cpu(genome, codes, cfg, ref_path)
-        (sharded, passes["pool"], k2_flat, (sp_pool_err, k2_sh_err),
+        (sharded, passes["pool"], fp_pool, k2_flat,
+         (sp_pool_err, fp_pool_err, k2_sh_err),
          sharded_memory) = phase_sharded_cli(genome, workdir, codes["single"],
                                              cfg, card)
         launches.update(sharded)
+        finishes["pool"] = (fp_pool_err, fp_pool)
+        phase_finish_timing(finishes, card)
         giga_counts, giga_batches, giga = phase_gigabase(card)
         k6_err = max(k6_err, giga["k6"].pop("err"))
         k6_shapes[giga["k6"].pop("shape")] = giga["k6"]
@@ -2453,6 +2647,8 @@ def main():
     passes["pool"] = (sp_pool_err, passes["pool"])
     sp_err = max(err for err, _ in passes.values())
     sp = passes.pop("single")[1]
+    fp_err = max(err for err, _ in finishes.values())
+    fp = finishes.pop("single")[1]
 
     def per_step(name):
         return {path: n[name] / b for path, (n, b) in launches.items()}
@@ -2491,6 +2687,20 @@ def main():
                     "device_ms": t["device_ms"], "bound_ms": t["bound_ms"],
                     "share": t["bound_ms"] / t["device_ms"]}
                    for shape, t in k1_shapes.items()}}),
+        row("finish_pass", "nextgenmap_tpu_torch/csrc/sw_align.cu",
+            "nextgenmap_tpu/models/mapper.py:304", fp_err, fp,
+            total("finish_pass"), per_step("finish_pass"), fp["bound_by"],
+            None,
+            replaces_kind="not a Pallas kernel: the reference's XLA-fused "
+            "_finish (the winner's corridor gather, the lax.scan traceback "
+            "banded_sw_align, the filters and MAPQ)",
+            former_device_ms=fp["former_device_ms"],
+            former_records=fp["former_records"], shape=fp["shape"],
+            other_shapes={t["shape"]: {key: t[key] for key in (
+                "device_ms", "call_ms", "plain_ms", "former_device_ms",
+                "former_records", "bound_ms", "bound_by")}
+                | {"share": t["bound_ms"] / t["device_ms"]}
+                for _, t in finishes.values()}),
         row("gather_windows", "nextgenmap_tpu_torch/csrc/gather_windows.cu",
             "nextgenmap_tpu/ops/gather_pallas.py:124", max(k2_err, k2_sh_err),
             k2, total("gather_windows"), per_step("gather_windows"), "bytes",

@@ -67,6 +67,7 @@ from nextgenmap_tpu_torch.models.step_graph import StepGraphs, take
 from nextgenmap_tpu_torch.native import build
 from nextgenmap_tpu_torch.ops.candidate import pack_offsets
 from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
+from nextgenmap_tpu_torch.ops.finish_kernel import finish_pass
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
 from nextgenmap_tpu_torch.ops.score_pass_kernel import score_pass
@@ -82,9 +83,9 @@ GENOME_SEED, READS_SEED, WARM_SEED = 1, 2, 3
 TRUTH_TOL = 5             # bp between the mapped and the simulated position
 # the per-batch counters, in the columns of run()'s "counters"
 COUNTERS = ("mapped", "truth_correct", "n_candidates", "k1_real_slots")
-KERNELS = {"score_pass": score_pass, "gather_windows": gather_genome_windows,
-           "sw_align": sw_align, "read_kmers": read_kmers,
-           "cand_search": candidate_search}
+KERNELS = {"score_pass": score_pass, "finish_pass": finish_pass,
+           "gather_windows": gather_genome_windows, "sw_align": sw_align,
+           "read_kmers": read_kmers, "cand_search": candidate_search}
 
 
 def log(*a) -> None:

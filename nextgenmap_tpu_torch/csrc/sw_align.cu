@@ -109,6 +109,7 @@
 // Exact int32 arithmetic throughout.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -283,20 +284,40 @@ __device__ __forceinline__ void take_first_max(int ov, int oi, int oo, int& bv,
   }
 }
 
+// One alignment's fields as the walk leaves them: AlignResult's int32
+// fields in kFields order, and trunc.
+struct Aln {
+  int score, q_start, q_end, r_start, r_end, n_ops, matches, mismatches,
+      indels;
+  bool trunc;
+};
+
+// K4's outputs of one alignment: out [kFields, S] int32 and trunc [S]
+__device__ __forceinline__ void store_aln(const Aln& a, int32_t* out,
+                                          uint8_t* trunc, int slot, int S) {
+  const int vals[kFields] = {a.score,   a.q_start, a.q_end,
+                             a.r_start, a.r_end,   a.n_ops,
+                             a.matches, a.mismatches, a.indels};
+#pragma unroll
+  for (int f = 0; f < kFields; ++f) {
+    out[f * static_cast<long long>(S) + slot] = vals[f];
+  }
+  trunc[slot] = a.trunc ? 1 : 0;
+}
+
 // The backwalk of one alignment, cell by cell from (bi, bo), over its
 // packed rows `bits` (row i at bits + i * row_words).  CHUNKED (the global
 // route's warp form): the `lpa` lanes of the group (mask gmask, this one
 // sl) all run this walk and copy kChunk rows at a time into `buf` (shared
 // memory) before reading them there; otherwise the reads go to `bits`
 // directly.  qs, rs: the staged codes; pos: positive_mask of the slot's
-// matrix.  The `writer` writes the first n_ops ops and the fields; returns
-// n_ops.
+// matrix.  The `writer` writes the first n_ops ops; every lane that walks
+// returns the fields.
 template <int NPL, bool CHUNKED, typename Wd>
-__device__ __forceinline__ int walk_back(
+__device__ __forceinline__ Aln walk_back(
     const Wd* bits, int row_words, Wd* buf, unsigned gmask, int sl, int lpa,
     const uint8_t* qs, const uint8_t* rs, uint64_t pos, int W, int max_ops,
-    int best, int bi, int bo, bool writer, uint8_t* ops, int32_t* out,
-    uint8_t* trunc, int slot, int S) {
+    int best, int bi, int bo, bool writer, uint8_t* ops) {
   int i = bi, o = bo, ph = kPhH, c = 0;
   int q0 = bi, r0 = bi + bo, nm = 0, nmm = 0, nid = 0;
   bool tr = false;
@@ -337,15 +358,7 @@ __device__ __forceinline__ int walk_back(
       c += static_cast<int>(c < max_ops);
     }
   }
-  if (writer) {
-    const int vals[kFields] = {best, q0, bi, r0, bi + bo, c, nm, nmm, nid};
-#pragma unroll
-    for (int f = 0; f < kFields; ++f) {
-      out[f * static_cast<long long>(S) + slot] = vals[f];
-    }
-    trunc[slot] = tr ? 1 : 0;
-  }
-  return c;
+  return Aln{best, q0, bi, r0, bi + bo, c, nm, nmm, nid, tr};
 }
 
 template <int NPL>
@@ -355,6 +368,183 @@ __device__ __forceinline__ void init_cells(int o0, int W, int (&h)[NPL],
   for (int k = 0; k < NPL; ++k) {
     h[k] = o0 + k < W ? 0 : kNeg;
     e[k] = kNeg;
+  }
+}
+
+// The forward pass of one group of LPA lanes (the warp form), lane sl,
+// over its staged codes qs, rs with the slot's matrix sm: rows 0 .. nrows
+// - 1, each row's packed words to rowbits (row i at rowbits + i * LPA)
+// where `real`, and with `bytes` each in-band cell's byte at dcell + i *
+// row_stride.  Leaves the group's first maximum over the rows that compete
+// (local: i < rows; glocal: i == last) in (bv, bi, bo) of every lane.  The
+// rows are compiled twice, with and without the bytes, so the mapping path's
+// have no test for them.
+template <int LPA, int NPL, bool LOCAL>
+__device__ __forceinline__ void warp_forward(
+    const int32_t* sm, const uint8_t* qs, const uint8_t* rs, int sl,
+    bool real, int rows, int last, int nrows, int W, int gq, int gr, int ge,
+    Word<NPL>* rowbits, bool bytes, uint8_t* dcell, long long row_stride,
+    int& bv, int& bi, int& bo) {
+  using Wd = Word<NPL>;
+  const int o0 = sl * NPL;
+  const int fb0 = (kNeg - ge) > (kNeg - gr) ? 8 : 0;
+  int h[NPL], e[NPL];
+  init_cells<NPL>(o0, W, h, e);
+  int lb = 0, li = 0, lo = 0;
+
+  auto forward = [&](auto with_bytes) {
+    constexpr bool BYTES = decltype(with_bytes)::value;
+    for (int i = 0; i < nrows; ++i) {
+      // the previous row's h and e of the cell right of this lane's last
+      int hn = __shfl_down_sync(kFull, h[0], 1, LPA);
+      int en = __shfl_down_sync(kFull, e[0], 1, LPA);
+      if (sl == LPA - 1) {
+        hn = kNeg;
+        en = kNeg;
+      }
+      int hd[NPL], ht[NPL], incl[NPL], eb[NPL];
+      const int run = row_first<NPL, LOCAL>(sm + 8 * qs[i], rs + i + o0, h,
+                                            e, hn, en, gq, ge, o0, hd, ht,
+                                            incl, eb);
+      const int htl = __shfl_up_sync(kFull, ht[NPL - 1], 1, LPA);
+      // exclusive max-scan of the lane totals across the group
+      int v = run;
+#pragma unroll
+      for (int d = 1; d < LPA; d <<= 1) {
+        const int t = __shfl_up_sync(kFull, v, d, LPA);
+        if (sl >= d) v = max(v, t);
+      }
+      int excl = __shfl_up_sync(kFull, v, 1, LPA);
+      if (sl == 0) excl = kNeg;
+      const Wd w = row_second<NPL, LOCAL, BYTES, Wd>(
+          excl, htl, fb0, h, e, hd, ht, incl, eb, o0, W, gr, ge,
+          BYTES && dcell != nullptr ? dcell + i * row_stride : nullptr,
+          LOCAL ? i < rows : i == last, i, lb, li, lo);
+      if (real) rowbits[i * LPA + sl] = w;
+    }
+  };
+  if (bytes) {
+    forward(std::true_type{});
+  } else {
+    forward(std::false_type{});
+  }
+
+  bv = lb;
+  bi = li;
+  bo = lo;
+#pragma unroll
+  for (int d = LPA / 2; d > 0; d >>= 1) {
+    take_first_max(__shfl_xor_sync(kFull, bv, d, LPA),
+                   __shfl_xor_sync(kFull, bi, d, LPA),
+                   __shfl_xor_sync(kFull, bo, d, LPA), bv, bi, bo);
+  }
+}
+
+// The block form's shared memory besides the matrices and the codes
+struct BlockShared {
+  int32_t h0[32], e0[32];     // previous row, first cell
+  int32_t tot[32], ht[32];    // scan total, last htmp
+  int32_t red[3][32];         // the argmax across warps
+  int32_t c;                  // the walk's n_ops
+};
+
+// The forward pass of one alignment a block (the block form): thread tid
+// (lane of warp, nw warps, nt threads) owns cells 8 tid .. 8 tid + 7 and
+// word tid of each row of rowbits (row i at rowbits + i * nt); with `dcell`
+// each in-band cell's byte at dcell + i * row_stride.  Two barriers a row:
+// (A) after each warp's lane 0 publishes the previous row's h and e of its
+// first cell, which lane 31 of the warp before needs for its last cell's E;
+// (B) after each warp's lane 31 publishes its scan total and its last
+// cell's htmp, which the warps after need for the F scan and for bit 3 of
+// their first cell.  Leaves each warp's first maximum in s.red, after a
+// barrier that also makes every thread's words visible to the block
+// (block_first_max reduces them).
+template <bool LOCAL>
+__device__ __forceinline__ void block_forward(
+    const int32_t* sm, const uint8_t* qs, const uint8_t* rs, int tid,
+    int lane, int warp, int nw, int nt, int rows, int last, int nrows, int W,
+    int gq, int gr, int ge, uint32_t* rowbits, uint8_t* dcell,
+    long long row_stride, BlockShared& s) {
+  constexpr int NPL = kBlockNPL;
+  const int o0 = tid * NPL;
+  const int fb0 = (kNeg - ge) > (kNeg - gr) ? 8 : 0;
+  int h[NPL], e[NPL];
+  init_cells<NPL>(o0, W, h, e);
+  int lb = 0, li = 0, lo = 0;
+
+  for (int i = 0; i < nrows; ++i) {
+    if (lane == 0) {
+      s.h0[warp] = h[0];
+      s.e0[warp] = e[0];
+    }
+    __syncthreads();   // A
+    int hn = __shfl_down_sync(kFull, h[0], 1);
+    int en = __shfl_down_sync(kFull, e[0], 1);
+    if (lane == 31) {
+      hn = warp + 1 < nw ? s.h0[warp + 1] : kNeg;
+      en = warp + 1 < nw ? s.e0[warp + 1] : kNeg;
+    }
+    int hd[NPL], ht[NPL], incl[NPL], eb[NPL];
+    const int run = row_first<NPL, LOCAL>(sm + 8 * qs[i], rs + i + o0, h, e,
+                                          hn, en, gq, ge, o0, hd, ht, incl,
+                                          eb);
+    int htl = __shfl_up_sync(kFull, ht[NPL - 1], 1);
+    int v = run;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, v, d);
+      if (lane >= d) v = max(v, t);
+    }
+    int excl = __shfl_up_sync(kFull, v, 1);
+    if (lane == 0) excl = kNeg;
+    if (lane == 31) {
+      s.tot[warp] = v;
+      s.ht[warp] = ht[NPL - 1];
+    }
+    __syncthreads();   // B
+    if (lane == 0 && warp > 0) htl = s.ht[warp - 1];
+    // the max of the totals of the warps before this one
+    int carry = lane < warp ? s.tot[lane] : kNeg;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      carry = max(carry, __shfl_xor_sync(kFull, carry, d));
+    }
+    excl = max(excl, carry);
+    rowbits[static_cast<long long>(i) * nt + tid] =
+        row_second<NPL, LOCAL, true, uint32_t>(
+            excl, htl, fb0, h, e, hd, ht, incl, eb, o0, W, gr, ge,
+            dcell != nullptr ? dcell + i * row_stride : nullptr,
+            LOCAL ? i < rows : i == last, i, lb, li, lo);
+  }
+
+  int bv = lb, bi = li, bo = lo;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    take_first_max(__shfl_xor_sync(kFull, bv, d),
+                   __shfl_xor_sync(kFull, bi, d),
+                   __shfl_xor_sync(kFull, bo, d), bv, bi, bo);
+  }
+  if (lane == 0) {
+    s.red[0][warp] = bv;
+    s.red[1][warp] = bi;
+    s.red[2][warp] = bo;
+  }
+  __syncthreads();   // also makes every thread's words visible to thread 0
+}
+
+// The block's first maximum from the warps' in s.red, in every lane of
+// warp 0, which calls this
+__device__ __forceinline__ void block_first_max(const BlockShared& s,
+                                                int lane, int nw, int& bv,
+                                                int& bi, int& bo) {
+  bv = lane < nw ? s.red[0][lane] : 0;
+  bi = lane < nw ? s.red[1][lane] : 0;
+  bo = lane < nw ? s.red[2][lane] : 0;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    take_first_max(__shfl_xor_sync(kFull, bv, d),
+                   __shfl_xor_sync(kFull, bi, d),
+                   __shfl_xor_sync(kFull, bo, d), bv, bi, bo);
   }
 }
 
@@ -411,82 +601,32 @@ sw_align_kernel(const uint8_t* __restrict__ query,
   m = m < 0 ? 0 : (m >= n_mats ? n_mats - 1 : m);
   const int32_t* sm = smat + m * 64;
 
-  const int o0 = sl * NPL;
-  const int fb0 = (kNeg - ge) > (kNeg - gr) ? 8 : 0;
   const long long row_stride = static_cast<long long>(S) * W;
   uint8_t* dcell = (dirs != nullptr && real)
-                       ? dirs + static_cast<long long>(slot) * W + o0
+                       ? dirs + static_cast<long long>(slot) * W + sl * NPL
                        : nullptr;
   Wd* rowbits = SMEM ? buf
                      : (real ? gbits + static_cast<long long>(slot) * L * LPA
                              : nullptr);
   // every row when the bytes are asked for; else the warp's longest read
   const int nrows = dirs != nullptr ? L : __reduce_max_sync(kFull, rows);
-  int h[NPL], e[NPL];
-  init_cells<NPL>(o0, W, h, e);
-  int lb = 0, li = 0, lo = 0;
-
-  // the rows, compiled twice: with the bytes (tests) and without
-  auto forward = [&](auto bytes) {
-    constexpr bool BYTES = decltype(bytes)::value;
-    for (int i = 0; i < nrows; ++i) {
-      // the previous row's h and e of the cell right of this lane's last
-      int hn = __shfl_down_sync(kFull, h[0], 1, LPA);
-      int en = __shfl_down_sync(kFull, e[0], 1, LPA);
-      if (sl == LPA - 1) {
-        hn = kNeg;
-        en = kNeg;
-      }
-      int hd[NPL], ht[NPL], incl[NPL], eb[NPL];
-      const int run = row_first<NPL, LOCAL>(sm + 8 * qs[i], rs + i + o0, h,
-                                            e, hn, en, gq, ge, o0, hd, ht,
-                                            incl, eb);
-      const int htl = __shfl_up_sync(kFull, ht[NPL - 1], 1, LPA);
-      // exclusive max-scan of the lane totals across the group
-      int v = run;
-#pragma unroll
-      for (int d = 1; d < LPA; d <<= 1) {
-        const int t = __shfl_up_sync(kFull, v, d, LPA);
-        if (sl >= d) v = max(v, t);
-      }
-      int excl = __shfl_up_sync(kFull, v, 1, LPA);
-      if (sl == 0) excl = kNeg;
-      const Wd w = row_second<NPL, LOCAL, BYTES, Wd>(
-          excl, htl, fb0, h, e, hd, ht, incl, eb, o0, W, gr, ge,
-          BYTES && dcell != nullptr ? dcell + i * row_stride : nullptr,
-          LOCAL ? i < rows : i == last, i, lb, li, lo);
-      if (real) rowbits[i * LPA + sl] = w;
-    }
-  };
-  if (dirs != nullptr) {
-    forward(std::true_type{});
-  } else {
-    forward(std::false_type{});
-  }
-
-  int bv = lb, bi = li, bo = lo;
-#pragma unroll
-  for (int d = LPA / 2; d > 0; d >>= 1) {
-    take_first_max(__shfl_xor_sync(kFull, bv, d, LPA),
-                   __shfl_xor_sync(kFull, bi, d, LPA),
-                   __shfl_xor_sync(kFull, bo, d, LPA), bv, bi, bo);
-  }
+  int bv, bi, bo;
+  warp_forward<LPA, NPL, LOCAL>(sm, qs, rs, sl, real, rows, last, nrows, W,
+                                gq, gr, ge, rowbits, dirs != nullptr, dcell,
+                                row_stride, bv, bi, bo);
   __syncwarp();   // the group's words, visible to all its lanes
   if (!real) return;
   uint8_t* slot_ops = ops + static_cast<long long>(slot) * max_ops;
-  const int c = walk_back<NPL, !SMEM, Wd>(
+  const Aln a = walk_back<NPL, !SMEM, Wd>(
       rowbits, LPA, buf, gmask, sl, LPA, qs, rs, positive_mask(sm), W,
-      max_ops, bv, bi, bo, sl == 0, slot_ops, out, trunc, slot, S);
-  for (int t = c + sl; t < max_ops; t += LPA) slot_ops[t] = kOpNone;
+      max_ops, bv, bi, bo, sl == 0, slot_ops);
+  if (sl == 0) store_aln(a, out, trunc, slot, S);
+  for (int t = a.n_ops + sl; t < max_ops; t += LPA) slot_ops[t] = kOpNone;
 }
 
 // One alignment a block, for W > kMaxWarpBand (the global route): 32 * nw
 // threads, thread t owning cells 8t .. 8t+7 and word t of each row of
-// gbits [S, L, 32 * nw].  Two barriers a row: (A) after each warp's lane 0
-// publishes the previous row's h and e of its first cell, which lane 31 of
-// the warp before needs for its last cell's E; (B) after each warp's lane
-// 31 publishes its scan total and its last cell's htmp, which the warps
-// after need for the F scan and for bit 3 of their first cell.
+// gbits [S, L, 32 * nw] (block_forward).
 template <bool LOCAL>
 __global__ void __launch_bounds__(kMaxBlockThreads)
 sw_align_block_kernel(const uint8_t* __restrict__ query,
@@ -500,10 +640,7 @@ sw_align_block_kernel(const uint8_t* __restrict__ query,
                       uint8_t* __restrict__ trunc) {
   constexpr int NPL = kBlockNPL;
   __shared__ int32_t smat[kMaxMats * 64];
-  __shared__ int32_t s_h0[32], s_e0[32];    // previous row, first cell
-  __shared__ int32_t s_tot[32], s_ht[32];   // scan total, last htmp
-  __shared__ int32_t red[3][32];            // the argmax across warps
-  __shared__ int32_t s_c;
+  __shared__ BlockShared s;
   extern __shared__ __align__(16) uint8_t stage[];
 
   const int nt = blockDim.x;
@@ -528,94 +665,312 @@ sw_align_block_kernel(const uint8_t* __restrict__ query,
   int m = n_mats == 1 ? 0 : msel[slot];
   m = m < 0 ? 0 : (m >= n_mats ? n_mats - 1 : m);
   const int32_t* sm = smat + m * 64;
-  const int o0 = tid * NPL;
-  const int fb0 = (kNeg - ge) > (kNeg - gr) ? 8 : 0;
   const long long row_stride = static_cast<long long>(S) * W;
-  uint8_t* dcell =
-      dirs != nullptr ? dirs + static_cast<long long>(slot) * W + o0 : nullptr;
+  uint8_t* dcell = dirs != nullptr
+                       ? dirs + static_cast<long long>(slot) * W + tid * NPL
+                       : nullptr;
   uint32_t* rowbits = gbits + static_cast<long long>(slot) * L * nt;
   const int nrows = dirs != nullptr ? L : rows;
-  int h[NPL], e[NPL];
-  init_cells<NPL>(o0, W, h, e);
-  int lb = 0, li = 0, lo = 0;
-
-  for (int i = 0; i < nrows; ++i) {
-    if (lane == 0) {
-      s_h0[warp] = h[0];
-      s_e0[warp] = e[0];
-    }
-    __syncthreads();   // A
-    int hn = __shfl_down_sync(kFull, h[0], 1);
-    int en = __shfl_down_sync(kFull, e[0], 1);
-    if (lane == 31) {
-      hn = warp + 1 < nw ? s_h0[warp + 1] : kNeg;
-      en = warp + 1 < nw ? s_e0[warp + 1] : kNeg;
-    }
-    int hd[NPL], ht[NPL], incl[NPL], eb[NPL];
-    const int run = row_first<NPL, LOCAL>(sm + 8 * qs[i], rs + i + o0, h, e,
-                                          hn, en, gq, ge, o0, hd, ht, incl,
-                                          eb);
-    int htl = __shfl_up_sync(kFull, ht[NPL - 1], 1);
-    int v = run;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(kFull, v, d);
-      if (lane >= d) v = max(v, t);
-    }
-    int excl = __shfl_up_sync(kFull, v, 1);
-    if (lane == 0) excl = kNeg;
-    if (lane == 31) {
-      s_tot[warp] = v;
-      s_ht[warp] = ht[NPL - 1];
-    }
-    __syncthreads();   // B
-    if (lane == 0 && warp > 0) htl = s_ht[warp - 1];
-    // the max of the totals of the warps before this one
-    int carry = lane < warp ? s_tot[lane] : kNeg;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      carry = max(carry, __shfl_xor_sync(kFull, carry, d));
-    }
-    excl = max(excl, carry);
-    rowbits[static_cast<long long>(i) * nt + tid] =
-        row_second<NPL, LOCAL, true, uint32_t>(
-            excl, htl, fb0, h, e, hd, ht, incl, eb, o0, W, gr, ge,
-            dcell != nullptr ? dcell + i * row_stride : nullptr,
-            LOCAL ? i < rows : i == last, i, lb, li, lo);
-  }
-
-  int bv = lb, bi = li, bo = lo;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    take_first_max(__shfl_xor_sync(kFull, bv, d),
-                   __shfl_xor_sync(kFull, bi, d),
-                   __shfl_xor_sync(kFull, bo, d), bv, bi, bo);
-  }
-  if (lane == 0) {
-    red[0][warp] = bv;
-    red[1][warp] = bi;
-    red[2][warp] = bo;
-  }
-  __syncthreads();   // also makes every thread's words visible to thread 0
+  block_forward<LOCAL>(sm, qs, rs, tid, lane, warp, nw, nt, rows, last,
+                       nrows, W, gq, gr, ge, rowbits, dcell, row_stride, s);
   uint8_t* slot_ops = ops + static_cast<long long>(slot) * max_ops;
   if (warp == 0) {
-    bv = lane < nw ? red[0][lane] : 0;
-    bi = lane < nw ? red[1][lane] : 0;
-    bo = lane < nw ? red[2][lane] : 0;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      take_first_max(__shfl_xor_sync(kFull, bv, d),
-                     __shfl_xor_sync(kFull, bi, d),
-                     __shfl_xor_sync(kFull, bo, d), bv, bi, bo);
-    }
+    int bv, bi, bo;
+    block_first_max(s, lane, nw, bv, bi, bo);
     if (lane == 0) {
-      s_c = walk_back<NPL, false, uint32_t>(
+      const Aln a = walk_back<NPL, false, uint32_t>(
           rowbits, nt, nullptr, 1u, 0, 1, qs, rs, positive_mask(sm), W,
-          max_ops, bv, bi, bo, true, slot_ops, out, trunc, slot, S);
+          max_ops, bv, bi, bo, true, slot_ops);
+      store_aln(a, out, trunc, slot, S);
+      s.c = a.n_ops;
     }
   }
   __syncthreads();
-  for (int t = s_c + tid; t < max_ops; t += nt) slot_ops[t] = kOpNone;
+  for (int t = s.c + tid; t < max_ops; t += nt) slot_ops[t] = kOpNone;
+}
+
+// ---------------------------------------------------------------------------
+// The finish pass of the mapping steps: K4 with a prologue that reads the
+// winner of each read straight from the step's tensors and an epilogue that
+// writes MapResult's fields, one launch (after a 4-byte memset of the
+// batch's overflow counter).
+//
+// Replaces, on a card, the body of the port's models/mapper.py::_finish,
+// about 47 graph nodes around one K4 launch (three gathers of the winner,
+// the second best's sub, abs, compare, select and reduction, the start's
+// select and clamp, K2 (csrc/gather_windows.cu) into a [B, L + W] window
+// buffer, the query's strand select over [B, L], then ~30 elementwise
+// kernels of the filters, MAPQ, pos and proper), itself the port of the
+// reference's XLA-fused nextgenmap_tpu/models/mapper.py:304 _finish.
+// Bit-identical to its plain version, ops/finish_kernel.py::finish_plain,
+// in every MapResult field.
+//
+// What bounds it: K4's (the note at the top); besides, a read's C
+// candidates (4 + 4 + 1 bytes each, for the second best) and its [B]
+// fields, about 2 MB at B 4096, under 1 us at 3.35 TB/s.
+//
+// Design: K4's own forward pass and walk (warp_forward, block_forward,
+// walk_back), on K4's routes by the same shape rule (ngm_finish_plan), in
+// kernels named sw_align_finish_*:
+//   - prologue, one group a read (a block in the block form): the winner
+//     a1[b]'s validity, corridor start and strand; the query staged from
+//     the read or its reverse complement by the winner's strand; the
+//     corridor staged straight from the genome at the start clamped to
+//     [0, max(0, G - T)], 64-bit genome offsets, 4 past the genome's end,
+//     as K2 gives them (the flattened [S x Gs] genome of the pooled shard
+//     tail included); the winner's strand picks the matrix (bisulfite);
+//   - after the rows, the second best: a max over the C candidates shared
+//     by the group's lanes and reduced by shuffles;
+//   - epilogue, the group's first lane after the walk: the winner read
+//     again, the filters and MAPQ in float32 with round-to-nearest
+//     operations and no contraction (__fdiv_rn, __fmul_rn, rintf: round
+//     half to even, as the plain version's torch ops round), pos from the
+//     raw (unclamped) start, and proper gated by mapped.  Nothing of the
+//     prologue stays live through the row loop: kept in registers, the
+//     winner's fields and the second best cost the loop ~10% more
+//     instructions at [4096, 150] x W 56 (predicate spills, the shared
+//     window's base recomputed every row), measured on an H100;
+//   - the overflow counter: block 0 adds the step's count so far
+//     (overflow[1]) and each truncated walk adds 1, integer atomics, exact
+//     in any order.
+
+constexpr int kOutFields = 11;   // strand, pos, mapq, score, second,
+                                 // q_start, q_end, n_ops, matches,
+                                 // mismatches, indels
+
+// Everything the finish kernels read and write; see ngm_finish.
+struct Finish {
+  const int64_t* a1;           // [B] the chosen candidate of each read
+  const int32_t* sw;           // [B, C]
+  const int32_t* corr_start;   // [B, C]
+  const int32_t* strand;       // [B, C]
+  const uint8_t* cand_valid;   // [B, C] bool
+  const uint8_t* genome;       // [G]
+  long long G;
+  const uint8_t* reads;        // [B, L]
+  const uint8_t* rc;           // [B, L]
+  const int32_t* lengths;      // [B]
+  const int32_t* mats;         // [n_mats, 8, 8]
+  const float* min_identity;   // []
+  const float* min_residues;   // []
+  const uint8_t* proper;       // [B] bool
+  const int32_t* cmr_in;       // [] the step's cmr overflow so far
+  int B, L, C, W, n_mats, gq, gr, ge, max_ops;
+  int32_t* fields;             // [kOutFields, B]
+  uint8_t* flags;              // [2, B] bool: mapped, proper
+  uint8_t* ops;                // [B, max_ops]
+  int32_t* cmr;                // [] zeroed before the launch
+};
+
+// dst[t] = min(genome[s + t], 5) while s + t < G and 4 past the genome's
+// end for t < n, kPadCode for n <= t < n_pad; s in [0, G]: K2's window,
+// staged as K4 stages it (csrc/sw_score.cu's score pass has the same).
+__device__ __forceinline__ void stage_window(const uint8_t* genome,
+                                             long long G, long long s, int n,
+                                             uint8_t* dst, int n_pad, int sl,
+                                             int lpa) {
+  const int in = static_cast<int>(min(static_cast<long long>(n), G - s));
+  stage_codes(genome + s, in, dst, in, sl, lpa);
+  for (int t = in + sl; t < n_pad; t += lpa) dst[t] = t < n ? 4 : kPadCode;
+}
+
+// Read b's winner, candidate a1[b]: its validity, corridor start and
+// strand.  The kernels read it twice, to stage the winner's query and
+// corridor before the rows and again for the epilogue after them, so that
+// nothing of it stays live through K4's row loop.
+struct Winner {
+  int start, strand;
+  bool valid;
+};
+
+__device__ __forceinline__ Winner winner_of(const Finish& p, int b) {
+  const long long a = static_cast<long long>(b) * p.C + p.a1[b];
+  return Winner{p.corr_start[a], p.strand[a], p.cand_valid[a] != 0};
+}
+
+// The winner's corridor start: 0 for an invalid winner, clamped to
+// [0, max(0, G - T)]
+__device__ __forceinline__ long long corridor_start(const Finish& p,
+                                                    const Winner& w) {
+  const long long hi = max(0LL, p.G - (p.L + p.W));
+  const long long s = w.valid ? w.start : 0;
+  return s < 0 ? 0 : (s > hi ? hi : s);
+}
+
+// Read b's second best score: the max over all C candidates of sw[b, c]
+// where |corr_start[b, c] - start| > L, and of 0 elsewhere.  The WIDTH
+// lanes of a segment (lane sl in it) share the candidates; every lane of
+// the warp calls this (the shuffles), only those of a real read read.
+template <int WIDTH>
+__device__ __forceinline__ int second_best(const Finish& p, int b, int sl,
+                                           bool real) {
+  int s2 = INT_MIN;
+  if (real) {
+    const long long row = static_cast<long long>(b) * p.C;
+    const int start = p.corr_start[row + p.a1[b]];
+    for (int c = sl; c < p.C; c += WIDTH) {
+      const bool far = abs(p.corr_start[row + c] - start) > p.L;
+      s2 = max(s2, far ? p.sw[row + c] : 0);
+    }
+  }
+#pragma unroll
+  for (int d = WIDTH / 2; d > 0; d >>= 1) {
+    s2 = max(s2, __shfl_xor_sync(kFull, s2, d, WIDTH));
+  }
+  return s2;
+}
+
+// The filters, MAPQ and read b's MapResult fields, from its winner, its
+// second best s2, its length and its alignment (one thread)
+__device__ __forceinline__ void finish_read(const Finish& p, int b, int len,
+                                            int s2, const Aln& a) {
+  const Winner w = winner_of(p, b);
+  const int s1 = w.valid ? a.score : 0;
+  const float identity = __fdiv_rn(__int2float_rn(a.matches),
+                                   __int2float_rn(max(a.n_ops, 1)));
+  const float residues = __int2float_rn(a.q_end - a.q_start + 1);
+  const float min_res_abs = __fmul_rn(*p.min_residues, __int2float_rn(len));
+  const bool mapped = s1 > 0 && len > 0 && identity >= *p.min_identity &&
+                      residues >= min_res_abs && !a.trunc;
+  const float q = rintf(__fdiv_rn(__fmul_rn(60.0f, __int2float_rn(s1 - s2)),
+                                  __int2float_rn(max(s1, 1))));
+  const int mapq = mapped ? static_cast<int>(fminf(fmaxf(q, 0.0f), 60.0f)) : 0;
+  // pos from the raw start, even when unmapped (consumers gate on mapped)
+  const int vals[kOutFields] = {w.strand,  w.start + a.r_start, mapq,
+                                s1,        s2,        a.q_start,
+                                a.q_end,   a.n_ops,   a.matches,
+                                a.mismatches, a.indels};
+#pragma unroll
+  for (int f = 0; f < kOutFields; ++f) {
+    p.fields[f * static_cast<long long>(p.B) + b] = vals[f];
+  }
+  p.flags[b] = mapped ? 1 : 0;
+  p.flags[p.B + b] = (mapped && p.proper[b] != 0) ? 1 : 0;
+  if (a.trunc) atomicAdd(p.cmr, 1);
+}
+
+// The finish pass, warp form: K4's groups, one read each (sw_align_kernel's
+// layout of shared memory and of gbits [B, L, LPA]).
+template <int LPA, int NPL, bool LOCAL, bool SMEM>
+__global__ void __launch_bounds__(kWarps * 32)
+sw_align_finish_kernel(const Finish p, int stage_q, int codes_bytes,
+                       int group_bytes, Word<NPL>* gbits) {
+  using Wd = Word<NPL>;
+  constexpr int WP = LPA * NPL;
+  __shared__ int32_t smat[kMaxMats * 64];
+  extern __shared__ __align__(16) uint8_t stage[];
+
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(p.cmr, *p.cmr_in);
+  load_mats(smat, p.mats, p.n_mats, threadIdx.x, blockDim.x);
+  __syncthreads();
+
+  const int L = p.L, W = p.W;
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x / LPA;
+  const int sl = lane % LPA;
+  const int b = blockIdx.x * (blockDim.x / LPA) + g;
+  const bool real = b < p.B;
+  const int len = real ? p.lengths[b] : 0;
+  const int rows = len < 0 ? 0 : (len > L ? L : len);
+  const int last = len - 1;   // glocal: the one row that competes
+  const unsigned gmask =
+      LPA == 32 ? kFull : (((1u << (LPA & 31)) - 1u) << (lane - sl));
+
+  uint8_t* qs = stage + static_cast<long long>(g) * group_bytes;
+  uint8_t* rs = qs + stage_q;
+  Wd* buf = reinterpret_cast<Wd*>(qs + codes_bytes);
+  const int nr = L + WP - 1;
+  int st = 0;
+  if (real) {
+    const Winner w = winner_of(p, b);
+    st = w.strand;
+    stage_codes((st == 1 ? p.rc : p.reads) + static_cast<long long>(b) * L,
+                L, qs, L, sl, LPA);
+    stage_window(p.genome, p.G, corridor_start(p, w), min(nr, L + W), rs, nr,
+                 sl, LPA);
+  } else {
+    stage_codes(p.reads, 0, qs, L, sl, LPA);
+    stage_codes(p.reads, 0, rs, nr, sl, LPA);
+  }
+  __syncwarp();
+
+  int m = (p.n_mats == 1 || !real) ? 0 : st;
+  m = m < 0 ? 0 : (m >= p.n_mats ? p.n_mats - 1 : m);
+  const int32_t* sm = smat + m * 64;
+  Wd* rowbits = SMEM ? buf
+                     : (real ? gbits + static_cast<long long>(b) * L * LPA
+                             : nullptr);
+  int bv, bi, bo;
+  warp_forward<LPA, NPL, LOCAL>(sm, qs, rs, sl, real, rows, last,
+                                __reduce_max_sync(kFull, rows), W, p.gq,
+                                p.gr, p.ge, rowbits, false, nullptr, 0, bv,
+                                bi, bo);
+  __syncwarp();   // the group's words, visible to all its lanes
+  const int s2 = second_best<LPA>(p, b, sl, real);
+  if (!real) return;
+  uint8_t* read_ops = p.ops + static_cast<long long>(b) * p.max_ops;
+  const Aln a = walk_back<NPL, !SMEM, Wd>(
+      rowbits, LPA, buf, gmask, sl, LPA, qs, rs, positive_mask(sm), W,
+      p.max_ops, bv, bi, bo, sl == 0, read_ops);
+  if (sl == 0) finish_read(p, b, len, s2, a);
+  for (int t = a.n_ops + sl; t < p.max_ops; t += LPA) read_ops[t] = kOpNone;
+}
+
+// The finish pass, block form (W > kMaxWarpBand): one read a block
+// (sw_align_block_kernel's layout, gbits [B, L, blockDim.x]); a launch of
+// one block for B = 0 only adds the count.
+template <bool LOCAL>
+__global__ void __launch_bounds__(kMaxBlockThreads)
+sw_align_finish_block_kernel(const Finish p, int stage_q, uint32_t* gbits) {
+  constexpr int NPL = kBlockNPL;
+  __shared__ int32_t smat[kMaxMats * 64];
+  __shared__ BlockShared s;
+  extern __shared__ __align__(16) uint8_t stage[];
+
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nt >> 5;
+  const int b = blockIdx.x;
+  if (b == 0 && tid == 0) atomicAdd(p.cmr, *p.cmr_in);
+  if (b >= p.B) return;   // block-uniform
+  const int L = p.L, W = p.W;
+  const int len = p.lengths[b];
+  const int rows = len < 0 ? 0 : (len > L ? L : len);
+
+  load_mats(smat, p.mats, p.n_mats, tid, nt);
+  uint8_t* qs = stage;
+  uint8_t* rs = stage + stage_q;
+  const int nr = L + nt * NPL - 1;
+  const Winner w = winner_of(p, b);
+  stage_codes((w.strand == 1 ? p.rc : p.reads) + static_cast<long long>(b) * L,
+              L, qs, L, tid, nt);
+  stage_window(p.genome, p.G, corridor_start(p, w), min(nr, L + W), rs, nr,
+               tid, nt);
+  __syncthreads();
+
+  int m = p.n_mats == 1 ? 0 : w.strand;
+  m = m < 0 ? 0 : (m >= p.n_mats ? p.n_mats - 1 : m);
+  const int32_t* sm = smat + m * 64;
+  uint32_t* rowbits = gbits + static_cast<long long>(b) * L * nt;
+  block_forward<LOCAL>(sm, qs, rs, tid, lane, warp, nw, nt, rows, len - 1,
+                       rows, W, p.gq, p.gr, p.ge, rowbits, nullptr, 0, s);
+  uint8_t* read_ops = p.ops + static_cast<long long>(b) * p.max_ops;
+  if (warp == 0) {
+    int bv, bi, bo;
+    block_first_max(s, lane, nw, bv, bi, bo);
+    const int s2 = second_best<32>(p, b, lane, true);
+    if (lane == 0) {
+      const Aln a = walk_back<NPL, false, uint32_t>(
+          rowbits, nt, nullptr, 1u, 0, 1, qs, rs, positive_mask(sm), W,
+          p.max_ops, bv, bi, bo, true, read_ops);
+      finish_read(p, b, len, s2, a);
+      s.c = a.n_ops;
+    }
+  }
+  __syncthreads();
+  for (int t = s.c + tid; t < p.max_ops; t += nt) read_ops[t] = kOpNone;
 }
 
 struct Args {
@@ -759,10 +1114,29 @@ cudaError_t plan_warps(Kernel kern, const Device& d, int S, int apw,
   return blocks_per_sm(kern, p->threads, p->smem, limit, &p->blocks_per_sm);
 }
 
+// The kernels of one layout: K4's (FINISH false) or the finish pass's
+template <bool FINISH, int LPA, int NPL, bool LOCAL, bool SMEM>
+auto warp_kernel() {
+  if constexpr (FINISH) {
+    return sw_align_finish_kernel<LPA, NPL, LOCAL, SMEM>;
+  } else {
+    return sw_align_kernel<LPA, NPL, LOCAL, SMEM>;
+  }
+}
+
+template <bool FINISH, bool LOCAL>
+auto block_kernel() {
+  if constexpr (FINISH) {
+    return sw_align_finish_block_kernel<LOCAL>;
+  } else {
+    return sw_align_block_kernel<LOCAL>;
+  }
+}
+
 // The plan at one layout: the named route, or for route < 0 the shape
 // rule's (the smem route where at least kMinSmemWarps of its warps fit on
-// an SM)
-template <bool LOCAL, int LPA, int NPL>
+// an SM), of K4's kernels or the finish pass's
+template <bool FINISH, bool LOCAL, int LPA, int NPL>
 cudaError_t plan_at(Layout<LPA, NPL>, const Device& d, int S, int L, int W,
                     int route, Plan* p) {
   if constexpr (LPA == 0) {
@@ -771,7 +1145,7 @@ cudaError_t plan_at(Layout<LPA, NPL>, const Device& d, int S, int L, int W,
               block_smem(L, threads), 0, 0};
     // the block form's rows stay in global memory: no smem route
     if (route == kRouteSmem) return cudaSuccess;
-    auto kern = sw_align_block_kernel<LOCAL>;
+    auto kern = block_kernel<FINISH, LOCAL>();
     long long limit = 0;
     cudaError_t err = smem_limit(kern, d.id, &limit);
     if (err == cudaSuccess) {
@@ -786,8 +1160,8 @@ cudaError_t plan_at(Layout<LPA, NPL>, const Device& d, int S, int L, int W,
     Plan pg{kRouteGlobal, LPA, NPL, b.row_bytes, 0, 0, 0, 0};
     cudaError_t err = cudaSuccess;
     if (route != kRouteGlobal) {
-      err = plan_warps(sw_align_kernel<LPA, NPL, LOCAL, true>, d, S, APW,
-                       APW * b.group(true), &ps);
+      err = plan_warps(warp_kernel<FINISH, LPA, NPL, LOCAL, true>(), d, S,
+                       APW, APW * b.group(true), &ps);
       if (err != cudaSuccess) return err;
     }
     if (route < 0) {
@@ -795,8 +1169,8 @@ cudaError_t plan_at(Layout<LPA, NPL>, const Device& d, int S, int L, int W,
                                                      : kRouteGlobal;
     }
     if (route == kRouteGlobal) {
-      err = plan_warps(sw_align_kernel<LPA, NPL, LOCAL, false>, d, S, APW,
-                       APW * b.group(false), &pg);
+      err = plan_warps(warp_kernel<FINISH, LPA, NPL, LOCAL, false>(), d, S,
+                       APW, APW * b.group(false), &pg);
     }
     *p = route == kRouteSmem ? ps : pg;
     return err;
@@ -854,7 +1228,71 @@ cudaError_t launch_at(Layout<LPA, NPL>, const Args& a, int route,
   return cudaGetLastError();
 }
 
+// The finish pass's launch at one layout, as launch_at: a grid of at
+// least one block, so that block 0 adds the count for B = 0 too
+template <bool LOCAL, int LPA, int NPL>
+cudaError_t launch_finish_at(Layout<LPA, NPL>, const Finish& p, int route,
+                             int threads, void* scratch, cudaStream_t st) {
+  if (route == kRouteGlobal && scratch == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  const int stage_q = stage_q_bytes(p.L);
+  if constexpr (LPA == 0) {
+    if (route != kRouteGlobal || threads != block_threads(p.W)) {
+      return cudaErrorInvalidValue;
+    }
+    sw_align_finish_block_kernel<LOCAL>
+        <<<std::max(p.B, 1), threads,
+           static_cast<size_t>(block_smem(p.L, threads)), st>>>(
+            p, stage_q, static_cast<uint32_t*>(scratch));
+  } else {
+    constexpr int APW = 32 / LPA;
+    const int nw = threads / 32;
+    if (threads != 32 * nw || nw < 1 || nw > kWarps) {
+      return cudaErrorInvalidValue;
+    }
+    const WarpBytes<LPA, NPL> b(p.L);
+    const bool smem = route == kRouteSmem;
+    const long long group = b.group(smem);
+    const int apb = nw * APW;
+    auto kern = smem ? sw_align_finish_kernel<LPA, NPL, LOCAL, true>
+                     : sw_align_finish_kernel<LPA, NPL, LOCAL, false>;
+    kern<<<std::max((p.B + apb - 1) / apb, 1), threads,
+           static_cast<size_t>(apb * group), st>>>(
+        p, stage_q, b.codes_bytes, static_cast<int>(group),
+        static_cast<Word<NPL>*>(scratch));
+  }
+  return cudaGetLastError();
+}
+
 bool valid(int L, int W) { return W >= 1 && W <= kMaxBand && L >= 0; }
+
+// ngm_sw_align_plan and ngm_finish_plan: the plan of K4's kernels or the
+// finish pass's on the current device
+template <bool FINISH>
+int plan_entry(int S, int L, int W, int local, int route, int* out) {
+  if (!valid(L, W) || S < 0 || route > kRouteGlobal) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Device d{0, 1};
+  Plan p{};
+  cudaError_t err = cudaGetDevice(&d.id);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&d.n_sm, cudaDevAttrMultiProcessorCount,
+                                 d.id);
+  }
+  if (err == cudaSuccess) {
+    err = by_band(W, [&](auto lay) {
+      return local != 0 ? plan_at<FINISH, true>(lay, d, S, L, W, route, &p)
+                        : plan_at<FINISH, false>(lay, d, S, L, W, route, &p);
+    });
+  }
+  const int vals[8] = {p.route, p.lpa, p.npl, p.row_bytes, p.threads,
+                       static_cast<int>(p.smem), p.blocks_per_sm,
+                       p.route_warps_per_sm};
+  for (int f = 0; f < 8; ++f) out[f] = vals[f];
+  return static_cast<int>(err);
+}
 
 }  // namespace
 
@@ -869,27 +1307,7 @@ bool valid(int L, int W) { return W >= 1 && W <= kMaxBand && L >= 0; }
 // kernel's shared-memory ceiling on this device, which ngm_sw_align needs.
 extern "C" int ngm_sw_align_plan(int S, int L, int W, int local, int route,
                                  int* out) {
-  if (!valid(L, W) || S < 0 || route > kRouteGlobal) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Device d{0, 1};
-  Plan p{};
-  cudaError_t err = cudaGetDevice(&d.id);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&d.n_sm, cudaDevAttrMultiProcessorCount,
-                                 d.id);
-  }
-  if (err == cudaSuccess) {
-    err = by_band(W, [&](auto lay) {
-      return local != 0 ? plan_at<true>(lay, d, S, L, W, route, &p)
-                        : plan_at<false>(lay, d, S, L, W, route, &p);
-    });
-  }
-  const int vals[8] = {p.route, p.lpa, p.npl, p.row_bytes, p.threads,
-                       static_cast<int>(p.smem), p.blocks_per_sm,
-                       p.route_warps_per_sm};
-  for (int f = 0; f < 8; ++f) out[f] = vals[f];
-  return static_cast<int>(err);
+  return plan_entry<false>(S, L, W, local, route, out);
 }
 
 // query [S, L] uint8, qlen [S] int32, corr [S, L + W] uint8,
@@ -920,5 +1338,66 @@ extern "C" int ngm_sw_align(const void* query, const void* qlen,
   return static_cast<int>(by_band(W, [&](auto lay) {
     return local != 0 ? launch_at<true>(lay, a, route, threads, st)
                       : launch_at<false>(lay, a, route, threads, st);
+  }));
+}
+
+// The finish pass's plan for B reads at [B, L] x W on the current device:
+// the shape rule's route for its kernels, out[8] as ngm_sw_align_plan's.
+extern "C" int ngm_finish_plan(int B, int L, int W, int local, int* out) {
+  return plan_entry<true>(B, L, W, local, -1, out);
+}
+
+// The finish pass (see its note above): a1 [B] int64 in [0, C); sw,
+// corr_start and strand [B, C] int32, cand_valid [B, C] bool; genome [G]
+// uint8; reads and rc [B, L] uint8; lengths [B] int32; mats [n_mats, 8, 8]
+// int32 (the winner's strand picks one, clamped to [0, n_mats));
+// min_identity and min_residues [] float32; proper [B] bool; cmr_in []
+// int32; local != 0 for local mode, 0 for glocal; route and threads as
+// ngm_finish_plan gave them; scratch: the global route's packed rows, B * L
+// * row_bytes bytes, else unused.  Zeroes cmr, then one launch writes
+// fields [11, B] int32 (strand, pos, mapq, score, second, q_start, q_end,
+// n_ops, matches, mismatches, indels), flags [2, B] bool (mapped, proper),
+// ops [B, L + W] uint8 and cmr [] int32 = cmr_in + the truncated walks.
+// 1 <= W <= 8192, 1 <= n_mats <= 8, C >= 1.  A route or block the plan would
+// not give returns an error and runs nothing.
+extern "C" int ngm_finish(const void* a1, const void* sw,
+                          const void* corr_start, const void* strand,
+                          const void* cand_valid, const void* genome,
+                          long long G, const void* reads, const void* rc,
+                          const void* lengths, const void* mats,
+                          const void* min_identity, const void* min_residues,
+                          const void* proper, const void* cmr_in, int B,
+                          int L, int C, int W, int n_mats, int gq, int gr,
+                          int ge, int local, int route, int threads,
+                          void* scratch, void* fields, void* flags, void* ops,
+                          void* cmr, void* stream) {
+  if (!valid(L, W) || n_mats < 1 || n_mats > kMaxMats || B < 0 || C < 1 ||
+      G < 0 || (route != kRouteSmem && route != kRouteGlobal)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(cmr, 0, sizeof(int32_t), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Finish p{static_cast<const int64_t*>(a1),
+                 static_cast<const int32_t*>(sw),
+                 static_cast<const int32_t*>(corr_start),
+                 static_cast<const int32_t*>(strand),
+                 static_cast<const uint8_t*>(cand_valid),
+                 static_cast<const uint8_t*>(genome), G,
+                 static_cast<const uint8_t*>(reads),
+                 static_cast<const uint8_t*>(rc),
+                 static_cast<const int32_t*>(lengths),
+                 static_cast<const int32_t*>(mats),
+                 static_cast<const float*>(min_identity),
+                 static_cast<const float*>(min_residues),
+                 static_cast<const uint8_t*>(proper),
+                 static_cast<const int32_t*>(cmr_in), B, L, C, W, n_mats, gq,
+                 gr, ge, L + W, static_cast<int32_t*>(fields),
+                 static_cast<uint8_t*>(flags), static_cast<uint8_t*>(ops),
+                 static_cast<int32_t*>(cmr)};
+  return static_cast<int>(by_band(W, [&](auto lay) {
+    return local != 0
+               ? launch_finish_at<true>(lay, p, route, threads, scratch, st)
+               : launch_finish_at<false>(lay, p, route, threads, scratch, st);
   }));
 }

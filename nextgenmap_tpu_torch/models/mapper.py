@@ -15,7 +15,8 @@ and differ in their tails:
 
   map_step         lazy scoring of reads with >= 2 candidates (slot
                    compaction, corridor fetch, SW score) -> argmax ->
-                   winner corridor (K2) -> traceback -> filters + MAPQ
+                   the finish: winner corridor -> traceback -> filters +
+                   MAPQ
   map_step_paired  lazy scoring of pairs where a mate has >= 2 candidates ->
                    CxC insert-window pair resolution -> as above
   map_step_topn    eager scoring of every candidate -> stable top-R ranks ->
@@ -27,12 +28,15 @@ read is aligned, with no clipping.
 On a CUDA device the read front end (the rc and the k-mers) is the
 hand-written kernel K5, the candidate search K6, every score pass, local or
 glocal, the fused score pass (a plan kernel, then K1's row loops fed
-straight from the reads and the genome), every traceback's corridor fetch
-the gather kernel K2 and every traceback K4; on the CPU their wrappers run
-the plain PyTorch versions.  Every output equals the reference's steps exactly
-(tests/test_torch_mapper.py, tests/test_torch_paired.py,
-tests/test_torch_topn.py, tests/test_torch_glocal.py,
-tests/test_torch_bisulfite.py, tests/test_torch_long_reads.py).
+straight from the reads and the genome), the single and paired steps'
+finish the finish pass (K4's forward pass and walk, fed straight from the
+step's tensors, the reads and the genome, with the filters and MAPQ in
+one launch), and the top-n traceback the gather kernel K2 and K4; on the
+CPU their wrappers run the plain PyTorch versions.  Every output equals
+the reference's steps exactly (tests/test_torch_mapper.py,
+tests/test_torch_paired.py, tests/test_torch_topn.py,
+tests/test_torch_glocal.py, tests/test_torch_bisulfite.py,
+tests/test_torch_long_reads.py).
 
 The Mapper also runs the reference's several-device steps: the dp step
 (each batch in contiguous slices, one per device slot) and the ("dp",
@@ -59,6 +63,7 @@ from nextgenmap_tpu_torch.models.step_graph import (
 )
 from nextgenmap_tpu_torch.ops.candidate import pack_offsets
 from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
+from nextgenmap_tpu_torch.ops.finish_kernel import MapResult, finish_pass
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
 from nextgenmap_tpu_torch.ops.score_pass_kernel import score_pass
@@ -75,28 +80,6 @@ from nextgenmap_tpu_torch.parallel.mesh import device_slots, distinct
 from nextgenmap_tpu_torch.utils import trace
 
 I32 = torch.int32
-
-
-class MapResult(NamedTuple):
-    """Per-read mapping outcome (all tensors [B] unless noted)."""
-
-    mapped: torch.Tensor      # bool
-    strand: torch.Tensor      # int32 0 fwd / 1 rev
-    pos: torch.Tensor         # int32 absolute genome position of first aligned base
-    mapq: torch.Tensor        # int32 0..60
-    score: torch.Tensor       # int32 best SW score
-    second: torch.Tensor      # int32 second-best (different locus) SW score
-    q_start: torch.Tensor     # int32 first aligned base in ALIGNED orientation
-    q_end: torch.Tensor       # int32 last aligned base (inclusive)
-    ops: torch.Tensor         # [B, MO] uint8 traceback ops END->START
-    n_ops: torch.Tensor       # int32
-    matches: torch.Tensor     # int32
-    mismatches: torch.Tensor  # int32
-    indels: torch.Tensor      # int32
-    n_candidates: torch.Tensor  # int32 CMRs for this read
-    proper: torch.Tensor      # bool, paired runs only (False for single-end)
-    fanout_overflow: torch.Tensor  # [] int32
-    cmr_overflow: torch.Tensor     # [] int32
 
 
 def _pre_extract(reads, lengths, *, k, read_stride=1, bs=False, bs_cutoff=0,
@@ -207,76 +190,22 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
             min_residues, n_cands, overflow, proper, *, band,
             end_to_end=False, simple_matrix=False, traced=False):
     """Traceback the chosen candidate a1 [B] and apply filters + MAPQ;
-    `proper` [B] (the pair resolution's verdict) is gated by `mapped`.
-    `traced`: the inner phase ``align`` (utils/trace.py) spans the
-    traceback: the winner's corridor fetch K2, its query's strand select
-    and K4."""
-    B, C = sw.shape
-    L = reads.shape[1]
-    T = L + band
-    G = genome.shape[0]
-    a1c = a1[:, None]
-
-    a1_valid = torch.gather(cand_valid, 1, a1c)[:, 0]
-    best_start = torch.gather(corr_start, 1, a1c)[:, 0]
-    best_strand = torch.gather(strand, 1, a1c)[:, 0]
-    # second best at a DIFFERENT locus (outside +-L of the winner), for MAPQ
-    far = (corr_start - best_start[:, None]).abs() > L
-    s2 = torch.where(far, sw, 0).max(dim=1).values
-
-    starts = torch.where(a1_valid, best_start, 0).clamp(0, max(0, G - T))
+    `proper` [B] (the pair resolution's verdict) is gated by `mapped`: the
+    finish pass on the card (one launch), its plain version on the CPU
+    (ops/finish_kernel.py).  `traced`: the inner phase ``align``
+    (utils/trace.py) spans the pass."""
     if traced:
         trace.mark_inner("align", reads.device, close=False)
-    best_corr = gather_genome_windows(genome, starts.to(I32).contiguous(), T)
-    best_query = torch.where((best_strand == 1)[:, None], rc, reads)
-    # (kernel K4 on the card)
-    ares = sw_align(
-        best_query, lengths, best_corr, matrices, gopen_q, gopen_r, gext,
-        best_strand, band=band, mode=_sw_mode(end_to_end),
-        simple=simple_matrix,
+    res = finish_pass(
+        a1, sw.contiguous(), corr_start.contiguous(), strand.contiguous(),
+        cand_valid.contiguous(), genome, reads.contiguous(), rc.contiguous(),
+        lengths.contiguous(), matrices, gopen_q, gopen_r, gext, min_identity,
+        min_residues, n_cands, overflow, proper.contiguous(), band=band,
+        mode=_sw_mode(end_to_end), simple=simple_matrix,
     )
     if traced:
         trace.mark_inner("align", reads.device, close=True)
-    s1 = torch.where(a1_valid, ares.score, 0)
-
-    f32 = torch.float32
-    aln_cols = ares.n_ops.clamp(min=1)
-    identity = ares.matches.to(f32) / aln_cols.to(f32)
-    residues = (ares.q_end - ares.q_start + 1).to(f32)
-    min_res_abs = min_residues * lengths.to(f32)
-    mapped = (
-        (s1 > 0)
-        & (lengths > 0)
-        & (identity >= min_identity)
-        & (residues >= min_res_abs)
-        # an op-buffer overflow leaves the CIGAR incomplete: never emit it
-        & ~ares.trunc
-    )
-    cmr_overflow = overflow[1] + ares.trunc.sum(dtype=I32)
-    s1f = s1.clamp(min=1).to(f32)
-    # float32, round half to even, as the reference
-    mapq = torch.round(60.0 * (s1 - s2).to(f32) / s1f).clamp(0, 60).to(I32)
-    mapq = torch.where(mapped, mapq, 0)
-
-    return MapResult(
-        mapped=mapped,
-        strand=best_strand,
-        pos=best_start + ares.r_start,  # raw even when unmapped; gate on `mapped`
-        mapq=mapq,
-        score=s1,
-        second=s2,
-        q_start=ares.q_start,
-        q_end=ares.q_end,
-        ops=ares.ops,
-        n_ops=ares.n_ops,
-        matches=ares.matches,
-        mismatches=ares.mismatches,
-        indels=ares.indels,
-        n_candidates=n_cands,
-        proper=proper & mapped,
-        fanout_overflow=overflow[0],
-        cmr_overflow=cmr_overflow,
-    )
+    return res
 
 
 def _single_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,

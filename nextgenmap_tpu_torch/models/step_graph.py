@@ -85,6 +85,7 @@ from typing import NamedTuple
 import torch
 
 from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
+from nextgenmap_tpu_torch.ops.finish_kernel import finish_pass
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
 from nextgenmap_tpu_torch.ops.score_pass_kernel import score_pass
@@ -94,10 +95,10 @@ from nextgenmap_tpu_torch.utils.logging import get_logger
 
 log = get_logger("ngm-torch.graph")
 
-# the kernel wrappers a mapping step calls (the fused score pass, K2, K4,
-# K5, K6)
-KERNELS = (score_pass, gather_genome_windows, sw_align, read_kmers,
-           candidate_search)
+# the kernel wrappers a mapping step calls (the fused score pass, the
+# finish pass, K2 and K4 (the top-n traceback), K5, K6)
+KERNELS = (score_pass, finish_pass, gather_genome_windows, sw_align,
+           read_kmers, candidate_search)
 
 
 def leaves(tree) -> list:

@@ -42,6 +42,10 @@ SIGNATURES = {
     "ngm_sw_align": (P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
                      I32, I32, I32, P, P, P, P, P, P),
     "ngm_sw_align_plan": (I32, I32, I32, I32, I32, P),
+    "ngm_finish_plan": (I32, I32, I32, I32, P),
+    "ngm_finish": (P, P, P, P, P, P, I64, P, P, P, P, P, P, P, P, I32, I32,
+                   I32, I32, I32, I32, I32, I32, I32, I32, I32, P, P, P, P, P,
+                   P),
     "ngm_row_gather": (P, P, I32, I32, I32, I32, P, P),
     "ngm_row_gather_plan": (I32, I32, I32, P),
     "ngm_read_kmers": (P, P, I32, I32, I32, I32, I32, I32, I32, P, P, P, P,

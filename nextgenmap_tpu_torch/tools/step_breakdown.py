@@ -24,10 +24,13 @@ Cells (the inputs of ``chip_smoke.py``, seeded the same way):
   bisulfite   --bs-mapping on the same genome, bisulfite reads (original
               top and bottom strands, 80% of C read as T; phase 10)
 
-The traceback runs as the mapper calls it, K4 (``ops/sw_align_kernel.py``);
-``--plain-traceback`` puts its plain version (``ops/sw_ref.py::
-banded_sw_align``, a loop of torch calls a row) in its place, so both can
-be measured in one process on one card.
+The traceback runs as the mapper calls it: the finish pass
+(``ops/finish_kernel.py``, K4's forward pass and walk with the filters and
+MAPQ in one launch), and top-n's K4 (``ops/sw_align_kernel.py``);
+``--plain-traceback`` puts the plain versions in their place (the
+finish's torch ops and K2 around ``ops/sw_ref.py::banded_sw_align``, a
+loop of torch calls a row), so both can be measured in one process on one
+card.
 
 For each cell, through ``Mapper.map_batch`` (or the cell's own step), in
 two forms on the same
@@ -43,7 +46,8 @@ bare replay of its last capture under torch.profiler (its device nodes:
 kernels, memsets and copies, the kernels among them, and the device's
 busy share of that replay, ``tools/timing.py::device_profile``).  Eager only (a
 synchronise inside a graph cannot be): the traceback's share of the step
-(a synchronise on each side of ``sw_align``) and the score pass's real
+(a synchronise on each side of the finish pass, or top-n's
+``sw_align``) and the score pass's real
 slots per batch (its asked-for slots, capped) over TIMED batches.  And the peak device memory of
 the cell (state, steps and the graph's pool).  Prints the card's name and
 power limit, one line per cell, and one JSON object as the last line.
@@ -69,6 +73,7 @@ from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
 from nextgenmap_tpu_torch.models import mapper as mapper_mod
 from nextgenmap_tpu_torch.models.step_graph import StepGraphs
+from nextgenmap_tpu_torch.ops import finish_kernel
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align
 from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
 from nextgenmap_tpu_torch.tools.timing import device_profile
@@ -118,31 +123,39 @@ def make_mapper(size: int, shards: int, changes: dict, read_len: int,
 
 class Instrument:
     """Within `with`: a synchronise on each side of every traceback call
-    (its seconds summed) and the score pass's real slots counted, by
-    wrapping the two functions the mapper module calls."""
+    (the finish pass, or top-n's K4; their seconds summed) and the score
+    pass's real slots counted, by wrapping the functions the mapper module
+    calls."""
+
+    NAMES = ("finish_pass", "sw_align", "score_pass")
 
     def __enter__(self):
         self.tb_s, self.slots = 0.0, 0
-        self.orig = (mapper_mod.sw_align, mapper_mod.score_pass)
+        self.orig = {n: getattr(mapper_mod, n) for n in self.NAMES}
 
-        def align(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = self.orig[0](*a, **k)
-            torch.cuda.synchronize()
-            self.tb_s += time.perf_counter() - t
-            return out
+        def timed(fn):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                self.tb_s += time.perf_counter() - t
+                return out
+            return call
 
         def score(*a, **k):
-            out = self.orig[1](*a, **k)
+            out = self.orig["score_pass"](*a, **k)
             self.slots += min(int(out.n_sc.sum()), k["slot_cap"])
             return out
 
-        mapper_mod.sw_align, mapper_mod.score_pass = align, score
+        mapper_mod.finish_pass = timed(self.orig["finish_pass"])
+        mapper_mod.sw_align = timed(self.orig["sw_align"])
+        mapper_mod.score_pass = score
         return self
 
     def __exit__(self, *exc):
-        mapper_mod.sw_align, mapper_mod.score_pass = self.orig
+        for n, fn in self.orig.items():
+            setattr(mapper_mod, n, fn)
 
 
 def run_cell(name: str, device="cuda") -> dict:
@@ -227,22 +240,26 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("step_breakdown: no CUDA card", file=sys.stderr)
         return 2
-    kernel = mapper_mod.sw_align
+    kernels = (mapper_mod.finish_pass, mapper_mod.sw_align,
+               finish_kernel.sw_align)
     if a.plain_traceback:
-        mapper_mod.sw_align = banded_sw_align
+        mapper_mod.finish_pass = finish_kernel.finish_plain
+        mapper_mod.sw_align = finish_kernel.sw_align = banded_sw_align
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
-    print(f"traceback: {'plain' if a.plain_traceback else 'K4'}")
+    print(f"traceback: "
+          f"{'plain' if a.plain_traceback else 'the finish pass and K4'}")
     out = {}
     try:
         for name in a.cells:
             out[name] = run_cell(name)
             print_cell(name, out[name])
     finally:
-        mapper_mod.sw_align = kernel
+        (mapper_mod.finish_pass, mapper_mod.sw_align,
+         finish_kernel.sw_align) = kernels
     print(json.dumps({"card": card, "plain_traceback": a.plain_traceback,
                       "cells": out}))
     return 0

@@ -9,17 +9,17 @@ span, and the graphs it captures hold no node of it.  On:
   * Phase marks.  ``map_step`` and ``map_step_paired``
     (``models/mapper.py``) mark five points of each step: its start and
     the ends of ``front`` (K5, K6, the candidates' sort and gathers),
-    ``score`` (slot compaction, K2, K1, the scatter back), ``select`` (the
-    argmax; paired: the C x C grid and the pair resolution) and
-    ``finish`` (K2, K4, the filters, MAPQ).  On a card a mark is one
-    launch of a one-thread kernel (``csrc/mark.cu``) that adds the ns
-    since the previous mark, on the device's clock, to its phase's sum
-    and counts it; its profiler record names the phase
-    (``ngm_mark_kernel<p>``, p the index in PHASES).  On the CPU a mark
-    does nothing.
+    ``score`` (the fused score pass: slot compaction, K1, the scatter
+    back), ``select`` (the argmax; paired: the C x C grid and the pair
+    resolution) and ``finish`` (the finish pass: K4, the filters, MAPQ).
+    On a card a mark is one launch of a one-thread kernel
+    (``csrc/mark.cu``) that adds the ns since the previous mark, on the
+    device's clock, to its phase's sum and counts it; its profiler record
+    names the phase (``ngm_mark_kernel<p>``, p the index in PHASES).  On
+    the CPU a mark does nothing.
   * Inner marks.  ``_finish`` opens and closes ``align`` (INNER) around
-    the traceback: the winner's corridor fetch K2, its query's strand
-    select and K4.  Its ns and
+    the traceback: on a card the finish pass (the memset of its overflow
+    counter and its one kernel).  Its ns and
     marks sum on a chain of their own (``ngm_inner_mark_kernel<c>``, c 0
     open, 1 close), so the five phases read as they do without it:
     ``finish`` still runs from the ``select`` mark to the ``finish`` mark.

@@ -30,8 +30,9 @@ cross-shard tail pool and top-n) runs on the card against the CPU, and so
 do the dp step and the ("dp", "ish") grid on two and four slots of card 0;
 with two cards or more, K1 and K2 run on tensors of the last card while
 card 0 is current.  The mapping paths launch the fused score pass
-(tests/test_torch_score_pass.py holds it against its plain version) and K2
-once a tail, for the traceback's corridor.
+(tests/test_torch_score_pass.py holds it against its plain version) once a
+tail, and the finish pass (tests/test_torch_finish_pass.py) once a tail of
+the single and paired steps, where top-n launches K2 and K4.
 
 Marked `cuda`: every test needs a CUDA card and skips without one (the
 kernels have no CPU mode).  Run on the card with
@@ -48,6 +49,7 @@ from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.models.mapper import Mapper
 from nextgenmap_tpu_torch.models.step_graph import StepGraphs
 from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
+from nextgenmap_tpu_torch.ops.finish_kernel import finish_pass
 from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
@@ -539,11 +541,13 @@ def test_mapper_cuda_equals_cpu(dev):
     gpu = Mapper(cfg, _G(), 100, device=dev)
     cpu = Mapper(cfg, _G(), 100, device="cpu")
     launches = (score_pass.launches, gather_genome_windows.launches,
-                sw_align.launches, *front_launches())
+                sw_align.launches, *front_launches(), finish_pass.launches)
     a, n = steps_run(gpu, lambda: gpu.map_batch(codes, lens))
     assert score_pass.launches == launches[0] + n
-    assert gather_genome_windows.launches == launches[1] + n
-    assert sw_align.launches == launches[2] + n
+    # the finish pass, and no K2 or K4 of their own
+    assert finish_pass.launches == launches[5] + n
+    assert gather_genome_windows.launches == launches[1]
+    assert sw_align.launches == launches[2]
     assert front_launches() == (launches[3] + n, launches[4] + n)
     b = cpu.map_batch(codes, lens)
     for f in a._fields:
@@ -649,18 +653,19 @@ def _mappers(dev, cfg, g, read_len=100):
 
 
 def test_paired_and_topn_cuda_equal_cpu(dev):
-    """Both paths launch the fused score pass and K2 on the card and equal
-    the CPU."""
+    """Both paths launch the fused score pass on the card, the paired one
+    the finish pass and top-n K2, and equal the CPU."""
     g = repeat_genome(60_000, n_repeats=12, min_len=800, max_len=2000, seed=7)
     lens = np.full(256, 100, np.int32)
     gpu, cpu = _mappers(dev, NgmConfig(kmer=11, topn=2), g)
 
     codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=8)
-    launches = (score_pass.launches, gather_genome_windows.launches,
-                *front_launches())
+    launches = (score_pass.launches, finish_pass.launches,
+                *front_launches(), gather_genome_windows.launches)
     a, n = steps_run(gpu, lambda: gpu.map_batch_paired(codes, lens))
     assert score_pass.launches == launches[0] + n
-    assert gather_genome_windows.launches == launches[1] + n
+    assert finish_pass.launches == launches[1] + n
+    assert gather_genome_windows.launches == launches[4]
     assert front_launches() == (launches[2] + n, launches[3] + n)
     b = cpu.map_batch_paired(codes, lens)
     for f in a._fields:
@@ -669,10 +674,11 @@ def test_paired_and_topn_cuda_equal_cpu(dev):
 
     codes, _, _ = simulate_reads(g, 256, 100, 0.02, seed=9)
     launches = (score_pass.launches, gather_genome_windows.launches,
-                *front_launches())
+                *front_launches(), finish_pass.launches)
     a, n = steps_run(gpu, lambda: gpu.map_batch_topn(codes, lens))
     assert score_pass.launches == launches[0] + n
     assert gather_genome_windows.launches == launches[1] + n
+    assert finish_pass.launches == launches[4]
     assert front_launches() == (launches[2] + n, launches[3] + n)
     b = cpu.map_batch_topn(codes, lens)
     for j, (ra, rb) in enumerate(zip(a, b)):
@@ -688,8 +694,8 @@ def test_paired_and_topn_cuda_equal_cpu(dev):
 ])
 def test_modes_cuda_equal_cpu(dev, change, read_len):
     """Single, paired and top-n steps in each mode, and for long reads,
-    launch the fused score pass and K2 on the card and equal the CPU from
-    the same state."""
+    launch the fused score pass and the finish pass (top-n: K2) on the
+    card and equal the CPU from the same state."""
     g = repeat_genome(60_000, n_repeats=12, min_len=800, max_len=2000, seed=10)
     gpu, cpu = _mappers(dev, NgmConfig(kmer=11, topn=2).replace(**change), g,
                         read_len)
@@ -698,10 +704,12 @@ def test_modes_cuda_equal_cpu(dev, change, read_len):
     codes, _, _ = simulate_long_reads(g, B, read_len, 0.02, 0.004, seed=11)
     for step in ("map_batch", "map_batch_paired", "map_batch_topn"):
         launches = (score_pass.launches, gather_genome_windows.launches,
-                    *front_launches())
+                    *front_launches(), finish_pass.launches)
         a, n = steps_run(gpu, lambda: getattr(gpu, step)(codes, lens))
+        topn = step == "map_batch_topn"
         assert score_pass.launches == launches[0] + n
-        assert gather_genome_windows.launches == launches[1] + n
+        assert gather_genome_windows.launches == launches[1] + n * topn
+        assert finish_pass.launches == launches[4] + n * (not topn)
         assert front_launches() == (launches[2] + n, launches[3] + n)
         b = getattr(cpu, step)(codes, lens)
         ranks = (a, b) if step == "map_batch_topn" else ((a,), (b,))
@@ -717,9 +725,9 @@ def test_modes_cuda_equal_cpu(dev, change, read_len):
 ])
 def test_sharded_step_cuda_equals_cpu(dev, step, compact_cap):
     """The shard loop over 3 shards on the card == on the CPU, from the same
-    ShardedIndex: full per-shard tails launch the score pass and K2 once
-    each per shard, the cross-shard pool (512 rows < 3 x 256) once each in
-    all, top-n once each per shard."""
+    ShardedIndex: full per-shard tails launch the score pass and the finish
+    pass once each per shard, the cross-shard pool (512 rows < 3 x 256) once
+    each in all, top-n the score pass and K2 once each per shard."""
     from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
     from nextgenmap_tpu_torch.models.mapper import map_step_sharded
     from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
@@ -752,11 +760,14 @@ def test_sharded_step_cuda_equals_cpu(dev, step, compact_cap):
             *m._common_args(codes, lens), *pair, paired=step == "paired",
             read_len=100, compact_cap=compact_cap, **m.statics()),)
 
-    launches = (score_pass.launches, gather_genome_windows.launches)
+    launches = (score_pass.launches, gather_genome_windows.launches,
+                finish_pass.launches)
     a, steps = steps_run(gpu, lambda: run(gpu))
     n = (1 if compact_cap else 3) * steps
+    topn = step == "topn"
     assert score_pass.launches == launches[0] + n
-    assert gather_genome_windows.launches == launches[1] + n
+    assert gather_genome_windows.launches == launches[1] + n * topn
+    assert finish_pass.launches == launches[2] + n * (not topn)
     b = run(cpu)
     for j, (ra, rb) in enumerate(zip(a, b)):
         for f in ra._fields:
@@ -804,9 +815,9 @@ def test_two_slots_on_one_card_equal_cpu(dev, shards):
     """--devices on the slots [cuda:0] x 2 (the dp step, its two slices one
     graph) and [cuda:0] x 4 with 2 shards (the ("dp", "ish") grid, its two
     rows one graph) equal the CPU's one-device run, with the score pass
-    and K2 launched once each per shard of each step run: the two slices
-    (rows) of the batch, and the one slice of each capture's eager
-    warm-up."""
+    and the finish pass launched once each per shard of each step run (and
+    no K2): the two slices (rows) of the batch, and the one slice of each
+    capture's eager warm-up."""
     from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
     from nextgenmap_tpu_torch.parallel.index_shard import ShardedIndex
 
@@ -830,13 +841,15 @@ def test_two_slots_on_one_card_equal_cpu(dev, shards):
         else:
             codes, _, _ = simulate_pairs(g, 128, 100, 0.02, seed=seed)
         lens = np.full(256, 100, np.int32)
-        launches = (score_pass.launches, gather_genome_windows.launches)
+        launches = (score_pass.launches, gather_genome_windows.launches,
+                    finish_pass.launches)
         c0 = len(gpu.graphs.captures)
         a = getattr(gpu, step)(codes, lens)
         torch.cuda.synchronize()
         n = (2 + len(gpu.graphs.captures) - c0) * shards
         assert score_pass.launches == launches[0] + n
-        assert gather_genome_windows.launches == launches[1] + n
+        assert gather_genome_windows.launches == launches[1]
+        assert finish_pass.launches == launches[2] + n
         b = getattr(cpu, step)(codes, lens)
         for f in a._fields:
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (step, f)
@@ -925,7 +938,8 @@ def test_step_graph_equals_eager_on_card(dev, path):
 
     def counts():
         return [k.launches for k in (score_pass, gather_genome_windows,
-                                     sw_align, read_kmers, candidate_search)]
+                                     sw_align, read_kmers, candidate_search,
+                                     finish_pass)]
 
     first = run(graph, batches[0], lens)
     kept = [(j, f, t.clone()) for j, f, t in _fields(first)]
@@ -955,7 +969,8 @@ def test_step_graph_equals_eager_on_card(dev, path):
     torch.cuda.synchronize()
     assert [b - a for a, b in zip(c0, c1)] == [b - a for a, b in
                                                 zip(c2, counts())]
-    assert c1[0] > c0[0] and c1[2] > c0[2]
+    # the traceback: K4 (top-n) or the finish pass
+    assert c1[0] > c0[0] and c1[2] + c1[5] > c0[2] + c0[5]
     assert c1[3] > c0[3] and c1[4] > c0[4]
     for got, ref in ((first, run(eager, batches[0], lens)), (second, want)):
         for (j, f, a), (_, _, b) in zip(_fields(got), _fields(ref)):

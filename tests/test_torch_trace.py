@@ -22,9 +22,10 @@ counter kernel more and otherwise the same records; the traced outputs
 equal the untraced ones; the accumulators count K marks of each phase and
 K of `align` a replay and nothing of the warm-up; the counters equal the
 count from the outputs; the graph spans appear only while tracing.  At
-[614, 1000] x W 184: K4 takes its global route, a traced graph has one
-`align` pair a step around the step's one K2, the query's strand select
-and its one K4, and `align` reads within a few us of those records.
+[614, 1000] x W 184: the finish pass (K4 with its prologue and epilogue)
+takes K4's global route, a traced graph has one `align` pair a step around
+the step's one finish-pass kernel and at most the memset of its overflow
+counter, and `align` reads within a few us of those records.
 Tolerance: exact equality; `align` against its records: 0 to 12 us a step.
 """
 
@@ -460,15 +461,16 @@ def test_score_pass_records_on_card(card, data, paired):
 @pytest.mark.cuda
 def test_align_marks_at_1000bp_on_card(card):
     """[614, 1000] x W 184, the 1000 bp cell's step: K4's rule takes the
-    global route; each traced step holds one `align` pair with exactly the
-    step's K2, the query's strand select and K4 between its marks; the
-    five phases keep K marks a replay; `align` a step reads within 12 us
-    above those records' profiled time (the gaps between the graph's
-    nodes)."""
+    global route, for K4 and for the finish pass; each traced step holds
+    one `align` pair with exactly the step's one finish-pass kernel (its
+    name holds sw_align) and at most the memset of its overflow counter
+    between its marks; the five phases keep K marks a replay; `align` a
+    step reads within 12 us above those records' profiled time (the gaps
+    between the graph's nodes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from nextgenmap_tpu_torch.ops import sw_align_kernel
+    from nextgenmap_tpu_torch.ops import finish_kernel, sw_align_kernel
 
     n, length = 614, 1000
 
@@ -480,6 +482,8 @@ def test_align_marks_at_1000bp_on_card(card):
     assert m.band == 184
     assert sw_align_kernel.plan(n, length, m.band, "local",
                                 device=card).route == "global"
+    assert finish_kernel.plan(n, length, m.band, "local",
+                              device=card).route == "global"
     codes, _, _ = synthetic.simulate_reads(Long.codes, K * n, length, 0.02,
                                            seed=197)
     codes = codes.reshape(K, n, length)
@@ -521,11 +525,12 @@ def test_align_marks_at_1000bp_on_card(card):
     assert got["inner_marks"] == {"align": 2 * K}
     assert len(spans) == 2 * K
     for s in spans:
-        # the select is torch's `==` and `where`, one or two records
-        assert 3 <= len(s) <= 4, [e.name for e in s]
-        assert "gather_windows" in s[0].name and "sw_align" in s[-1].name
-        assert not any(tracing_record(e.name) or "sw_align" in e.name
-                       or "gather_windows" in e.name for e in s[1:-1])
+        # the finish pass: its kernel, after the memset of its counter
+        names = [e.name for e in s]
+        assert 1 <= len(s) <= 2, names
+        assert sum("sw_align" in n for n in names) == 1, names
+        assert all("sw_align" in n or "memset" in n.lower()
+                   for n in names), names
     busy = sum(e.time_range.end - e.time_range.start
                for s in spans for e in s) / (2 * K)
     align_us = got["inner_ns"]["align"] / got["inner_marks"]["align"] / 1e3
