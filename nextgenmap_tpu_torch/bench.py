@@ -124,7 +124,7 @@ def workload(genome_size: int, batch: int, device,
         max_cmrs=cfg.max_cmrs, diag_bin_log2=cfg.diag_bin_log2,
         band=cfg.corridor_for(read_len), min_kmer_hits=1,
         read_stride=cfg.read_kmer_skip, packed_offsets=packed is not None,
-        canonical=True, simple_matrix=True,
+        canonical=True,
     )
     # the integers as Python numbers (map_step takes int() of them, a sync
     # on a device scalar), the floats as float32 scalars made once on the

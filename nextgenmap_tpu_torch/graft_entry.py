@@ -35,7 +35,7 @@ from nextgenmap_tpu_torch.device import resolve_device
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
 from nextgenmap_tpu_torch.io.simulate import random_genome, simulate_reads_fast
 from nextgenmap_tpu_torch.models.mapper import MapResult, Mapper, _on, map_step
-from nextgenmap_tpu_torch.ops.scoring import matrices_are_simple, score_matrix
+from nextgenmap_tpu_torch.ops.scoring import score_matrix
 
 _K = 11
 _L = 100
@@ -84,7 +84,6 @@ def _setup(batch: int, genome_size: int = 50_000, seed: int = 0,
         band=cfg.corridor_for(_L), min_kmer_hits=1,
         read_stride=cfg.read_kmer_skip,
         canonical=canonical,
-        simple_matrix=bool(matrices_are_simple(mats)),
     )
     args = (
         _on(g, np.uint8, dev), _on(off, np.int32, dev),

@@ -63,11 +63,15 @@ from nextgenmap_tpu_torch.models.step_graph import (
 )
 from nextgenmap_tpu_torch.ops.candidate import pack_offsets
 from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
-from nextgenmap_tpu_torch.ops.finish_kernel import MapResult, finish_pass
+from nextgenmap_tpu_torch.ops.finish_kernel import (
+    MapResult, filters_and_mapq, finish_pass,
+)
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
-from nextgenmap_tpu_torch.ops.score_pass_kernel import score_pass
-from nextgenmap_tpu_torch.ops.scoring import matrices_are_simple, score_matrix
+from nextgenmap_tpu_torch.ops.score_pass_kernel import (
+    compact_slots, score_pass,
+)
+from nextgenmap_tpu_torch.ops.scoring import score_matrix
 from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
 from nextgenmap_tpu_torch.parallel.dp import (
     join_slices, pick, slices_by_device, split_batch,
@@ -159,8 +163,8 @@ def _sw_mode(end_to_end: bool) -> str:
 
 def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
                       cand_valid, score_mask, matrices, gopen_q, gopen_r, gext,
-                      *, band, slot_cap, end_to_end=False, simple_matrix=False,
-                      pairs=False, traced=False):
+                      *, band, slot_cap, end_to_end=False, pairs=False,
+                      traced=False):
     """Banded-SW score the candidates of the reads selected by `score_mask`
     ([B], or with `pairs` [B / 2]: rows 2i and 2i + 1 share entry i).
 
@@ -178,7 +182,6 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
         corr_start.contiguous(), strand.contiguous(), cand_valid.contiguous(),
         score_mask.contiguous(), matrices, gopen_q, gopen_r, gext, band=band,
         slot_cap=slot_cap, mode=_sw_mode(end_to_end), pairs=pairs,
-        simple=simple_matrix,
     )
     if traced:
         trace.count_scores(res.n_sc, res.base, slot_cap)
@@ -188,7 +191,7 @@ def _score_candidates(genome, reads, rc, lengths, corr_start, strand,
 def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
             lengths, matrices, gopen_q, gopen_r, gext, min_identity,
             min_residues, n_cands, overflow, proper, *, band,
-            end_to_end=False, simple_matrix=False, traced=False):
+            end_to_end=False, traced=False):
     """Traceback the chosen candidate a1 [B] and apply filters + MAPQ;
     `proper` [B] (the pair resolution's verdict) is gated by `mapped`: the
     finish pass on the card (one launch), its plain version on the CPU
@@ -201,7 +204,7 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
         cand_valid.contiguous(), genome, reads.contiguous(), rc.contiguous(),
         lengths.contiguous(), matrices, gopen_q, gopen_r, gext, min_identity,
         min_residues, n_cands, overflow, proper.contiguous(), band=band,
-        mode=_sw_mode(end_to_end), simple=simple_matrix,
+        mode=_sw_mode(end_to_end),
     )
     if traced:
         trace.mark_inner("align", reads.device, close=True)
@@ -211,7 +214,7 @@ def _finish(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
 def _single_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
                  gext, min_identity, min_residues, corr_start, strand,
                  cand_valid, n_cands, overflow, *, band, slot_cap,
-                 end_to_end=False, simple_matrix=False, traced=False):
+                 end_to_end=False, traced=False):
     """Lazy scoring, rule-11 argmax selection, traceback + filters;
     `traced`: count the score pass and mark the ends of its phases
     (utils/trace.py)."""
@@ -220,7 +223,7 @@ def _single_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
         n_cands >= 2, matrices, gopen_q, gopen_r, gext,
         band=band, slot_cap=slot_cap, end_to_end=end_to_end,
-        simple_matrix=simple_matrix, traced=traced,
+        traced=traced,
     )
     if traced:
         trace.mark("score", dev)
@@ -235,7 +238,7 @@ def _single_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
         a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
         matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
         n_cands, overflow, proper, band=band, end_to_end=end_to_end,
-        simple_matrix=simple_matrix, traced=traced,
+        traced=traced,
     )
     if traced:
         trace.mark("finish", dev)
@@ -275,8 +278,7 @@ def map_step(
     gopen_q, gopen_r, gext, sensitivity, max_freq, min_identity, min_residues,
     *, k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
     min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
-    simple_matrix=False, bs=False, bs_cutoff=0, end_to_end=False,
-    canonical=True,
+    bs=False, bs_cutoff=0, end_to_end=False, canonical=True,
 ) -> MapResult:
     """Single-end mapping step (DESIGN.md rule 11 selection) on the device
     that holds `reads`.  sensitivity, min_identity and min_residues are
@@ -287,8 +289,10 @@ def map_step(
     traced = trace.on(dev)
     if traced:
         trace.mark("start", dev)
+    go_q, go_r, ge, sens, min_id, min_res = _scalars(
+        dev, gopen_q, gopen_r, gext, sensitivity, min_identity, min_residues)
     lengths, rc, cands = _front(
-        genome, offsets, positions, reads, lengths, sensitivity, max_freq,
+        genome, offsets, positions, reads, lengths, sens, max_freq,
         traced, k=k, fanout_cap=fanout_cap, hit_cap=hit_cap,
         max_cmrs=max_cmrs, diag_bin_log2=diag_bin_log2, band=band,
         min_kmer_hits=min_kmer_hits, read_stride=read_stride,
@@ -298,11 +302,10 @@ def map_step(
     if traced:
         trace.mark("front", dev)
     return _single_tail(
-        genome, reads, rc, lengths, matrices,
-        int(gopen_q), int(gopen_r), int(gext),
-        _f32(min_identity, dev), _f32(min_residues, dev), *cands, band=band,
+        genome, reads, rc, lengths, matrices, go_q, go_r, ge, min_id,
+        min_res, *cands, band=band,
         slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
-        end_to_end=end_to_end, simple_matrix=simple_matrix, traced=traced,
+        end_to_end=end_to_end, traced=traced,
     )
 
 
@@ -310,7 +313,7 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
                  gext, min_identity, min_residues, min_insert, max_insert,
                  pair_cutoff, corr_start, strand, cand_valid, n_cands,
                  overflow, *, band, slot_cap, diag_bin_log2,
-                 end_to_end=False, simple_matrix=False, traced=False):
+                 end_to_end=False, traced=False):
     """Lazy scoring of multi-candidate pairs, CxC insert-window pair
     resolution, traceback + filters.  Rows 2i / 2i+1 are the mates of pair i.
     `traced`: count the score pass and mark the ends of its phases
@@ -326,7 +329,7 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
         pair_multi, matrices, gopen_q, gopen_r, gext,
         band=band, slot_cap=slot_cap, end_to_end=end_to_end,
-        simple_matrix=simple_matrix, pairs=True, traced=traced,
+        pairs=True, traced=traced,
     )
     if traced:
         trace.mark("score", reads.device)
@@ -379,7 +382,7 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
         a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
         matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
         n_cands, overflow, proper_pair.repeat_interleave(2), band=band,
-        end_to_end=end_to_end, simple_matrix=simple_matrix, traced=traced,
+        end_to_end=end_to_end, traced=traced,
     )
     if traced:
         trace.mark("finish", reads.device)
@@ -392,8 +395,7 @@ def map_step_paired(
     min_insert, max_insert, pair_cutoff,
     *, k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
     min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
-    simple_matrix=False, bs=False, bs_cutoff=0, end_to_end=False,
-    canonical=True,
+    bs=False, bs_cutoff=0, end_to_end=False, canonical=True,
 ) -> MapResult:
     """Paired-end step: rows 2i / 2i+1 are mates (DESIGN.md rule 13).
 
@@ -409,8 +411,10 @@ def map_step_paired(
     traced = trace.on(dev)
     if traced:
         trace.mark("start", dev)
+    go_q, go_r, ge, sens, min_id, min_res = _scalars(
+        dev, gopen_q, gopen_r, gext, sensitivity, min_identity, min_residues)
     lengths, rc, cands = _front(
-        genome, offsets, positions, reads, lengths, sensitivity, max_freq,
+        genome, offsets, positions, reads, lengths, sens, max_freq,
         traced, k=k, fanout_cap=fanout_cap, hit_cap=hit_cap,
         max_cmrs=max_cmrs, diag_bin_log2=diag_bin_log2, band=band,
         min_kmer_hits=min_kmer_hits, read_stride=read_stride,
@@ -419,15 +423,13 @@ def map_step_paired(
     )
     if traced:
         trace.mark("front", dev)
-    i32 = lambda x: torch.as_tensor(x, dtype=I32, device=dev)  # noqa: E731
     return _paired_tail(
-        genome, reads, rc, lengths, matrices,
-        int(gopen_q), int(gopen_r), int(gext),
-        _f32(min_identity, dev), _f32(min_residues, dev),
-        i32(min_insert), i32(max_insert), _f32(pair_cutoff, dev), *cands,
-        band=band, slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
+        genome, reads, rc, lengths, matrices, go_q, go_r, ge, min_id,
+        min_res, *_pair_args(dev, min_insert, max_insert, pair_cutoff),
+        *cands, band=band,
+        slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
         diag_bin_log2=diag_bin_log2, end_to_end=end_to_end,
-        simple_matrix=simple_matrix, traced=traced,
+        traced=traced,
     )
 
 
@@ -442,7 +444,7 @@ def top_ranks(sw: torch.Tensor, r: int) -> torch.Tensor:
 def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
                min_identity, min_residues, corr_start, strand, cand_valid,
                n_cands, overflow, *, band, slot_cap, topn,
-               end_to_end=False, simple_matrix=False):
+               end_to_end=False):
     """Eager scoring, stable rank selection, ONE compacted traceback of all
     ranks.  Returns `topn` MapResults, rank 0 first."""
     B, L = reads.shape
@@ -454,7 +456,6 @@ def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
         torch.ones(B, dtype=torch.bool, device=dev), matrices, gopen_q,
         gopen_r, gext, band=band, slot_cap=slot_cap, end_to_end=end_to_end,
-        simple_matrix=simple_matrix,
     )
     overflow = (overflow[0], overflow[1] + slot_ovf)
     proper = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -468,17 +469,11 @@ def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
     t_start = torch.gather(corr_start, 1, top_idx)
     t_strand = torch.gather(strand, 1, top_idx)
 
-    # compact the valid (read, rank) pairs into slot_cap slots, owned as in
-    # _score_candidates: slot s belongs to the last read b with base[b] <= s
-    S2 = slot_cap
+    # compact the valid (read, rank) pairs into slot_cap slots as the score
+    # pass compacts its pairs; j_of is the rank (validity is a prefix)
     n_r = rvalid.sum(dim=1, dtype=I32)
-    base = torch.cumsum(n_r, dim=0, dtype=I32) - n_r
-    total = base[-1] + n_r[-1]
-    slot2_ovf = (total > S2).to(I32)
-    sar = torch.arange(S2, dtype=I32, device=dev)
-    b_of = torch.searchsorted(base, sar, right=True, out_int32=True) - 1
-    slot_valid = sar < total.clamp(max=S2)
-    j_of = sar - base[b_of.long()]              # the rank (prefix validity)
+    _, total, slot_valid, b_of, j_of = compact_slots(n_r, slot_cap)
+    slot2_ovf = (total > slot_cap).to(I32)
     b_safe = torch.where(slot_valid, b_of, 0).long()
     flat_bj = torch.where(slot_valid, b_of * R + j_of, 0).long()
 
@@ -492,7 +487,7 @@ def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
     # (kernel K4 on the card)
     ares = sw_align(
         q_s, lengths[b_safe], corr_s, matrices, gopen_q, gopen_r, gext,
-        strand_s, band=band, mode=_sw_mode(end_to_end), simple=simple_matrix,
+        strand_s, band=band, mode=_sw_mode(end_to_end),
     )
     overflow = (
         overflow[0],
@@ -520,27 +515,17 @@ def _topn_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r, gext,
     far = (corr_start[:, None, :] - t_start[:, :, None]).abs() > L  # [B, R, C]
     s2 = torch.where(far, sw[:, None, :], 0).max(dim=2).values      # [B, R]
 
-    f32 = torch.float32
     results = []
     for j in range(R):
         s1 = g_score[:, j]
-        identity = (g_match[:, j].to(f32)
-                    / g_nops[:, j].clamp(min=1).to(f32))
-        residues = (g_qe[:, j] - g_qs[:, j] + 1).to(f32)
-        mapped = (
-            (s1 > 0) & (lengths > 0)
-            & (identity >= min_identity)
-            & (residues >= min_residues * lengths.to(f32))
-            & ~g_trunc[:, j]
-        )
-        s1f = s1.clamp(min=1).to(f32)
-        mapq = torch.round(60.0 * (s1 - s2[:, j]).to(f32) / s1f)
-        mapq = mapq.clamp(0, 60).to(I32)
+        mapped, mapq = filters_and_mapq(
+            s1, s2[:, j], g_match[:, j], g_nops[:, j], g_qs[:, j],
+            g_qe[:, j], lengths, g_trunc[:, j], min_identity, min_residues)
         results.append(MapResult(
             mapped=mapped,
             strand=t_strand[:, j],
             pos=t_start[:, j] + g_rs[:, j],
-            mapq=torch.where(mapped, mapq, 0),
+            mapq=mapq,
             score=s1,
             second=s2[:, j],
             q_start=g_qs[:, j],
@@ -568,8 +553,7 @@ def map_step_topn(
     gopen_q, gopen_r, gext, sensitivity, max_freq, min_identity, min_residues,
     *, k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
     min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
-    simple_matrix=False, topn=2, bs=False, bs_cutoff=0, end_to_end=False,
-    canonical=True,
+    topn=2, bs=False, bs_cutoff=0, end_to_end=False, canonical=True,
 ) -> tuple:
     """Single-end mapping with up to `topn` alignments per read (-n).
 
@@ -580,20 +564,21 @@ def map_step_topn(
     eager (slot_cap defaults to 2B), and the same slot_cap bounds the
     compacted traceback of the valid ranks.
     """
-    dev = reads.device
+    go_q, go_r, ge, sens, min_id, min_res = _scalars(
+        reads.device, gopen_q, gopen_r, gext, sensitivity, min_identity,
+        min_residues)
     lengths, rc, cands = _front(
-        genome, offsets, positions, reads, lengths, sensitivity, max_freq,
+        genome, offsets, positions, reads, lengths, sens, max_freq,
         k=k, fanout_cap=fanout_cap, hit_cap=hit_cap, max_cmrs=max_cmrs,
         diag_bin_log2=diag_bin_log2, band=band, min_kmer_hits=min_kmer_hits,
         read_stride=read_stride, packed_offsets=packed_offsets, bs=bs,
         bs_cutoff=bs_cutoff, canonical=canonical,
     )
     return _topn_tail(
-        genome, reads, rc, lengths, matrices,
-        int(gopen_q), int(gopen_r), int(gext),
-        _f32(min_identity, dev), _f32(min_residues, dev), *cands, band=band,
+        genome, reads, rc, lengths, matrices, go_q, go_r, ge, min_id,
+        min_res, *cands, band=band,
         slot_cap=slot_cap or default_topn_slot_cap(reads.shape[0]),
-        topn=topn, end_to_end=end_to_end, simple_matrix=simple_matrix,
+        topn=topn, end_to_end=end_to_end,
     )
 
 
@@ -679,8 +664,8 @@ def _pair_args(dev, min_insert, max_insert, pair_cutoff):
 def map_step_from_cands(genome, reads, lengths, matrices, gopen_q, gopen_r,
                         gext, sensitivity, min_identity, min_residues,
                         cand: CandState, best_g, rc, *, band,
-                        min_kmer_hits=1, slot_cap=0, end_to_end=False,
-                        simple_matrix=False) -> MapResult:
+                        min_kmer_hits=1, slot_cap=0,
+                        end_to_end=False) -> MapResult:
     """Phase 2 of the shard loop for one shard: the full single-end tail on
     the shard's candidates, re-gated by the cross-shard best best_g; rc is
     the batch's left-shifted reverse complement (_pre_extract's).  Equal to
@@ -696,7 +681,7 @@ def map_step_from_cands(genome, reads, lengths, matrices, gopen_q, gopen_r,
         min_res, corr_start, strand, cand_valid, n_cands,
         (cand.fanout_overflow, cmr_ovf), band=band,
         slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
-        end_to_end=end_to_end, simple_matrix=simple_matrix,
+        end_to_end=end_to_end,
     )
 
 
@@ -705,8 +690,8 @@ def map_step_paired_from_cands(genome, reads, lengths, matrices, gopen_q,
                                min_residues, min_insert, max_insert,
                                pair_cutoff, cand: CandState, best_g, rc,
                                *, band, diag_bin_log2,
-                               min_kmer_hits=1, slot_cap=0, end_to_end=False,
-                               simple_matrix=False) -> MapResult:
+                               min_kmer_hits=1, slot_cap=0,
+                               end_to_end=False) -> MapResult:
     """Paired phase 2 of the shard loop for one shard."""
     dev = reads.device
     lengths = lengths.to(I32)
@@ -721,7 +706,6 @@ def map_step_paired_from_cands(genome, reads, lengths, matrices, gopen_q,
         (cand.fanout_overflow, cmr_ovf), band=band,
         slot_cap=slot_cap or default_slot_cap(reads.shape[0]),
         diag_bin_log2=diag_bin_log2, end_to_end=end_to_end,
-        simple_matrix=simple_matrix,
     )
 
 
@@ -729,8 +713,7 @@ def map_step_topn_from_cands(genome, reads, lengths, matrices, gopen_q,
                              gopen_r, gext, sensitivity, min_identity,
                              min_residues, cand: CandState, best_g, rc,
                              *, band, topn=2, min_kmer_hits=1,
-                             slot_cap=0, end_to_end=False,
-                             simple_matrix=False) -> tuple:
+                             slot_cap=0, end_to_end=False) -> tuple:
     """Top-n phase 2 of the shard loop for one shard: the shard's own top
     ranks, which merge_sharded_topn interleaves (exact, because a global
     top-R entry is within its own shard's top R)."""
@@ -745,7 +728,7 @@ def map_step_topn_from_cands(genome, reads, lengths, matrices, gopen_q,
         min_res, corr_start, strand, cand_valid, n_cands,
         (cand.fanout_overflow, cmr_ovf), band=band,
         slot_cap=slot_cap or default_topn_slot_cap(reads.shape[0]),
-        topn=topn, end_to_end=end_to_end, simple_matrix=simple_matrix,
+        topn=topn, end_to_end=end_to_end,
     )
 
 
@@ -753,7 +736,7 @@ def _global_shard_tail(genome_s, reads, rc, lengths, matrices, gopen_q,
                        gopen_r, gext, min_identity, min_residues,
                        cands: CandState, best_g, pair_args=None, *,
                        sensitivity, min_kmer_hits, band, slot_cap,
-                       diag_bin_log2, end_to_end, simple_matrix, compact_cap):
+                       diag_bin_log2, end_to_end, compact_cap):
     """The tails of all shards as ONE pool of `compact_cap` rows.
 
     Every (read, shard) group (a pair in paired mode) with re-gated
@@ -823,14 +806,14 @@ def _global_shard_tail(genome_s, reads, rc, lengths, matrices, gopen_q,
             gopen_r, gext, min_identity, min_residues, *pair_args,
             corr_c, strand_c, valid_c, n_cands_c, ovf, band=band,
             slot_cap=slot_cap, diag_bin_log2=diag_bin_log2,
-            end_to_end=end_to_end, simple_matrix=simple_matrix,
+            end_to_end=end_to_end,
         )
     else:
         res_c = _single_tail(
             genome_flat, reads_c, rc_c, lengths_c, matrices, gopen_q,
             gopen_r, gext, min_identity, min_residues, corr_c, strand_c,
             valid_c, n_cands_c, ovf, band=band, slot_cap=slot_cap,
-            end_to_end=end_to_end, simple_matrix=simple_matrix,
+            end_to_end=end_to_end,
         )
     # back to shard-local positions (the merge adds each shard's base)
     res_c = res_c._replace(
@@ -900,8 +883,7 @@ def map_step_sharded(
     *, paired=False, read_len=0, compact_cap=0,
     k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
     min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
-    simple_matrix=False, bs=False, bs_cutoff=0, end_to_end=False,
-    canonical=True,
+    bs=False, bs_cutoff=0, end_to_end=False, canonical=True,
 ) -> MapResult:
     """The shard loop on one device (--index-shards S): phase 1 runs the CS
     of every shard (the stacked tables [S, ...] of parallel/index_shard.py's
@@ -927,7 +909,7 @@ def map_step_sharded(
         bs_cutoff=bs_cutoff, canonical=canonical,
     )
     tail = dict(band=band, min_kmer_hits=min_kmer_hits, slot_cap=slot_cap,
-                end_to_end=end_to_end, simple_matrix=simple_matrix)
+                end_to_end=end_to_end)
     cands, best_g, rc = _shard_phase1(genome_s, off_s, pos_s, reads, lengths,
                                       sens, max_freq, cand_statics)
     S, B = genome_s.shape[0], reads.shape[0]
@@ -940,7 +922,7 @@ def map_step_sharded(
             min_kmer_hits=min_kmer_hits, band=band,
             slot_cap=slot_cap or max(512, compact_cap // 2),
             diag_bin_log2=diag_bin_log2, end_to_end=end_to_end,
-            simple_matrix=simple_matrix, compact_cap=compact_cap,
+            compact_cap=compact_cap,
         )
     else:
         per_shard = []
@@ -968,8 +950,7 @@ def map_step_sharded_topn(
     *, read_len=0, topn=2,
     k, fanout_cap, hit_cap=256, max_cmrs, diag_bin_log2, band,
     min_kmer_hits=1, slot_cap=0, read_stride=1, packed_offsets=False,
-    simple_matrix=False, bs=False, bs_cutoff=0, end_to_end=False,
-    canonical=True,
+    bs=False, bs_cutoff=0, end_to_end=False, canonical=True,
 ) -> tuple:
     """-n with --index-shards: the shard loop of map_step_sharded with each
     shard's top-n tail, then the rank merge
@@ -991,8 +972,7 @@ def map_step_sharded_topn(
             genome_s[s], reads, lengths, matrices, go_q, go_r, ge, sens,
             min_id, min_res, CandState(*(f[s] for f in cands)), best_g, rc,
             band=band, topn=topn, min_kmer_hits=min_kmer_hits,
-            slot_cap=slot_cap, end_to_end=end_to_end,
-            simple_matrix=simple_matrix), MapResult)
+            slot_cap=slot_cap, end_to_end=end_to_end), MapResult)
         for s in range(genome_s.shape[0])
     ]                                       # [S] of MapResult fields [R, ...]
     return merge_sharded_topn(_stack(per_shard, MapResult), base, core_lo,
@@ -1097,7 +1077,6 @@ class Mapper:
         self.graphs = StepGraphs(self.device)
         self._scalars = {d: Scalars.of(cfg, d) for d in self.devices}
         mats = score_matrices(cfg)
-        self.simple_matrix = matrices_are_simple(mats)
         self.band = cfg.corridor_for(read_len)
         self.shards = None
         self._grid = None       # [dp][S'] devices of the grid's rows
@@ -1268,8 +1247,7 @@ class Mapper:
             max_cmrs=cfg.max_cmrs, diag_bin_log2=cfg.diag_bin_log2,
             band=self.band, min_kmer_hits=max(1, cfg.kmer_min),
             read_stride=cfg.read_kmer_skip,
-            packed_offsets=self.packed_offsets,
-            simple_matrix=self.simple_matrix, bs=cfg.bs_mapping,
+            packed_offsets=self.packed_offsets, bs=cfg.bs_mapping,
             bs_cutoff=cfg.bs_cutoff, end_to_end=cfg.end_to_end,
             canonical=self.canonical,
         )
@@ -1406,8 +1384,7 @@ class Mapper:
                    cfg.gap_extend_penalty, s.sensitivity, s.min_identity,
                    s.min_residues)
         tail = dict(band=self.band, min_kmer_hits=max(1, cfg.kmer_min),
-                    end_to_end=cfg.end_to_end,
-                    simple_matrix=self.simple_matrix)
+                    end_to_end=cfg.end_to_end)
 
         def step(reads, lengths, best, *flat):
             out = []

@@ -53,10 +53,38 @@ class MapResult(NamedTuple):
     cmr_overflow: torch.Tensor     # [] int32
 
 
+def mapq_of(s1, s2, mapped):
+    """MAPQ: 60 (s1 - s2) / s1 in float32, rounded half to even as the
+    reference, in [0, 60]; 0 where not `mapped`."""
+    f32 = torch.float32
+    mapq = torch.round(60.0 * (s1 - s2).to(f32) / s1.clamp(min=1).to(f32))
+    return torch.where(mapped, mapq.clamp(0, 60).to(I32), 0)
+
+
+def filters_and_mapq(score, second, matches, n_ops, q_start, q_end, lengths,
+                     trunc, min_identity, min_residues):
+    """(mapped, mapq) of traced-back alignments: mapped where the score is
+    positive, the read not empty, the identity (matches over the
+    alignment's columns) at least min_identity, the aligned residues at
+    least min_residues of the read, and the op buffer not truncated (an
+    overflow leaves the CIGAR incomplete: never emit it)."""
+    f32 = torch.float32
+    identity = matches.to(f32) / n_ops.clamp(min=1).to(f32)
+    residues = (q_end - q_start + 1).to(f32)
+    mapped = (
+        (score > 0)
+        & (lengths > 0)
+        & (identity >= min_identity)
+        & (residues >= min_residues * lengths.to(f32))
+        & ~trunc
+    )
+    return mapped, mapq_of(score, second, mapped)
+
+
 def finish_plain(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
                  lengths, matrices, gopen_q, gopen_r, gext, min_identity,
                  min_residues, n_cands, overflow, proper, *, band,
-                 mode="local", simple=False) -> MapResult:
+                 mode="local") -> MapResult:
     """The plain version: the chosen candidate a1 [B] of each read
     traced back (the winner's corridor by K2's plain version, its query by
     its strand, K4's plain version), then the filters and MAPQ; `proper`
@@ -81,28 +109,13 @@ def finish_plain(a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
     best_query = torch.where((best_strand == 1)[:, None], rc, reads)
     ares = sw_align(
         best_query, lengths, best_corr, matrices, gopen_q, gopen_r, gext,
-        best_strand, band=band, mode=mode, simple=simple,
+        best_strand, band=band, mode=mode,
     )
     s1 = torch.where(a1_valid, ares.score, 0)
-
-    f32 = torch.float32
-    aln_cols = ares.n_ops.clamp(min=1)
-    identity = ares.matches.to(f32) / aln_cols.to(f32)
-    residues = (ares.q_end - ares.q_start + 1).to(f32)
-    min_res_abs = min_residues * lengths.to(f32)
-    mapped = (
-        (s1 > 0)
-        & (lengths > 0)
-        & (identity >= min_identity)
-        & (residues >= min_res_abs)
-        # an op-buffer overflow leaves the CIGAR incomplete: never emit it
-        & ~ares.trunc
-    )
+    mapped, mapq = filters_and_mapq(
+        s1, s2, ares.matches, ares.n_ops, ares.q_start, ares.q_end, lengths,
+        ares.trunc, min_identity, min_residues)
     cmr_overflow = overflow[1] + ares.trunc.sum(dtype=I32)
-    s1f = s1.clamp(min=1).to(f32)
-    # float32, round half to even, as the reference
-    mapq = torch.round(60.0 * (s1 - s2).to(f32) / s1f).clamp(0, 60).to(I32)
-    mapq = torch.where(mapped, mapq, 0)
 
     return MapResult(
         mapped=mapped,
@@ -170,8 +183,7 @@ def finish_pass(a1: torch.Tensor,          # [B] int64 in [0, C)
                 n_cands: torch.Tensor,     # [B] int32, passed through
                 overflow: tuple,           # ([] fanout, [] cmr) int32
                 proper: torch.Tensor,      # [B] bool
-                *, band: int, mode: str = "local",
-                simple: bool = False) -> MapResult:
+                *, band: int, mode: str = "local") -> MapResult:
     """Trace back each read's chosen candidate a1 and apply the filters
     and MAPQ, local or glocal (`mode`): the MapResult, with ops
     [B, L + band] END->START.  The second best score (for MAPQ) is the
@@ -179,16 +191,12 @@ def finish_pass(a1: torch.Tensor,          # [B] int64 in [0, C)
     start, and 0.  `proper` is gated by `mapped`; n_cands and overflow[0]
     pass through, and cmr_overflow is overflow[1] plus the truncated op
     buffers.
-
-    `simple` is kept for signature parity with the reference; the kernel
-    looks substitution scores up directly, which is exact for any matrix.
     """
     if reads.device.type == "cpu":
         return finish_plain(
             a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
             lengths, matrices, gopen_q, gopen_r, gext, min_identity,
-            min_residues, n_cands, overflow, proper, band=band, mode=mode,
-            simple=simple)
+            min_residues, n_cands, overflow, proper, band=band, mode=mode)
     local = check_mode(mode)
     dev = reads.device
     if dev.type != "cuda":

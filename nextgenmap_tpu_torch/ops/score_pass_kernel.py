@@ -34,9 +34,25 @@ class ScorePass(NamedTuple):
     base: torch.Tensor           # [B] int32, their exclusive prefix sum
 
 
+def compact_slots(n: torch.Tensor, slots: int) -> tuple:
+    """Batch-wide slot compaction: read b's n[b] entries take the slots
+    from base[b] on, in read order, `slots` at most.  Returns (base [B] the
+    exclusive prefix sum of n, total [] the entries asked for, slot_valid
+    [slots], b_of [slots] the read a slot belongs to, j_of [slots] its
+    entry within the read); slot s belongs to the last read b with
+    base[b] <= s."""
+    base = torch.cumsum(n, dim=0, dtype=I32) - n
+    total = base[-1] + n[-1]
+    sar = torch.arange(slots, dtype=I32, device=n.device)
+    b_of = torch.searchsorted(base, sar, right=True, out_int32=True) - 1
+    slot_valid = sar < total.clamp(max=slots)
+    j_of = sar - base[b_of.long()]
+    return base, total, slot_valid, b_of, j_of
+
+
 def score_pass_plain(genome, reads, rc, lengths, corr_start, strand,
                      cand_valid, score_mask, matrices, gopen_q, gopen_r, gext,
-                     *, band, slot_cap, mode="local", simple=False):
+                     *, band, slot_cap, mode="local"):
     """The plain version.  The pairs of the masked reads are compacted
     batch-wide into `slot_cap` slots, gathered and scored once each, and
     the scores scattered back to a dense [B, C] grid (0 where unscored).
@@ -51,15 +67,8 @@ def score_pass_plain(genome, reads, rc, lengths, corr_start, strand,
 
     eff_valid = cand_valid & score_mask[:, None]
     n_sc = eff_valid.sum(dim=1, dtype=I32)
-    base = torch.cumsum(n_sc, dim=0, dtype=I32) - n_sc       # exclusive [B]
-    total = base[-1] + n_sc[-1]
+    base, total, slot_valid, b_of, j_of = compact_slots(n_sc, S)
     slot_overflow = (total > S).to(I32)
-
-    # slot s belongs to the last read b with base[b] <= s
-    sar = torch.arange(S, dtype=I32, device=dev)
-    b_of = torch.searchsorted(base, sar, right=True, out_int32=True) - 1
-    slot_valid = sar < total.clamp(max=S)
-    j_of = sar - base[b_of.long()]
     flat_idx = torch.where(slot_valid, b_of * C + j_of, 0).long()
     b_s = torch.where(slot_valid, b_of, 0).long()
 
@@ -73,7 +82,7 @@ def score_pass_plain(genome, reads, rc, lengths, corr_start, strand,
 
     # (K1's plain version)
     sres = sw_score(q_s, len_s, corr_s, matrices, gopen_q, gopen_r, gext,
-                    strand_s.contiguous(), band=W, mode=mode, simple=simple)
+                    strand_s.contiguous(), band=W, mode=mode)
     score_s = torch.where(slot_valid, sres.score, 0)
 
     # scatter back; every invalid slot writes the one discarded dump index
@@ -93,16 +102,13 @@ def score_pass(genome: torch.Tensor,      # [G] uint8
                score_mask: torch.Tensor,  # [B] bool, [B // 2] if pairs
                matrices: torch.Tensor,    # [M, 8, 8] or [8, 8] int32
                gopen_q: int, gopen_r: int, gext: int, *, band: int,
-               slot_cap: int, mode: str = "local", pairs: bool = False,
-               simple: bool = False) -> ScorePass:
+               slot_cap: int, mode: str = "local",
+               pairs: bool = False) -> ScorePass:
     """Banded-SW score the valid candidates of the reads `score_mask`
     selects, at most `slot_cap` of them in read order, local or glocal
     (`mode`).  With `pairs` the mask has one entry a pair, [B // 2]: rows
     2i and 2i + 1 share its entry i; else one a read, [B].
     Returns ScorePass(sw, slot_overflow, n_sc, base).
-
-    `simple` is kept for signature parity with the reference; the kernel
-    looks substitution scores up directly, which is exact for any matrix.
     """
     B = reads.shape[0]
     shift = int(pairs)                  # 1: one entry a pair
@@ -118,7 +124,7 @@ def score_pass(genome: torch.Tensor,      # [G] uint8
         return score_pass_plain(
             genome, reads, rc, lengths, corr_start, strand, cand_valid,
             score_mask, matrices, gopen_q, gopen_r, gext, band=band,
-            slot_cap=slot_cap, mode=mode, simple=simple)
+            slot_cap=slot_cap, mode=mode)
     local = check_mode(mode)
     dev = reads.device
     if dev.type != "cuda":

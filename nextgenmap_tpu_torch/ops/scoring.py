@@ -42,21 +42,3 @@ def score_matrix(cfg: NgmConfig, strand: int = 0) -> np.ndarray:
         # (score 0), slam_seq=2 rewards as a discounted match.
         m[CODE_C, CODE_T] = 0 if cfg.slam_seq == 1 else max(1, cfg.match_bonus - 1)
     return m
-
-
-def matrices_are_simple(mats: np.ndarray) -> bool:
-    """True when every matrix is pure match/mismatch: S[c,c] = match for
-    ACGT, every other entry one shared mismatch value.
-
-    The DEFAULT mode (no bisulfite/SLAM asymmetry) always qualifies.  The
-    port's SW functions take the flag for signature parity with the
-    reference; their one lookup path is exact for every matrix.
-    """
-    flat = np.asarray(mats).reshape(-1, 8, 8)
-    m0 = flat[0]
-    match = m0[0, 0]
-    mis = m0[0, 1]
-    want = np.full((8, 8), mis, dtype=m0.dtype)
-    for c in range(4):
-        want[c, c] = match
-    return all(np.array_equal(m, want) for m in flat)

@@ -108,14 +108,11 @@ def sw_align(
     band: int,
     max_ops: int = 0,
     mode: str = "local",
-    simple: bool = False,
     route: str | None = None,
 ) -> AlignResult:
     """Banded SW with traceback, local or glocal (`mode`): AlignResult with
     ops [S, max_ops or L + band] END->START.
 
-    `simple` is kept for signature parity with the reference; the kernel
-    looks substitution scores up directly, which is exact for any matrix.
     `route` picks K4's route on a card (None: the shape rule); the plain
     version has none.
     """
@@ -123,7 +120,7 @@ def sw_align(
     if query.device.type == "cpu":
         return banded_sw_align(query, qlen, ref, matrix, gopen_q, gopen_r,
                                gext, msel, band=band, max_ops=max_ops,
-                               mode=mode, simple=simple)
+                               mode=mode)
     return _launch(query, qlen, ref, matrix, gopen_q, gopen_r, gext, msel,
                    band, max_ops, mode, route, want_dirs=False)[0]
 

@@ -35,18 +35,12 @@ def sw_score(
     *,
     band: int,
     mode: str = "local",
-    simple: bool = False,
 ) -> ScoreResult:
     """Banded SW score, local or glocal (`mode`): (score, end_i, end_o),
-    each [S] int32.
-
-    `simple` is kept for signature parity with the reference; the kernel
-    looks substitution scores up directly, which is exact for any matrix.
-    """
+    each [S] int32."""
     if query.device.type == "cpu":
         return banded_sw_score(query, qlen, ref, matrix, gopen_q, gopen_r,
-                               gext, msel, band=band, mode=mode,
-                               simple=simple)
+                               gext, msel, band=band, mode=mode)
     local = check_mode(mode)
     dev = query.device
     if dev.type != "cuda":

@@ -162,13 +162,8 @@ def banded_sw_score(
     *,
     band: int,
     mode: str = "local",
-    simple: bool = False,
 ) -> ScoreResult:
-    """Score-only banded SW over a batch: L sequential rows of [B, W] work.
-
-    `simple` is accepted for signature parity; the one lookup path is exact
-    for every matrix.
-    """
+    """Score-only banded SW over a batch: L sequential rows of [B, W] work."""
     local = check_mode(mode)
     B, L, q, r, flat, moff = _setup(query, ref, matrix, msel)
     W = band
@@ -242,7 +237,6 @@ def banded_sw_align(
     band: int,
     max_ops: int = 0,
     mode: str = "local",
-    simple: bool = False,
 ) -> AlignResult:
     """Banded SW with traceback: [L, B, W] direction bytes, then the
     row-synchronized backwalk (a glocal walk ends when the query is

@@ -45,6 +45,7 @@ from nextgenmap_tpu_torch.config import NgmConfig
 from nextgenmap_tpu_torch.index.kmer_index import KmerIndex
 from nextgenmap_tpu_torch.io.encode import PAD
 from nextgenmap_tpu_torch.native import hostio as native
+from nextgenmap_tpu_torch.ops.finish_kernel import mapq_of
 from nextgenmap_tpu_torch.parallel.mesh import make_mesh
 from nextgenmap_tpu_torch.utils.logging import get_logger
 
@@ -586,13 +587,6 @@ def _take_shard(field_all, winner):
                                           device=winner.device)]
 
 
-def _mapq(s1, s2, mapped):
-    """MAPQ as _finish computes it: float32, round half to even."""
-    f32 = torch.float32
-    mapq = torch.round(60.0 * (s1 - s2).to(f32) / s1.clamp(min=1).to(f32))
-    return torch.where(mapped, mapq.clamp(0, 60).to(torch.int32), 0)
-
-
 def _global_positions(stk, base, core_lo, core_hi):
     """(int64 global positions, ownership mask) of per-shard results whose
     leading axis is the shard; `has` = the shard found an alignment."""
@@ -671,7 +665,7 @@ def merge_sharded_results(stk, base, core_lo, core_hi, *, paired: bool,
     mapped = merged["mapped"] & (win_sc > 0)
     merged["mapped"] = mapped
     merged["second"] = s2
-    merged["mapq"] = _mapq(win_sc, s2, mapped)
+    merged["mapq"] = mapq_of(win_sc, s2, mapped)
     merged["proper"] = merged["proper"] & mapped
     return stk._replace(**merged)
 
@@ -730,7 +724,7 @@ def merge_sharded_topn(stk, base, core_lo, core_hi, *, topn: int,
         mapped = fields["mapped"] & (win_sc[:, j] > 0)
         fields["mapped"] = mapped
         fields["second"] = s2[:, j]
-        fields["mapq"] = _mapq(win_sc[:, j], s2[:, j], mapped)
+        fields["mapq"] = mapq_of(win_sc[:, j], s2[:, j], mapped)
         results.append(type(stk)(fanout_overflow=fan_ovf,
                                  cmr_overflow=cmr_ovf, **fields))
     return tuple(results)

@@ -10,16 +10,16 @@ variant of one); ``repo`` (the port's own ``csrc/``) is always included.
 Each tree is built by nvcc into its own library, and its kernels' outputs
 are checked equal to the plain PyTorch versions at every shape.  Then each
 kernel is timed by ``tools/timing.py::device_ms`` (torch.profiler device
-time per launch) at the chip smoke's main shapes: K1 local [2048,100]xW48
+time per launch) at the card tests' main shapes: K1 local [2048,100]xW48
 with all slots real and with 650 real (the rest at length 0, as the mapper
 passes them), [2048,150]xW56, [512,1000]xW184 and glocal [2048,100]xW48; K2
 at 2048x148, 4096x148, 4096x206 and 614x1184, beside ``unfold`` +
 ``index_select``; K3 along dim 0 and dim 1 at the probe's default 256x1024
 and at 4096x2048 (the probe's use case at the mapper's batch), REP 32,
 beside ``torch.gather`` at REP 1 and an empty kernel (``torch.cuda._sleep(0)``:
-one thread, no work), the floor of any launch; K4 at chip_smoke.py's
-K4_SHAPES ([4096,100]xW48, [2048,150]xW56, [614,1000]xW184,
-[2048,100]xW264), local and glocal, through each tree's own
+one thread, no work), the floor of any launch; K4 at K4_SHAPES
+([4096,100]xW48, [2048,150]xW56, [614,1000]xW184, [2048,100]xW264), local
+and glocal, through each tree's own
 ``ngm_sw_align``: a tree with routes (``ngm_sw_align_plan``) on each route
 that takes the shape ("NAME smem", "NAME global"), without the direction
 bytes, as its mapping path calls it; an older tree without them with the
@@ -41,9 +41,9 @@ round]}}, "k2": {...}, "k3": {...}, "k4": {...}, "k5": {...}, "k6": {...},
 floors are its bytes (12 R
 W over 3.35 TB/s) and its gathers from shared memory without bank conflicts
 (REP R W loads, a warp of 32 a clock on each of 132 SMs at the card's
-maximum SM clock).  K4's bound is chip_smoke.py's: 20 (local) or 18
-(glocal) int ops per cell of each real slot's qlen x W over 132 SMs x 64
-INT32 lanes at that clock.  A K4 plan is ``ngm_sw_align_plan``'s (route,
+maximum SM clock).  K4's bound: 20 (local) or 18 (glocal) int ops per
+cell of each real slot's qlen x W over 132 SMs x 64 INT32 lanes at that
+clock.  A K4 plan is ``ngm_sw_align_plan``'s (route,
 lanes, cells per lane, packed row bytes, threads a block and its shared
 memory bytes as launched, blocks of that size an SM holds, the route's
 capacity in warps an SM); a K6 plan ``ngm_cand_search_plan``'s (route,
@@ -97,7 +97,8 @@ K1_SHAPES = [
 K2_SHAPES = [(2048, 148), (4096, 148), (4096, 206), (614, 1184)]
 K3_SHAPES = [(256, 1024), (4096, 2048)]
 K3_REP = 32
-# chip_smoke.py's K4_SHAPES and K4_OPS_PER_CELL
+# K4: the card tests' main shapes; its integer instructions per DP cell,
+# by mode (csrc/sw_align.cu's note counts them)
 K4_SHAPES = [(4096, 100, 48), (2048, 150, 56), (614, 1000, 184),
              (2048, 100, 264)]
 K4_OPS_PER_CELL = {"local": 20, "glocal": 18}
@@ -112,6 +113,8 @@ K6_SHAPES = [("canonical [4096,100] H128", 4096, 100, False, 128),
              ("canonical [614,1000] H1280", 614, 1000, False, 1280),
              ("bisulfite [4096,100] H320", 4096, 100, True, 320)]
 KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6")
+# the H100's published peaks: device memory bytes a second, and SMs x
+# INT32 lanes an SM a clock (sm_90)
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES = 132 * 64
 P, I32 = build.P, build.I32

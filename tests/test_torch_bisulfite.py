@@ -194,8 +194,7 @@ def bs_state(genome):
         hit_cap=cfg.resolved_read_hits(pos.shape[0] // 2, L),
         max_cmrs=cfg.max_cmrs, diag_bin_log2=cfg.diag_bin_log2,
         band=cfg.corridor_for(L), min_kmer_hits=1,
-        read_stride=cfg.read_kmer_skip, packed_offsets=True,
-        simple_matrix=matrices_are_simple(mats), bs=True,
+        read_stride=cfg.read_kmer_skip, packed_offsets=True, bs=True,
         bs_cutoff=cfg.bs_cutoff,
     )
     jargs = (
@@ -222,6 +221,7 @@ def test_map_steps_equal_jax_under_bs(genome, reads, bs_state, step,
     cfg, (jg, joff, jpos, jmats), state, packed, statics = bs_state
     codes, lens = reads
     statics = dict(statics, end_to_end=end_to_end)
+    jstatics = dict(statics, simple_matrix=matrices_are_simple(jmats))
     if step == "paired":   # FR pairs, both mates bisulfite-converted
         pc, _, _ = synthetic.simulate_pairs(genome, B // 2, L, 0.01, seed=83)
         codes = synthetic.bisulfite_convert(pc, 0.8,
@@ -232,20 +232,20 @@ def test_map_steps_equal_jax_under_bs(genome, reads, bs_state, step,
     front = (state.genome, packed, state.positions, t(codes), t(lens),
              state.matrices, *SCALARS)
     if step == "single":
-        ref = jmapper.map_step(*jfront, **statics)
+        ref = jmapper.map_step(*jfront, **jstatics)
         got = tmapper.map_step(*front, **statics)
         assert_fields_equal(ref, got, step)
         results = [got]
     elif step == "paired":
         pair = (0, 500, 0.9)
         ref = jmapper.map_step_paired(*jfront, jnp.int32(0), jnp.int32(500),
-                                      jnp.float32(0.9), **statics)
+                                      jnp.float32(0.9), **jstatics)
         got = tmapper.map_step_paired(*front, *pair, **statics)
         assert_fields_equal(ref, got, step)
         assert int(got.proper.sum()) >= B // 2
         results = [got]
     else:
-        ref = jmapper.map_step_topn(*jfront, **statics, topn=2)
+        ref = jmapper.map_step_topn(*jfront, **jstatics, topn=2)
         results = tmapper.map_step_topn(*front, **statics, topn=2)
         for j, (r, g) in enumerate(zip(ref, results)):
             assert_fields_equal(r, g, f"rank {j}")

@@ -173,7 +173,7 @@ def repeats():
         max_cmrs=cfg.max_cmrs, diag_bin_log2=cfg.diag_bin_log2,
         band=cfg.corridor_for(L), min_kmer_hits=1,
         read_stride=cfg.read_kmer_skip, packed_offsets=True,
-        simple_matrix=matrices_are_simple(mats), end_to_end=True,
+        end_to_end=True,
     )
     jstate = (jnp.asarray(g), pack_offsets(off, 1000, cfg.max_kmer_fanout),
               pos, jnp.asarray(mats))
@@ -200,18 +200,19 @@ def test_map_steps_equal_jax_under_end_to_end(repeats, step):
     front = (state.genome, packed, state.positions, torch.from_numpy(codes),
              torch.from_numpy(lens), state.matrices,
              20, 20, 20, 0.5, 1000, 0.65, 0.5)
+    jstatics = dict(statics, canonical=True,
+                    simple_matrix=matrices_are_simple(jmats))
     if step == "single":
         results = [tmapper.map_step(*front, **statics)]
-        refs = [jmapper.map_step(*jfront, **statics, canonical=True)]
+        refs = [jmapper.map_step(*jfront, **jstatics)]
     elif step == "paired":
         results = [tmapper.map_step_paired(*front, 0, 1000, 0.9, **statics)]
         refs = [jmapper.map_step_paired(
             *jfront, jnp.int32(0), jnp.int32(1000), jnp.float32(0.9),
-            **statics, canonical=True)]
+            **jstatics)]
     else:
         results = tmapper.map_step_topn(*front, **statics, topn=2)
-        refs = jmapper.map_step_topn(*jfront, **statics, canonical=True,
-                                     topn=2)
+        refs = jmapper.map_step_topn(*jfront, **jstatics, topn=2)
     for j, (r, got) in enumerate(zip(refs, results)):
         assert_fields_equal(r, got, f"rank {j}")
     top = results[0]

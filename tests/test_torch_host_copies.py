@@ -7,7 +7,7 @@ inputs:
   * NgmConfig: the same fields, defaults and derived sizes, and the same
     to_json (the resume sidecar's hash); MappingStats.merge_counters;
   * build_parser + config_from_args: the same NgmConfig for every argv;
-  * score_matrix / matrices_are_simple for every scoring mode;
+  * score_matrix for every scoring mode;
   * Genome from one FASTA (two chromosomes, lowercase, N) and its cache;
   * the host KmerIndex arrays, native and numpy builds, every collapse,
     and with allow_u32 (the sharded build);
@@ -159,9 +159,6 @@ def test_score_matrix_every_mode(mode):
         b = tscoring.score_matrix(port, strand)
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    mats = np.stack([tscoring.score_matrix(port, s) for s in (0, 1)])
-    assert (jscoring.matrices_are_simple(mats)
-            == tscoring.matrices_are_simple(mats))
 
 
 @pytest.fixture(scope="module")

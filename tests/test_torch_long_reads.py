@@ -105,7 +105,7 @@ def test_topn_step_equals_jax_at_500bp(end_to_end):
         max_cmrs=cfg.max_cmrs, diag_bin_log2=cfg.diag_bin_log2,
         band=cfg.corridor_for(L), min_kmer_hits=1,
         read_stride=cfg.read_kmer_skip, packed_offsets=True,
-        simple_matrix=matrices_are_simple(mats), end_to_end=end_to_end,
+        end_to_end=end_to_end,
     )
     assert statics["band"] == 112
     ref = jmapper.map_step_topn(
@@ -113,6 +113,7 @@ def test_topn_step_equals_jax_at_500bp(end_to_end):
         jnp.asarray(lens), jnp.asarray(mats), jnp.int32(20), jnp.int32(20),
         jnp.int32(20), jnp.float32(0.5), jnp.int32(1000), jnp.float32(0.65),
         jnp.float32(0.5), **statics, canonical=True, topn=2,
+        simple_matrix=matrices_are_simple(mats),
     )
     state = state_from_numpy(g, off, pos, mats, "cpu")
     got = tmapper.map_step_topn(

@@ -58,6 +58,7 @@ def test_graft_workload_equals_jax():
     off, pos = idx.device_arrays()
     state = state_from_numpy(g, off, pos, np.asarray(args[5]), "cpu")
     assert statics.pop("canonical")
+    statics.pop("simple_matrix")      # the reference's option alone
     got = _port_step(state, state.offsets, np.asarray(args[3]),
                      np.asarray(args[4]), (20, 20, 20, 0.5, 1000, 0.65, 0.5),
                      statics)
@@ -83,7 +84,6 @@ def repeats():
         max_cmrs=cfg.max_cmrs, diag_bin_log2=cfg.diag_bin_log2,
         band=cfg.corridor_for(L), min_kmer_hits=1,
         read_stride=cfg.read_kmer_skip, packed_offsets=True,
-        simple_matrix=matrices_are_simple(mats),
     )
     jargs = (
         jnp.asarray(g), pack_offsets(off, 1000, cfg.max_kmer_fanout), pos,
@@ -97,7 +97,8 @@ def repeats():
 @pytest.mark.parametrize("slot_cap", [0, 8])
 def test_repeat_workload_equals_jax(repeats, slot_cap):
     cfg, g, reads, lens, off, jargs, statics = repeats
-    ref = jmapper.map_step(*jargs, **statics, canonical=True, slot_cap=slot_cap)
+    ref = jmapper.map_step(*jargs, **statics, canonical=True, slot_cap=slot_cap,
+                           simple_matrix=matrices_are_simple(jargs[5]))
     state = state_from_numpy(g, off, jargs[2], jargs[5], "cpu")
     packed = tcand.pack_offsets(state.offsets, 1000, cfg.max_kmer_fanout)
     got = _port_step(state, packed, reads, lens,

@@ -111,8 +111,6 @@ CASES = {
         "import nextgenmap_tpu_torch.parallel.index_shard\n"),
     "import_kernel_ab": lambda d: (
         "import nextgenmap_tpu_torch.tools.kernel_ab\n"),
-    "import_dp_overlap": lambda d: (
-        "import nextgenmap_tpu_torch.tools.dp_overlap\n"),
     "probe_tool": lambda d: (
         "import sys\n"
         "from nextgenmap_tpu_torch.tools import probe_dyngather\n"

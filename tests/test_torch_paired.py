@@ -72,7 +72,6 @@ def pairs():
         max_cmrs=cfg.max_cmrs, diag_bin_log2=cfg.diag_bin_log2,
         band=cfg.corridor_for(L), min_kmer_hits=1,
         read_stride=cfg.read_kmer_skip, packed_offsets=True,
-        simple_matrix=matrices_are_simple(mats),
     )
     jargs = (
         jnp.asarray(g), pack_offsets(off, 1000, cfg.max_kmer_fanout), pos,
@@ -90,7 +89,7 @@ def test_map_step_paired_equals_jax(pairs, slot_cap, max_insert):
     ref = jmapper.map_step_paired(
         *jargs, jnp.int32(pair_args[0]), jnp.int32(pair_args[1]),
         jnp.float32(pair_args[2]), **statics, canonical=True,
-        slot_cap=slot_cap,
+        slot_cap=slot_cap, simple_matrix=matrices_are_simple(jargs[5]),
     )
     state = state_from_numpy(g, off, jargs[2], jargs[5], "cpu")
     packed = tcand.pack_offsets(state.offsets, 1000, cfg.max_kmer_fanout)

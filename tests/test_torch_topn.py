@@ -76,7 +76,6 @@ def repeats():
         max_cmrs=cfg.max_cmrs, diag_bin_log2=cfg.diag_bin_log2,
         band=cfg.corridor_for(L), min_kmer_hits=1,
         read_stride=cfg.read_kmer_skip, packed_offsets=True,
-        simple_matrix=matrices_are_simple(mats),
     )
     jargs = (
         jnp.asarray(g), pack_offsets(off, 1000, cfg.max_kmer_fanout), pos,
@@ -91,7 +90,8 @@ def repeats():
 def test_map_step_topn_equals_jax(repeats, topn, slot_cap):
     cfg, g, reads, lens, off, jargs, statics = repeats
     ref = jmapper.map_step_topn(*jargs, **statics, canonical=True,
-                                topn=topn, slot_cap=slot_cap)
+                                topn=topn, slot_cap=slot_cap,
+                                simple_matrix=matrices_are_simple(jargs[5]))
     state = state_from_numpy(g, off, jargs[2], jargs[5], "cpu")
     packed = tcand.pack_offsets(state.offsets, 1000, cfg.max_kmer_fanout)
     got = tmapper.map_step_topn(
