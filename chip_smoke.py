@@ -63,7 +63,9 @@ benchmark (ngm_bench/).  Phases, one line of output each:
               truth-correct per mate, >= 90% of pairs proper, the score
               pass and the finish pass launched, real slots scored; the
               score pass and the finish pass on the first step's inputs
-              (its pair mask, its pairs' verdicts) as in phase 6
+              (its pair mask, its pairs' verdicts) as in phase 6; the
+              pair select launched once a step and exact against its
+              plain version on the first step's inputs (a1 and proper)
   8. top-n    the CLI's -n 2 maps 2 x 4096 reads; one primary record per
               read, >= 99% mapped and >= 95% truth-correct primaries,
               secondaries present, the score pass, K2 and K4 launched
@@ -885,6 +887,8 @@ def phase_main_path(genome, workdir, device="cuda"):
 
 
 def phase_paired_path(genome, workdir, device="cuda"):
+    import torch
+
     from nextgenmap_tpu_torch import synthetic
 
     n = N_BATCHES_NEW * BATCH
@@ -896,13 +900,28 @@ def phase_paired_path(genome, workdir, device="cuda"):
     for path, m in ((fq1, 0), (fq2, 1)):
         synthetic.write_fastq(path, codes[m::2], pos[m::2], strand[m::2],
                               prefix="simpair")
-    with Capture(first=("score_pass", "finish_pass")) as cap:
+    from nextgenmap_tpu_torch.ops.pair_kernel import pair_select
+
+    pair_select.launches = 0
+    with Capture(first=("score_pass", "finish_pass", "pair_select")) as cap:
         stats, launches = run_cli("paired", [
             "map", "-r", os.path.join(workdir, "ref.fa"), "-1", fq1, "-2",
             fq2, "-o", sam, "--device", device, "--no-progress"])
     exact = passes_exact(cap, "the paired path")
     check(cap.calls["score_pass"][0][1].get("pairs") is True,
           "the paired path's score pass took no pair mask")
+    n_steps = steps(stats, N_BATCHES_NEW)
+    check(pair_select.launches == n_steps,
+          f"the paired path launched the pair select {pair_select.launches} "
+          f"times in {n_steps} steps")
+    a, kw = cap.calls["pair_select"][0]
+    got = pair_select(*a, **kw)
+    want = pair_select(*map(on_cpu, a), **kw)      # the plain version
+    for nm, x, y in zip(want._fields, got, want):
+        check(torch.equal(x.cpu(), y),
+              f"pair_select {nm} differs from its plain version")
+    exact += (f"; pair_select once a step ({n_steps} steps), exact at "
+              f"{a[0].shape[0] // 2} pairs x C {a[0].shape[1]}")
 
     c = synthetic.sam_counts(sam)
     check(c["records"] == n, f"SAM holds {c['records']} records, expected {n}")
@@ -1046,13 +1065,13 @@ def sam_body(records):
 
 class Capture:
     """Within `with`, record the arguments of every call the mapper makes
-    to the score pass, finish pass, K2 and K6 wrappers, to rerun
+    to the score pass, finish pass, K2, K6 and pair-select wrappers, to rerun
     a kernel on exactly the inputs a path gave it.  Of a name in `first`
     only the first call is kept, its tensors copied: a step graph's eager
     warm-up, whose input buffers later batches overwrite."""
 
     NAMES = ("score_pass", "finish_pass", "gather_genome_windows",
-             "candidate_search")
+             "candidate_search", "pair_select")
 
     def __init__(self, first=()):
         self.first = set(first)

@@ -18,7 +18,8 @@ and differ in their tails:
                    the finish: winner corridor -> traceback -> filters +
                    MAPQ
   map_step_paired  lazy scoring of pairs where a mate has >= 2 candidates ->
-                   CxC insert-window pair resolution -> as above
+                   CxC insert-window pair resolution (the pair select)
+                   -> as above
   map_step_topn    eager scoring of every candidate -> stable top-R ranks ->
                    one compacted traceback of all ranks (K2 fetch)
 
@@ -28,7 +29,8 @@ read is aligned, with no clipping.
 On a CUDA device the read front end (the rc and the k-mers) is the
 hand-written kernel K5, the candidate search K6, every score pass, local or
 glocal, the fused score pass (a plan kernel, then K1's row loops fed
-straight from the reads and the genome), the single and paired steps'
+straight from the reads and the genome), the paired step's pair
+resolution the pair-select kernel, the single and paired steps'
 finish the finish pass (K4's forward pass and walk, fed straight from the
 step's tensors, the reads and the genome, with the filters and MAPQ in
 one launch), and the top-n traceback the gather kernel K2 and K4; on the
@@ -68,6 +70,7 @@ from nextgenmap_tpu_torch.ops.finish_kernel import (
 )
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
+from nextgenmap_tpu_torch.ops.pair_kernel import pair_select
 from nextgenmap_tpu_torch.ops.score_pass_kernel import (
     compact_slots, score_pass,
 )
@@ -316,15 +319,12 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
                  end_to_end=False, traced=False):
     """Lazy scoring of multi-candidate pairs, CxC insert-window pair
     resolution, traceback + filters.  Rows 2i / 2i+1 are the mates of pair i.
-    `traced`: count the score pass and mark the ends of its phases
-    (utils/trace.py)."""
+    `traced`: count the score pass and the pair select and mark the ends of
+    its phases (utils/trace.py)."""
     B, L = reads.shape
-    C = corr_start.shape[1]
-    P = B // 2
     bin_w = 1 << diag_bin_log2
 
-    np_ = n_cands.reshape(P, 2)
-    pair_multi = np_.amax(dim=1) >= 2          # either mate has >= 2
+    pair_multi = n_cands.reshape(B // 2, 2).amax(dim=1) >= 2  # a mate has >= 2
     sw, slot_ovf = _score_candidates(
         genome, reads, rc, lengths, corr_start, strand, cand_valid,
         pair_multi, matrices, gopen_q, gopen_r, gext,
@@ -333,55 +333,24 @@ def _paired_tail(genome, reads, rc, lengths, matrices, gopen_q, gopen_r,
     )
     if traced:
         trace.mark("score", reads.device)
-    overflow = (overflow[0], overflow[1] + slot_ovf)
 
-    s = sw.reshape(P, 2, C)
-    # approximate alignment start = corridor start + slack (the diagonal)
-    slack = (band - 2 * bin_w) // 2
-    pos = (corr_start + slack).reshape(P, 2, C)
-    st = strand.reshape(P, 2, C)
-    exist = cand_valid.reshape(P, 2, C)
-    s1m, s2m = s[:, 0, :, None], s[:, 1, None, :]          # [P, C, 1], [P, 1, C]
-    p1, p2 = pos[:, 0, :, None], pos[:, 1, None, :]
-    st1, st2 = st[:, 0, :, None], st[:, 1, None, :]
-
-    # FR orientation: strands differ and the forward mate lies leftmost
-    margin = 2 * bin_w
-    fwd_left = torch.where(st1 == 0, p1 <= p2 + margin, p2 <= p1 + margin)
-    span = (p2 - p1).abs() + L                  # approximate outer distance
-    ok_ins = (span >= min_insert - margin) & (span <= max_insert + margin)
-    geo = ((st1 != st2) & fwd_left & ok_ins
-           & exist[:, 0, :, None] & exist[:, 1, None, :])
-    valid = geo & (s1m > 0) & (s2m > 0)
-    flat = torch.where(valid, s1m + s2m, -1).reshape(P, C * C)
-    pair_best = flat.max(dim=1).values
-    pair_arg = torch.argmax(flat, dim=1)        # first max: c1 ASC, then c2 ASC
-    c1s, c2s = pair_arg // C, pair_arg % C
-
-    best1 = s[:, 0].max(dim=1).values
-    best2 = s[:, 1].max(dim=1).values
-    f32 = torch.float32
-    proper_scored = (pair_best > 0) & (
-        pair_best.to(f32) >= pair_cutoff * (best1 + best2).to(f32)
+    # the C x C grid, the resolution and the fallback (ops/pair_kernel.py);
+    # a candidate's approximate alignment start is corr_start + slack
+    pairing = pair_select(
+        sw, corr_start.contiguous(), strand.contiguous(),
+        cand_valid.contiguous(), n_cands.contiguous(), min_insert,
+        max_insert, pair_cutoff, read_len=L, slack=(band - 2 * bin_w) // 2,
+        margin=2 * bin_w,
+        counters=trace.pair_counters(reads.device) if traced else None,
     )
-    # single x single: the only combination is (0, 0), and its propriety is
-    # pure geometry (the final `proper` is still gated by both mates mapping)
-    proper_single = geo[:, 0, 0] & (np_[:, 0] >= 1) & (np_[:, 1] >= 1)
-    proper_pair = torch.where(pair_multi, proper_scored, proper_single)
-
-    c1 = torch.where(pair_multi, c1s, 0)
-    c2 = torch.where(pair_multi, c2s, 0)
-
-    a_single = torch.argmax(sw, dim=1).reshape(P, 2)
-    sel1 = torch.where(proper_pair, c1, a_single[:, 0])
-    sel2 = torch.where(proper_pair, c2, a_single[:, 1])
-    a1 = torch.stack([sel1, sel2], dim=1).reshape(B)
     if traced:
         trace.mark("select", reads.device)
+    # the slot overflow's add runs after the mark: `select` is one kernel
+    overflow = (overflow[0], overflow[1] + slot_ovf)
     res = _finish(
-        a1, sw, corr_start, strand, cand_valid, genome, reads, rc, lengths,
-        matrices, gopen_q, gopen_r, gext, min_identity, min_residues,
-        n_cands, overflow, proper_pair.repeat_interleave(2), band=band,
+        pairing.a1, sw, corr_start, strand, cand_valid, genome, reads, rc,
+        lengths, matrices, gopen_q, gopen_r, gext, min_identity,
+        min_residues, n_cands, overflow, pairing.proper, band=band,
         end_to_end=end_to_end, traced=traced,
     )
     if traced:

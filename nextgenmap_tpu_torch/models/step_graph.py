@@ -88,6 +88,7 @@ from nextgenmap_tpu_torch.ops.candidate_kernel import candidate_search
 from nextgenmap_tpu_torch.ops.finish_kernel import finish_pass
 from nextgenmap_tpu_torch.ops.gather_kernel import gather_genome_windows
 from nextgenmap_tpu_torch.ops.kmer_kernel import read_kmers
+from nextgenmap_tpu_torch.ops.pair_kernel import pair_select
 from nextgenmap_tpu_torch.ops.score_pass_kernel import score_pass
 from nextgenmap_tpu_torch.ops.sw_align_kernel import sw_align
 from nextgenmap_tpu_torch.utils import trace
@@ -96,9 +97,9 @@ from nextgenmap_tpu_torch.utils.logging import get_logger
 log = get_logger("ngm-torch.graph")
 
 # the kernel wrappers a mapping step calls (the fused score pass, the
-# finish pass, K2 and K4 (the top-n traceback), K5, K6)
+# finish pass, K2 and K4 (the top-n traceback), K5, K6, the pair select)
 KERNELS = (score_pass, finish_pass, gather_genome_windows, sw_align,
-           read_kmers, candidate_search)
+           read_kmers, candidate_search, pair_select)
 
 
 def leaves(tree) -> list:

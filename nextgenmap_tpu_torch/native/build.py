@@ -58,6 +58,8 @@ SIGNATURES = {
     "ngm_inner_mark": (P, I32, P),
     "ngm_hit_counts": (P, P, P),
     "ngm_score_counts": (P, P, I32, I32, P, P),
+    "ngm_pair_select": (P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P,
+                        P, P, P),
 }
 
 _lib: ctypes.CDLL | None = None

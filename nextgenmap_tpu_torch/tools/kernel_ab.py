@@ -1,9 +1,9 @@
 """Side-by-side device times of K1 (SW score), K2 (window gather), K3
 (the dynamic-gather probe's kernel), K4 (SW with traceback), K5 (the read
-front end) and K6 (candidate search) built from several source trees, in
-one process on one CUDA card.
+front end), K6 (candidate search) and the pair select built from several
+source trees, in one process on one CUDA card.
 
-    python -m nextgenmap_tpu_torch.tools.kernel_ab [NAME=CSRC_DIR ...] [--rounds 2] [--only k4] [--only k5 --only k6]
+    python -m nextgenmap_tpu_torch.tools.kernel_ab [NAME=CSRC_DIR ...] [--rounds 2] [--only k4] [--only k5 --only k6] [--only pair_select]
 
 Each CSRC_DIR is a copy of the port's ``csrc/`` (another commit's, or a
 variant of one); ``repo`` (the port's own ``csrc/``) is always included.
@@ -28,7 +28,11 @@ equal to the plain ``banded_sw_align`` in all 11 fields first.  K5 at
 K5_SHAPES and K6 at K6_SHAPES (on the bench's 4.6 Mbp random genome and
 its packed tables, K6 on each route that takes the shape: "NAME smem",
 "NAME global"), each held equal to its plain version in every output; a
-tree without them (older than K5 and K6) is left out of their rows.  Rounds
+tree without them (older than K5 and K6) is left out of their rows.  The
+pair select at PAIR_SHAPES (2048 pairs, C 32: every pair gridded, every
+candidate valid; a third of the pairs gridded) beside its plain version's
+torch ops on the card ("torch (plain)", the paired tail before the
+kernel), each tree's held equal to it; a tree without it is left out.  Rounds
 alternate the trees' order (A B ..., then ... B A) so that a drift of the
 card's clock favours none.
 
@@ -37,7 +41,8 @@ one JSON object as the last line: {"card": ..., "k1": {shape: {tree: [ms per
 round]}}, "k2": {...}, "k3": {...}, "k4": {...}, "k5": {...}, "k6": {...},
 "k3_floors": {shape:
 {"bytes_ms": ..., "gather_ms": ...}}, "k4_bounds": {shape: ms},
-"k4_plans": {shape: {tree route: plan}}, "k6_plans": {...}}.  K3's
+"k4_plans": {shape: {tree route: plan}}, "k6_plans": {...},
+"pair_select": {...}, "pair_bounds": {shape: ms}}.  K3's
 floors are its bytes (12 R
 W over 3.35 TB/s) and its gathers from shared memory without bank conflicts
 (REP R W loads, a warp of 32 a clock on each of 132 SMs at the card's
@@ -49,7 +54,11 @@ memory bytes as launched, blocks of that size an SM holds, the route's
 capacity in warps an SM); a K6 plan ``ngm_cand_search_plan``'s (route,
 threads a read, reads a block, shared memory a block, blocks, the padded
 vote array, the global route's scratch, the card's shared memory a
-block).  Needs a CUDA card.
+block).  The pair select's bound: the larger of its bytes (13 a
+candidate and 4 a read in, 9 a read out) over 3.35 TB/s and
+PAIR_OPS_PER_TEST int ops for each combination of a gridded pair's C x C
+over 132 SMs x 64 INT32 lanes at the card's maximum SM clock.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -80,10 +89,11 @@ from nextgenmap_tpu_torch.ops.gather import gather_windows, pad_table
 from nextgenmap_tpu_torch.ops.kmer_kernel import (
     FORM_BISULFITE, FORM_CANONICAL, n_windows, read_kmers_plain,
 )
+from nextgenmap_tpu_torch.ops.pair_kernel import pair_select_plain
 from nextgenmap_tpu_torch.ops.row_gather import row_gather_plain
 from nextgenmap_tpu_torch.ops.sw_align_kernel import N_FIELDS, ROUTES
 from nextgenmap_tpu_torch.ops.sw_ref import banded_sw_align, banded_sw_score
-from nextgenmap_tpu_torch.tools.timing import device_ms
+from nextgenmap_tpu_torch.tools.timing import device_ms, launches_per_call
 
 GENOME = 4_600_000
 # (label, S, L, W, real slots, local)
@@ -112,7 +122,14 @@ K5_SHAPES = [("canonical [4096,100]", 4096, 100, FORM_CANONICAL, 0),
 K6_SHAPES = [("canonical [4096,100] H128", 4096, 100, False, 128),
              ("canonical [614,1000] H1280", 614, 1000, False, 1280),
              ("bisulfite [4096,100] H320", 4096, 100, True, 320)]
-KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6")
+# the pair select: (label, pairs, C, share of the pairs gridded) at the
+# paired cell's read length, band 56 and bins of 16; its int ops a
+# combination of the grid (csrc/pair_select.cu's note)
+PAIR_SHAPES = [("2048 pairs C32, all gridded", 2048, 32, 1.0),
+               ("2048 pairs C32, a third gridded", 2048, 32, 1 / 3)]
+PAIR_OPS_PER_TEST = 15
+PAIR_L, PAIR_SLACK, PAIR_MARGIN = 150, 12, 32
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "pair_select")
 # the H100's published peaks: device memory bytes a second, and SMs x
 # INT32 lanes an SM a clock (sm_90)
 HBM_BYTES_PER_S = 3.35e12
@@ -302,6 +319,77 @@ def cand_launcher(lib, kms, lens, off, pos, sens, H: int, route: str,
             torch.cuda.current_stream().cuda_stream), "cand_search")
         return out[0], out[1], out[2], per[0], per[1], cnt
     return launch, list(plan)
+
+
+def pair_inputs(rng: np.random.Generator, P: int, C: int, gridded: float,
+                dev) -> tuple:
+    """(pair_select's inputs, the gridded pairs) of P FR pairs with C
+    candidates a mate: in a gridded pair every candidate valid and scored
+    20-150, mate 2's within 600 of mate 1's on both strands; in the others
+    one candidate a mate, unscored."""
+    B = 2 * P
+    multi = rng.random(P) < gridded
+    n = np.where(multi, C, 1).repeat(2).astype(np.int32)
+    valid = np.arange(C)[None] < n[:, None]
+    sw = np.where(valid & multi.repeat(2)[:, None],
+                  rng.integers(20, 150, (B, C)), 0).astype(np.int32)
+    corr = (rng.integers(0, 60_000_000, P).repeat(2)[:, None]
+            + rng.integers(0, 600, (B, C))).astype(np.int32)
+    strand = rng.integers(0, 2, (B, C)).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    scal = (torch.tensor(200, dtype=torch.int32, device=dev),
+            torch.tensor(500, dtype=torch.int32, device=dev),
+            torch.tensor(0.9, dtype=torch.float32, device=dev))
+    return ((t(sw), t(corr), t(strand), t(valid), t(n), *scal),
+            int(multi.sum()))
+
+
+def pair_launcher(lib, args):
+    """`lib`'s pair select on `args`; launch() returns (a1, proper)."""
+    sw = args[0]
+    B, C = sw.shape
+    a1 = torch.empty(B, dtype=torch.int64, device=sw.device)
+    proper = torch.empty(B, dtype=torch.bool, device=sw.device)
+
+    def launch():
+        build.check(lib.ngm_pair_select(
+            *(x.data_ptr() for x in args), B // 2, C, PAIR_L, PAIR_SLACK,
+            PAIR_MARGIN, None, a1.data_ptr(), proper.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "pair_select")
+        return a1, proper
+    return launch
+
+
+def pair_cases(libs, only, dev, rng, cases, bounds, per_call) -> None:
+    """The pair select of each tree that has it, held equal to the plain
+    version, beside the plain version's torch ops, into `cases`; its
+    bounds into `bounds`, the plain version's launches a call (of its most
+    launched kernel) into `per_call`."""
+    if "pair_select" not in only:
+        return
+    ops_per_s = INT32_LANES * sm_clock_hz()
+    for label, P, C, share in PAIR_SHAPES:
+        args, gridded = pair_inputs(rng, P, C, share, dev)
+
+        def plain(args=args):
+            return pair_select_plain(*args, read_len=PAIR_L,
+                                     slack=PAIR_SLACK, margin=PAIR_MARGIN)
+        want = plain()
+        per_call[label] = launches_per_call(plain)
+        cases["pair_select", label] = {"torch (plain)": plain}
+        for name, lib in libs.items():
+            if not hasattr(lib, "ngm_pair_select"):
+                continue
+            fn = pair_launcher(lib, args)
+            if not all(torch.equal(a, b) for a, b in zip(fn(), want)):
+                raise RuntimeError(f"the pair select of {name} differs from "
+                                   f"plain at {label}")
+            cases["pair_select", label][name] = fn
+        B = 2 * P
+        bytes_ = B * C * 13 + B * 4 + B * 9
+        bounds[label] = 1e3 * max(
+            bytes_ / HBM_BYTES_PER_S,
+            PAIR_OPS_PER_TEST * gridded * C * C / ops_per_s)
 
 
 def sm_clock_hz() -> float:
@@ -506,17 +594,21 @@ def main(argv: list[str] | None = None) -> int:
                     plans[label][tree] = p
     k6_plans = {}
     front_cases(libs, only, dev, rng, cases, k6_plans)
+    pair_bounds, per_call = {}, {}
+    pair_cases(libs, only, dev, rng, cases, pair_bounds, per_call)
     torch.cuda.synchronize()
 
     result = {"card": card, "k1": {}, "k2": {}, "k3": {}, "k4": {},
-              "k5": {}, "k6": {}, "k3_floors": floors, "k4_bounds": bounds,
-              "k4_plans": plans, "k6_plans": k6_plans}
+              "k5": {}, "k6": {}, "pair_select": {}, "k3_floors": floors,
+              "k4_bounds": bounds, "k4_plans": plans, "k6_plans": k6_plans,
+              "pair_bounds": pair_bounds}
     for rnd in range(args.rounds):
         for (kernel, label), fns in cases.items():
             order = list(fns) if rnd % 2 == 0 else list(fns)[::-1]
             for name in order:
+                n = per_call.get(label, 1) if name == "torch (plain)" else 1
                 result[kernel].setdefault(label, {}).setdefault(
-                    name, []).append(device_ms(fns[name]))
+                    name, []).append(device_ms(fns[name], per_call=n))
     for kernel in KERNELS:
         for label, by_tree in result[kernel].items():
             print(f"{kernel} {label}: " + "; ".join(

@@ -10,8 +10,9 @@ span, and the graphs it captures hold no node of it.  On:
     (``models/mapper.py``) mark five points of each step: its start and
     the ends of ``front`` (K5, K6, the candidates' sort and gathers),
     ``score`` (the fused score pass: slot compaction, K1, the scatter
-    back), ``select`` (the argmax; paired: the C x C grid and the pair
-    resolution) and ``finish`` (the finish pass: K4, the filters, MAPQ).
+    back), ``select`` (the argmax; paired: the pair select, the C x C
+    grid and the pair resolution in one kernel) and ``finish`` (the
+    finish pass: K4, the filters, MAPQ).
     On a card a mark is one launch of a one-thread kernel
     (``csrc/mark.cu``) that adds the ns since the previous mark, on the
     device's clock, to its phase's sum and counts it; its profiler record
@@ -32,6 +33,12 @@ span, and the graphs it captures hold no node of it.  On:
     (``reads_hit_capped``; the step's ``fanout_overflow`` holds it summed
     with the k-mer rows cut by the fan-out cap): one one-thread kernel on
     a card, a torch add on the CPU.
+  * Pair counters.  The pair select of ``map_step_paired`` adds the pairs
+    whose C x C grid it searched (a mate with >= 2 candidates,
+    ``pairs_gridded``) and those of them that no combination made proper,
+    so that the mates fell back to their singletons (``pairs_broken``):
+    one atomic each a block of the pair-select kernel on a card, torch
+    sums on the CPU.  Off, the kernel gets no counter and runs no atomic.
   * Host spans.  ``span(name)`` is a ``torch.profiler.record_function``
     range (``ngm.map_batch_scan``, ``ngm.graph.*``), so that in a profiler
     window every idle gap of the device falls inside a span of the
@@ -63,7 +70,7 @@ from nextgenmap_tpu_torch.native import build
 PHASES = ("start", "front", "score", "select", "finish")
 INNER = ("align",)      # phases inside another, each on a chain of its own
 COUNTERS = ("score_slots_demanded", "score_slots_scored", "reads_unscored",
-            "reads_hit_capped")
+            "reads_hit_capped", "pairs_gridded", "pairs_broken")
 _MARKS = 1 + 2 * len(PHASES)    # csrc/mark.cu's layout; then 3 an inner phase
 _NO_SPAN = contextlib.nullcontext()
 
@@ -168,6 +175,16 @@ def count_scores(n_sc: torch.Tensor, base: torch.Tensor,
     asked = n_sc.sum(dtype=torch.int64)
     out[:3] += torch.stack([asked, asked.clamp(max=slot_cap),
                             ((n_sc > 0) & (base + n_sc > slot_cap)).sum()])
+
+
+def pair_counters(device) -> torch.Tensor | None:
+    """The [2] int64 view of ``pairs_gridded`` and ``pairs_broken`` that
+    a pair select on `device` adds to, or None while `device` is not
+    traced."""
+    if not on(device):
+        return None
+    at = COUNTERS.index("pairs_gridded")
+    return _state.counters[at:at + 2]
 
 
 def span(name: str):
